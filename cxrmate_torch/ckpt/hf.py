@@ -6,13 +6,19 @@ port's own numpy-only copy of ``cxrmate_tpu/ckpt/hf_convert.py:178
 export_encoder_decoder``: the JAX package's parameter pytree -> the torch-layout
 state dict that the released checkpoints use. ``load_model_state`` maps such a
 state dict onto the port's HF-named modules.
+
+A LoRA decoder is PEFT-wrapped in the released longitudinal checkpoints: every
+decoder key carries ``base_model.model.`` after ``decoder.``, and the wrapped
+q/k linears hold ``base_layer`` and ``lora_A/lora_B.default`` leaves. The
+port's modules keep the leaves' names (``ops.layers.LoraLinear``) and not the
+prefix: ``load_model_state`` strips it and ``model_state_dict`` puts it back.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -74,27 +80,56 @@ def save_hf_pretrained_dir(path: str, state_dict: Dict[str, torch.Tensor], confi
         json.dump(hf, f, indent=1)
 
 
+PEFT_PREFIX = "decoder.base_model.model."
+
+
+def _strip_peft(key: str) -> str:
+    return "decoder." + key[len(PEFT_PREFIX):] if key.startswith(PEFT_PREFIX) else key
+
+
+def lora_rank(sd: Dict) -> Optional[int]:
+    """Rank of the state dict's LoRA factors; None if it holds none."""
+    for k, v in sd.items():
+        if k.endswith(".lora_A.default.weight"):
+            return int(v.shape[0])
+    return None
+
+
 def head_is_tied(sd: Dict[str, torch.Tensor]) -> bool:
     """True unless the checkpoint holds an LM projection that differs from the
     word embeddings (safetensors checkpoints drop the tied alias)."""
-    head = sd.get("decoder.cls.predictions.decoder.weight")
+    def get(name):
+        return sd.get("decoder." + name, sd.get(PEFT_PREFIX + name))
+
+    head = get("cls.predictions.decoder.weight")
     if head is None:
         return True
     return torch.equal(torch.as_tensor(head),
-                       torch.as_tensor(sd["decoder.bert.embeddings.word_embeddings.weight"]))
+                       torch.as_tensor(get("bert.embeddings.word_embeddings.weight")))
+
+
+def model_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict under the released checkpoints' key names: a
+    LoRA decoder's keys get the PEFT prefix."""
+    sd = model.state_dict()
+    if lora_rank(sd) is None:
+        return dict(sd)
+    return {PEFT_PREFIX + k[len("decoder."):] if k.startswith("decoder.") else k: v
+            for k, v in sd.items()}
 
 
 def load_model_state(model: nn.Module, sd: Dict) -> None:
     """Load an HF-layout state dict (tensors or numpy arrays) into the port's
     encoder-decoder, strictly, after dropping what the port does not hold:
     BatchNorm's ``num_batches_tracked`` counters, the ``decoder.bias`` alias of
-    ``cls.predictions.bias`` and, for a tied head, the projection weight."""
+    ``cls.predictions.bias`` and, for a tied head, the projection weight. The
+    PEFT prefix of a LoRA decoder's keys is stripped."""
     tied = not hasattr(model.decoder.cls.predictions, "decoder")
     drop = ("decoder.cls.predictions.decoder.bias",)
     if tied:
         drop += ("decoder.cls.predictions.decoder.weight",)
     clean = {k: torch.as_tensor(np.asarray(v)) if isinstance(v, np.ndarray) else v
-             for k, v in sd.items()
+             for k, v in ((_strip_peft(k), v) for k, v in sd.items())
              if k not in drop and not k.endswith("num_batches_tracked")}
     model.load_state_dict(clean, strict=True)
 
@@ -102,8 +137,8 @@ def load_model_state(model: nn.Module, sd: Dict) -> None:
 def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarray]:
     """The JAX package's ``{'params': {'encoder', 'decoder'}, 'batch_stats'}``
     pytree (numpy leaves) -> an HF-layout state dict of numpy arrays, key for
-    key and value for value what ``export_encoder_decoder`` writes. LoRA
-    decoders are not taken yet."""
+    key and value for value what ``export_encoder_decoder`` writes, the PEFT
+    names of a LoRA decoder included."""
     del dec_cfg  # the mapping reads every layer from the pytree itself
     out: Dict[str, np.ndarray] = {}
 
@@ -148,9 +183,8 @@ def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarr
         np.asarray(enc["projection_head"]["proj"]["w"]).T)
 
     dec = variables["params"]["decoder"]
-    if any("lora_a" in layer["self"][n] for layer in dec["layers"] for n in ("q", "k")):
-        raise NotImplementedError("LoRA decoders are not ported yet (ROADMAP.md queue 1, item 9)")
-    dp = "decoder."
+    lora = any("lora_a" in layer["self"][n] for layer in dec["layers"] for n in ("q", "k"))
+    dp = PEFT_PREFIX if lora else "decoder."
     e = dec["embeddings"]
     out[f"{dp}bert.embeddings.word_embeddings.weight"] = np.asarray(e["word"])
     out[f"{dp}bert.embeddings.position_embeddings.weight"] = np.asarray(e["position"])
@@ -158,8 +192,15 @@ def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarr
     put_ln(f"{dp}bert.embeddings.LayerNorm", e["ln"])
     for l, layer in enumerate(dec["layers"]):
         ly = f"{dp}bert.encoder.layer.{l}"
-        put_lin(f"{ly}.attention.self.query", layer["self"]["q"])
-        put_lin(f"{ly}.attention.self.key", layer["self"]["k"])
+        for name, hf in (("q", "query"), ("k", "key")):
+            p = layer["self"][name]
+            base = {k: v for k, v in p.items() if k in ("w", "b")}
+            if "lora_a" in p:
+                put_lin(f"{ly}.attention.self.{hf}.base_layer", base)
+                out[f"{ly}.attention.self.{hf}.lora_A.default.weight"] = np.asarray(p["lora_a"]).T
+                out[f"{ly}.attention.self.{hf}.lora_B.default.weight"] = np.asarray(p["lora_b"]).T
+            else:
+                put_lin(f"{ly}.attention.self.{hf}", base)
         put_lin(f"{ly}.attention.self.value", layer["self"]["v"])
         put_lin(f"{ly}.attention.output.dense", layer["self"]["out"])
         put_ln(f"{ly}.attention.output.LayerNorm", layer["self"]["ln"])

@@ -8,7 +8,7 @@ hashable, like the JAX package's configs, so a config can key a cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +85,32 @@ class BertDecoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    """LoRA on the decoder's self-attention query/key, as in the longitudinal
+    checkpoints (reference modelling_longitudinal.py:163-170). ``dropout`` is
+    train-only."""
+
+    r: int = 8
+    alpha: float = 32.0
+    dropout: float = 0.1
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+@dataclasses.dataclass(frozen=True)
 class EncoderDecoderConfig:
-    """Encoder + decoder + variant. The port serves ``variant='multi'``: a
-    per-study stack of up to ``max_images_per_study`` images, all-zero slots
-    masked out of cross-attention."""
+    """One config for all three variants: ``'single'`` (one image, no encoder
+    mask), ``'multi'`` (a per-study stack of up to ``max_images_per_study``
+    images, all-zero slots masked out of cross-attention) and
+    ``'longitudinal'`` (multi + the previous report as a prompt + a LoRA
+    decoder)."""
 
     encoder: CvtConfig = dataclasses.field(default_factory=cvt21_384)
     decoder: BertDecoderConfig = dataclasses.field(default_factory=BertDecoderConfig)
     variant: str = "multi"
+    lora: Optional[LoraConfig] = None
     image_size: int = 384
     max_images_per_study: int = 5
     decoder_max_len: int = 256
@@ -111,8 +129,33 @@ class EncoderDecoderConfig:
         return side * side
 
 
+def single_tf_config(vocab_size: int = 30000) -> EncoderDecoderConfig:
+    """``aehrc/cxrmate-single-tf``: one image per example, no LoRA, no prompt."""
+    return EncoderDecoderConfig(
+        decoder=BertDecoderConfig(vocab_size=vocab_size), variant="single"
+    )
+
+
 def multi_tf_config(vocab_size: int = 30000) -> EncoderDecoderConfig:
     """``aehrc/cxrmate-multi-tf``: CvT-21@384 + BERT 6x768, no LoRA, no prompt."""
     return EncoderDecoderConfig(
         decoder=BertDecoderConfig(vocab_size=vocab_size), variant="multi"
     )
+
+
+def longitudinal_config(vocab_size: int = 30000) -> EncoderDecoderConfig:
+    """``aehrc/cxrmate``: multi + previous-report prompt + LoRA r=8 on q/k."""
+    return EncoderDecoderConfig(
+        decoder=BertDecoderConfig(vocab_size=vocab_size),
+        variant="longitudinal",
+        lora=LoraConfig(),
+    )
+
+
+def preset(variant: str, vocab_size: int = 30000) -> EncoderDecoderConfig:
+    """The full-width config of a variant name."""
+    presets = {"single": single_tf_config, "multi": multi_tf_config,
+               "longitudinal": longitudinal_config}
+    if variant not in presets:
+        raise ValueError(f"unknown variant {variant!r}")
+    return presets[variant](vocab_size)

@@ -17,19 +17,15 @@ first on ties, and the NEG-filled finished slots tie exactly.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from cxrmate_torch.generate.decode import (
-    GenerationConfig,
-    _type_from_present,
-    check_supported,
-    prefill,
-)
+from cxrmate_torch.generate.decode import GenerationConfig, _type_from_present, prefill
 from cxrmate_torch.models import bert as bert_mod
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.ops import beam_reorder as br
+from cxrmate_torch.ops.decode_attention import resolve_decode_kernel
 
 NEG = -1.0e9
 
@@ -50,12 +46,16 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 @torch.no_grad()
 def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
                 encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor,
-                prompt_ids: torch.Tensor, prompt_mask: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
+                prompt_logits_col: Optional[int] = None,
+                decode_kernel: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam-search decode -> (sequences [B, P + max_new], scores [B]): the best
-    finished hypothesis per study (HF ``num_return_sequences=1``)."""
-    check_supported(gen_cfg)
-    del prompt_mask  # single/multi: the decoder mask is all ones (HF default)
+    finished hypothesis per study (HF ``num_return_sequences=1``).
+    ``prompt_logits_col`` and ``decode_kernel`` as in ``decode.generate``; the
+    decoder's mask comes from ``gen_cfg`` (``mask_token_id``)."""
+    del prompt_mask
+    decode_kernel = resolve_decode_kernel(decode_kernel)
+    masked_pads = gen_cfg.mask_token_id is not None
     k = gen_cfg.num_beams
     b, p_len = prompt_ids.shape
     dev = prompt_ids.device
@@ -65,12 +65,14 @@ def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
     penalty = gen_cfg.length_penalty
     early_stopping = gen_cfg.early_stopping
 
-    prefill_logits, cache = prefill(model, gen_cfg, encoder_hidden, encoder_mask, prompt_ids,
-                                    t_total)
+    prefill_logits, cache, _ = prefill(model, gen_cfg, encoder_hidden, encoder_mask, prompt_ids,
+                                       t_total)
     # tile the self cache to B*K rows (beam-major within each study); the
     # cross cache and encoder mask stay per study
     cache.self_k = [x.repeat_interleave(k, dim=0) for x in cache.self_k]
     cache.self_v = [x.repeat_interleave(k, dim=0) for x in cache.self_v]
+    # int8 serving decode: quantise the per-study cross cache once
+    cache, cross_q8 = bert_mod.maybe_quantize_cross_cache(cache, decode_kernel)
 
     seq = torch.full((b, k, t_total), gen_cfg.pad_token_id, dtype=prompt_ids.dtype, device=dev)
     seq[:, :, :p_len] = prompt_ids[:, None, :]
@@ -146,7 +148,8 @@ def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
         return all_hit
 
     # first step from the prefill logits
-    lp0 = torch.log_softmax(prefill_logits[:, -1].float(), dim=-1)
+    first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
+    lp0 = torch.log_softmax(prefill_logits[:, first_col].float(), dim=-1)
     all_hit = select_and_update(lp0.repeat_interleave(k, dim=0), p_len)
     cur = p_len + 1
     while cur < t_total and bool(early_unsat.any() & ~all_hit):
@@ -155,11 +158,16 @@ def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
         before = cols[None, :] < i
         present = ((seq_flat[:, :, None] == specials) & before[:, :, None]).any(dim=1)
         ttype = _type_from_present(present, gen_cfg)
-        key_mask = (cols <= i).to(torch.int32).expand(b * k, t_total)
-        pos = torch.full((b * k,), i, dtype=torch.long, device=dev)
+        upto = cols <= i
+        if masked_pads:
+            key_mask = ((seq_flat != gen_cfg.mask_token_id) & upto).to(torch.int32)
+            pos = torch.clamp(key_mask.sum(dim=1) - 1, min=0)
+        else:
+            key_mask = upto.to(torch.int32).expand(b * k, t_total)
+            pos = torch.full((b * k,), i, dtype=torch.long, device=dev)
         logits, pending = bert_mod.bert_step(
             model.decoder, cache, seq_flat[:, i], ttype, pos, i, key_mask, encoder_mask,
-            deferred_write=True)
+            deferred_write=True, decode_kernel=decode_kernel, cross_q8=cross_q8)
         lp = torch.log_softmax(logits.float(), dim=-1)
         all_hit = select_and_update(lp, cur, pending, write_idx=i)
         cur += 1

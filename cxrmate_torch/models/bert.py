@@ -1,17 +1,21 @@
 """BERT LM-head decoder with cross-attention, inference, cache-aware.
 
-The port of ``cxrmate_tpu/models/bert.py`` for the decoders without LoRA: HF
-``BertLMHeadModel`` behaviour (``is_decoder=True, add_cross_attention=True``,
-eager attention) with a static-shape KV cache. :class:`BertLMHeadModel` holds
-the parameters under HF's names; the functions below run them.
+The port of ``cxrmate_tpu/models/bert.py``: HF ``BertLMHeadModel`` behaviour
+(``is_decoder=True, add_cross_attention=True``, eager attention) with a
+static-shape KV cache, and optionally LoRA on the self-attention query/key
+(the longitudinal checkpoints). :class:`BertLMHeadModel` holds the parameters
+under HF's (and PEFT's) names; the functions below run them.
 
   * ``bert_prefill`` writes positions ``[0, P)`` of the self cache and computes
     the cross K/V once; its attention is plain PyTorch, as the JAX package
     keeps prefill outside Pallas (``decode_attention.py:16-17``).
   * ``bert_step`` runs one token at column ``index``; its self- and
-    cross-attention go through ``ops.decode_attention`` (the CUDA kernel on
-    the card). Beam search shares one cross cache per study: with a cross
-    batch of B/K, the K beams fold into the kernel's M rows.
+    cross-attention go through the kernels of ``ops.decode_attention`` that
+    the ``decode_kernel`` routing spec names (CUDA kernels on the card).
+    Beam search shares one cross cache per study: with a cross batch of B/K,
+    the K beams fold into the kernel's M rows.
+  * ``quantize_cross_cache`` turns the cross K/V into int8 once per decode
+    call for the ``cross-rowgroup-q8`` spec.
   * the cache is updated in place (the JAX package returns new arrays).
 
 Numerics follow HF eager order; additive masks are ``(1 - m) * finfo.min``.
@@ -21,18 +25,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cxrmate_torch.configs import BertDecoderConfig
+from cxrmate_torch.configs import BertDecoderConfig, LoraConfig
 from cxrmate_torch.ops import decode_attention as da
 from cxrmate_torch.ops.layers import (
     Embedding,
     LayerNorm,
     Linear,
+    LoraLinear,
     attention,
     gelu,
     merge_heads,
@@ -53,10 +58,14 @@ class _Embeddings(nn.Module):
 
 
 class _QKV(nn.Module):
-    def __init__(self, d: int, kv_in: int, **kw):
+    def __init__(self, d: int, kv_in: int, lora: Optional[LoraConfig] = None, **kw):
         super().__init__()
-        self.query = Linear(d, d, **kw)
-        self.key = Linear(kv_in, d, **kw)
+        if lora is None:
+            self.query = Linear(d, d, **kw)
+            self.key = Linear(kv_in, d, **kw)
+        else:
+            self.query = LoraLinear(d, d, lora.r, lora.scaling, **kw)
+            self.key = LoraLinear(kv_in, d, lora.r, lora.scaling, **kw)
         self.value = Linear(kv_in, d, **kw)
 
 
@@ -68,9 +77,9 @@ class _Output(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, d: int, kv_in: int, eps: float, **kw):
+    def __init__(self, d: int, kv_in: int, eps: float, lora: Optional[LoraConfig] = None, **kw):
         super().__init__()
-        self.self = _QKV(d, kv_in, **kw)
+        self.self = _QKV(d, kv_in, lora, **kw)
         self.output = _Output(d, d, eps, **kw)
 
 
@@ -81,26 +90,26 @@ class _Intermediate(nn.Module):
 
 
 class _Layer(nn.Module):
-    def __init__(self, c: BertDecoderConfig, **kw):
+    def __init__(self, c: BertDecoderConfig, lora: Optional[LoraConfig] = None, **kw):
         super().__init__()
         d, eps = c.hidden_size, c.layer_norm_eps
-        self.attention = _Attention(d, d, eps, **kw)
+        self.attention = _Attention(d, d, eps, lora, **kw)
         self.crossattention = _Attention(d, c.cross_attention_hidden_size, eps, **kw)
         self.intermediate = _Intermediate(d, c.intermediate_size, **kw)
         self.output = _Output(c.intermediate_size, d, eps, **kw)
 
 
 class _Encoder(nn.Module):
-    def __init__(self, c: BertDecoderConfig, **kw):
+    def __init__(self, c: BertDecoderConfig, lora: Optional[LoraConfig] = None, **kw):
         super().__init__()
-        self.layer = nn.ModuleList(_Layer(c, **kw) for _ in range(c.num_hidden_layers))
+        self.layer = nn.ModuleList(_Layer(c, lora, **kw) for _ in range(c.num_hidden_layers))
 
 
 class _Bert(nn.Module):
-    def __init__(self, c, **kw):
+    def __init__(self, c, lora=None, **kw):
         super().__init__()
         self.embeddings = _Embeddings(c, **kw)
-        self.encoder = _Encoder(c, **kw)
+        self.encoder = _Encoder(c, lora, **kw)
 
 
 class _Transform(nn.Module):
@@ -129,13 +138,15 @@ class _Cls(nn.Module):
 class BertLMHeadModel(nn.Module):
     """Parameter holder with HF ``BertLMHeadModel``'s key layout (``bert.*``,
     ``cls.predictions.*``). With ``tie_word_embeddings`` the LM projection is
-    the word-embedding matrix and ``cls.predictions.decoder`` is not held."""
+    the word-embedding matrix and ``cls.predictions.decoder`` is not held.
+    With ``lora`` the self-attention query and key are ``LoraLinear``s."""
 
-    def __init__(self, config: BertDecoderConfig, device=None, dtype=None):
+    def __init__(self, config: BertDecoderConfig, lora: Optional[LoraConfig] = None,
+                 device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.config = config
-        self.bert = _Bert(config, **kw)
+        self.bert = _Bert(config, lora, **kw)
         self.cls = _Cls(config, **kw)
 
 
@@ -220,7 +231,8 @@ def bert_forward(model: BertLMHeadModel, input_ids, attention_mask=None, token_t
 @dataclasses.dataclass
 class DecodeCache:
     """Per-layer K/V caches: self [B, H, T, Dh] (T = prompt + new tokens) and
-    cross [B, H, S, Dh] (computed once at prefill). Updated in place."""
+    cross [B, H, S, Dh] (computed once at prefill; zero-width after
+    ``quantize_cross_cache``). Updated in place."""
 
     self_k: List[torch.Tensor]
     self_v: List[torch.Tensor]
@@ -236,6 +248,40 @@ def init_cache(config: BertDecoderConfig, batch: int, max_len: int, enc_len: int
         return [torch.zeros(batch, h, t, dh, dtype=dtype, device=device) for _ in range(l)]
 
     return DecodeCache(zeros(max_len), zeros(max_len), zeros(enc_len), zeros(enc_len))
+
+
+CrossQ8 = List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def quantize_cross_cache(cache: DecodeCache) -> Tuple[DecodeCache, CrossQ8]:
+    """Int8-quantise the cross K/V (computed at prefill, the same at every
+    step) for the ``cross-rowgroup-q8`` decode.
+
+    Returns ``(cache, cross_q8)``: ``cross_q8`` holds per layer ``(kq int8,
+    kscale f32 [B, H, 1, S], vq int8, vscale f32)`` from
+    ``ops.decode_attention.quantize_kv_rowwise``; the cache's own cross
+    tensors become zero-width placeholders [B, H, 0, Dh] (batch and dtype
+    kept for ``bert_step``) one layer at a time, so that the card never holds
+    more than one layer's K/V in both forms. Quantised numerics: serving
+    only."""
+    cross_q8 = []
+    for i in range(len(cache.cross_k)):
+        ck, cv = cache.cross_k[i], cache.cross_v[i]
+        cross_q8.append(da.quantize_kv_rowwise(ck) + da.quantize_kv_rowwise(cv))
+        # a copy, not a view: a view would keep the full-width storage alive
+        cache.cross_k[i] = ck[:, :, :0].clone()
+        cache.cross_v[i] = cv[:, :, :0].clone()
+    return cache, cross_q8
+
+
+def maybe_quantize_cross_cache(cache: DecodeCache, decode_kernel: str
+                               ) -> Tuple[DecodeCache, Optional[CrossQ8]]:
+    """``quantize_cross_cache`` iff the resolved spec is
+    ``cross-rowgroup-q8[:G]``, else ``(cache, None)``: the one place the
+    decode loops ask. ``bert_step`` checks the pairing again."""
+    if da.is_q8(decode_kernel):
+        return quantize_cross_cache(cache)
+    return cache, None
 
 
 def bert_prefill(model: BertLMHeadModel, cache: DecodeCache, input_ids, attention_mask,
@@ -274,7 +320,8 @@ def bert_prefill(model: BertLMHeadModel, cache: DecodeCache, input_ids, attentio
 
 def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_id,
               position_id, index: int, key_mask, encoder_attention_mask, *,
-              deferred_write: bool = False):
+              deferred_write: bool = False, decode_kernel: Optional[str] = None,
+              cross_q8: Optional[CrossQ8] = None):
     """One decode step for the token at cache column ``index``.
 
     Args:
@@ -287,12 +334,24 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
         reads ``where(col == index, new, cache)`` instead (same values as the
         written cache), and the new columns are returned for the caller's
         beam reorder to write.
+      decode_kernel: decode-attention routing spec
+        (``ops.decode_attention.resolve_decode_kernel``; ``None`` reads
+        ``CXRMATE_DECODE_KERNEL``). The decode loops resolve it once per call.
+      cross_q8: ``quantize_cross_cache``'s per-layer tuples: required with,
+        and only valid with, the ``cross-rowgroup-q8`` spec; the cache's own
+        cross tensors are then zero-width placeholders.
     Returns (logits [B, V], cache), or (logits, (new_k, new_v)) with per-layer
     [B, H, Dh] lists under ``deferred_write``.
     """
     c = model.config
     heads, dh = c.num_attention_heads, c.head_dim
     dtype = cache.cross_k[0].dtype
+    decode_kernel = da.resolve_decode_kernel(decode_kernel)
+    if da.is_q8(decode_kernel) != (cross_q8 is not None):
+        raise ValueError(
+            "cross-rowgroup-q8 requires the caller to pass quantize_cross_cache's "
+            "cross_q8 tuples (and cross_q8 is only valid with that spec); got "
+            f"decode_kernel={decode_kernel!r}, cross_q8={'set' if cross_q8 else 'None'}")
     hidden = bert_embed(model, input_id[:, None], token_type_id[:, None], position_id[:, None],
                         dtype=dtype)
     self_mask2d = ((1.0 - key_mask.float()) * NEG).contiguous()
@@ -306,6 +365,19 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
         t_cols = torch.arange(cache.self_k[0].shape[2], device=hidden.device)
         is_new = (t_cols == index)[None, None, :, None]
     pend_k, pend_v = [], []
+
+    def attn(qh, kh, vh, mask2d, is_cross: bool):
+        # the wrappers are looked up at call time, on the module
+        if da.uses_vpu(decode_kernel, is_cross):
+            return da.decode_attention_vpu(qh, kh, vh, mask2d, scale)
+        return da.decode_attention(qh, kh, vh, mask2d, scale)
+
+    def cross_attn(cqh, i: int):
+        if cross_q8 is not None:  # int8 operands; the cache's cross entries are placeholders
+            kq, ks, vq, vs = cross_q8[i]
+            return da.decode_attention_q8(cqh, kq, ks, vq, vs, cross_mask2d, scale)
+        return attn(cqh, cache.cross_k[i], cache.cross_v[i], cross_mask2d, True)
+
     for i, layer in enumerate(model.bert.encoder.layer):
         sa = layer.attention
         qh = split_heads(sa.self.query(hidden), heads).contiguous()  # [B, H, 1, Dh]
@@ -320,14 +392,14 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
             cache.self_k[i][:, :, index] = kh[:, :, 0]
             cache.self_v[i][:, :, index] = vh[:, :, 0]
             k_read, v_read = cache.self_k[i], cache.self_v[i]
-        ctx = da.decode_attention(qh, k_read, v_read, self_mask2d, scale)
+        ctx = attn(qh, k_read, v_read, self_mask2d, False)
         hidden = sa.output.LayerNorm(sa.output.dense(merge_heads(ctx)) + hidden)
 
         ca = layer.crossattention
         cq = ca.self.query(hidden)  # [B, 1, D]
         # fold a study's beams into the query rows over its shared cross cache
         cqh = cq.reshape(groups, beams, heads, dh).transpose(1, 2).contiguous()
-        gctx = da.decode_attention(cqh, cache.cross_k[i], cache.cross_v[i], cross_mask2d, scale)
+        gctx = cross_attn(cqh, i)
         cctx = gctx.transpose(1, 2).reshape(bsz, 1, heads * dh)
         hidden = ca.output.LayerNorm(ca.output.dense(cctx) + hidden)
         hidden = _mlp(layer, hidden)

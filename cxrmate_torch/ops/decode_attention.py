@@ -1,19 +1,35 @@
-"""Decode attention for one step against a cached K/V, kernel 2 of the port.
+"""Decode attention for one step against a cached K/V: three kernels and the
+routing spec that chooses between them.
 
-Replaces ``cxrmate_tpu/ops/decode_attention.py:50 decode_attention`` (and its
-TPU blockings :98 and :149, the same function). The CUDA kernel
-(``csrc/decode_attention.cu``) keeps the contract's op order: fp32 scores,
-x scale, + the f32 additive mask, max-subtracted fp32 softmax, probs rounded to
-the input dtype before P.V, fp32 context. Its source note says what bounds it
-on the H100 and how the design meets that.
+  * :func:`decode_attention` replaces
+    ``cxrmate_tpu/ops/decode_attention.py:50 decode_attention`` (and its TPU
+    blockings :98 and :149, the same function). The CUDA kernel
+    (``csrc/decode_attention.cu``) keeps the contract's op order: fp32 scores,
+    x scale, + the f32 additive mask, max-subtracted fp32 softmax, probs
+    rounded to the input dtype before P.V, fp32 context.
+  * :func:`decode_attention_vpu` replaces ``:221
+    decode_attention_rowgroup_vpu``: the same contract from separate fp32
+    multiplies and adds in one fixed order (``csrc/decode_attention_vpu.cu``).
+  * :func:`decode_attention_q8` replaces ``:310
+    decode_attention_rowgroup_q8``: attention over an int8 K/V cache made by
+    :func:`quantize_kv_rowwise`, the per-key scales folded into the [M, S]
+    scores and probs (``csrc/decode_attention_q8.cu``).
 
-On a CPU tensor :func:`decode_attention` runs :func:`decode_attention_plain`;
-on a CUDA tensor it launches the kernel or raises.
+Each source's note says what bounds the kernel on the H100 and how its design
+meets that. On a CPU tensor a wrapper runs its ``*_plain`` version; on a CUDA
+tensor it launches the kernel or raises.
+
+:func:`resolve_decode_kernel` is the port's copy of the JAX package's routing
+grammar (``CXRMATE_DECODE_KERNEL``); ``models.bert.bert_step`` reads the
+resolved spec.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import re
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,32 +58,38 @@ def smem_bytes(m: int, s: int, dh: int) -> int:
     return 4 * (m * dh + m * s + (_THREADS // 32) * m * dh)
 
 
+def _check_qkv(name: str, q, k, v, additive_mask, kv_dtype) -> Tuple[int, int, int, int, int]:
+    """Reject what the three kernels do not take; -> (b, h, m, s, dh)."""
+    req = _build.require
+    req(q.is_cuda and all(t.device == q.device for t in (k, v, additive_mask)),
+        f"{name}: q, k, v and the mask must be on one CUDA device")
+    req(q.dtype in _C, f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    req(k.dtype == kv_dtype and v.dtype == kv_dtype,
+        f"{name}: k and v must have dtype {kv_dtype}, got {k.dtype}, {v.dtype}")
+    req(additive_mask.dtype == torch.float32, f"{name}: the mask must be float32")
+    req(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+        and k.shape[:2] == q.shape[:2] and k.shape[3] == q.shape[3],
+        f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, h, m, dh = q.shape
+    s = k.shape[2]
+    req(tuple(additive_mask.shape) == (b, s),
+        f"{name}: mask shape {tuple(additive_mask.shape)} != {(b, s)}")
+    req(dh == 64, f"{name}: needs head dim 64, got {dh}")
+    req(1 <= m <= _MAX_M and s >= 1, f"{name}: needs 1 <= M <= {_MAX_M}, S >= 1")
+    req(smem_bytes(m, s, dh) <= _SMEM_LIMIT,
+        f"{name}: M={m} x S={s} scores exceed one block's shared memory")
+    req(all(t.is_contiguous() for t in (q, k, v, additive_mask)),
+        f"{name}: q, k, v and the mask must be contiguous")
+    return b, h, m, s, dh
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      additive_mask: torch.Tensor, scale: float) -> torch.Tensor:
     """q [B, H, M, dh] vs cached k/v [B, H, S, dh] with a [B, S] fp32 additive
     key mask -> ctx [B, H, M, dh]. M is 1 (greedy) or the beam count."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, additive_mask, scale)
-    req = _build.require
-    req(q.is_cuda and all(t.device == q.device for t in (k, v, additive_mask)),
-        "decode_attention: q, k, v and the mask must be on one CUDA device")
-    req(q.dtype in _C and k.dtype == q.dtype and v.dtype == q.dtype,
-        f"decode_attention: q, k, v must share a dtype of float32 or bfloat16, got "
-        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    req(additive_mask.dtype == torch.float32, "decode_attention: the mask must be float32")
-    req(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
-        and k.shape[:2] == q.shape[:2] and k.shape[3] == q.shape[3],
-        f"decode_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    b, h, m, dh = q.shape
-    s = k.shape[2]
-    req(tuple(additive_mask.shape) == (b, s),
-        f"decode_attention: mask shape {tuple(additive_mask.shape)} != {(b, s)}")
-    req(dh == 64, f"decode_attention: needs head dim 64, got {dh}")
-    req(1 <= m <= _MAX_M and s >= 1, f"decode_attention: needs 1 <= M <= {_MAX_M}, S >= 1")
-    req(smem_bytes(m, s, dh) <= _SMEM_LIMIT,
-        f"decode_attention: M={m} x S={s} scores exceed one block's shared memory")
-    req(all(t.is_contiguous() for t in (q, k, v, additive_mask)),
-        "decode_attention: q, k, v and the mask must be contiguous")
+    b, h, m, s, dh = _check_qkv("decode_attention", q, k, v, additive_mask, q.dtype)
     out = torch.empty_like(q)
     if b * h == 0:
         return out
@@ -82,3 +104,179 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+# ------------------------------------------------------- multiply-reduce (vpu)
+_C_VPU = {torch.float32: "cxr_decode_attention_vpu_f32",
+          torch.bfloat16: "cxr_decode_attention_vpu_bf16"}
+
+
+def decode_attention_vpu_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               additive_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The multiply-reduce kernel's plain version, the op order of
+    ``_attn_kernel_rowgroup_vpu`` (:203-215): q, K, V cast to fp32, an
+    elementwise product then a sum over dh, the exact softmax, probs rounded
+    to the input dtype, an elementwise product then a sum over S. One query
+    row at a time, so the [S, dh] products are the largest intermediate."""
+    kf, vf = k.float(), v.float()
+    rows = []
+    for mi in range(q.shape[2]):
+        scores = (kf * q[:, :, mi:mi + 1].float()).sum(-1)  # [B, H, S]
+        scores = scores * scale + additive_mask.float()[:, None, :]
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        rows.append((probs.float()[..., None] * vf).sum(-2))  # [B, H, dh]
+    return torch.stack(rows, dim=2).to(q.dtype)
+
+
+def decode_attention_vpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         additive_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The contract of :func:`decode_attention`, computed from separate fp32
+    multiplies and adds in one fixed order: a row's output bits do not depend
+    on the batch it is in, on M or on the launch."""
+    if q.device.type == "cpu":
+        return decode_attention_vpu_plain(q, k, v, additive_mask, scale)
+    b, h, m, s, dh = _check_qkv("decode_attention_vpu", q, k, v, additive_mask, q.dtype)
+    out = torch.empty_like(q)
+    if b * h == 0:
+        return out
+    name = _C_VPU[q.dtype]
+    fn = _build.kernel(name, _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), additive_mask.data_ptr(),
+                 out.data_ptr(), b * h, h, m, s, dh, float(scale), _build.stream_of(q))
+    _build.check(err, name)
+    decode_attention_vpu.launches += 1
+    return out
+
+
+decode_attention_vpu.launches = 0
+
+
+# ------------------------------------------------------------ int8 K/V (q8)
+_C_Q8 = {torch.float32: "cxr_decode_attention_q8_f32",
+         torch.bfloat16: "cxr_decode_attention_q8_bf16"}
+_ARGTYPES_Q8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def quantize_kv_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-key-row int8 quantisation of a cached K or V tensor
+    (``cxrmate_tpu/ops/decode_attention.py:259``; plain tensor ops there too,
+    run once per decode call).
+
+    ``x`` [B, H, S, dh] -> (``q`` int8 [B, H, S, dh], ``scales`` f32
+    [B, H, 1, S]) with ``scales = max|row| / 127`` (1.0 for all-zero rows) and
+    ``q = clip(round_half_even(x / scales), -127, 127)``. Neither scale is
+    ever multiplied back into the [S, dh] data: ``q . (kq ks) == (q . kq) ks``
+    and ``probs . (vq vs) == (probs vs) . vq``, so both fold into [M, S]."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)  # [B, H, S]
+    scales = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scales[..., None]), -127, 127).to(torch.int8)
+    return q, scales[:, :, None, :].contiguous()
+
+
+def decode_attention_q8_plain(q: torch.Tensor, kq: torch.Tensor, kscale: torch.Tensor,
+                              vq: torch.Tensor, vscale: torch.Tensor,
+                              additive_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The int8 kernel's plain version, the op order of
+    ``_attn_kernel_rowgroup_q8`` (:290-306): ``(q . kq) * ks`` in fp32, x
+    scale, + mask, the exact softmax, then ``probs * vs`` rounded to q's dtype
+    (the bare probs are not rounded first), fp32 context."""
+    scores = torch.matmul(q.float(), kq.float().transpose(-1, -2)) * kscale
+    scores = scores * scale + additive_mask.float()[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    pv = (probs * vscale).to(q.dtype)
+    return torch.matmul(pv.float(), vq.float()).to(q.dtype)
+
+
+def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, kscale: torch.Tensor,
+                        vq: torch.Tensor, vscale: torch.Tensor,
+                        additive_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """q [B, H, M, dh] (float32 or bfloat16) vs an int8 cache kq/vq
+    [B, H, S, dh] with fp32 per-key scales [B, H, 1, S] and a [B, S] fp32
+    additive key mask -> ctx [B, H, M, dh] in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_q8_plain(q, kq, kscale, vq, vscale, additive_mask, scale)
+    b, h, m, s, dh = _check_qkv("decode_attention_q8", q, kq, vq, additive_mask, torch.int8)
+    req = _build.require
+    for sc in (kscale, vscale):
+        req(sc.device == q.device and sc.dtype == torch.float32 and sc.is_contiguous()
+            and tuple(sc.shape) == (b, h, 1, s),
+            f"decode_attention_q8: scales must be contiguous float32 {(b, h, 1, s)} on q's "
+            f"device, got {sc.dtype} {tuple(sc.shape)}")
+    out = torch.empty_like(q)
+    if b * h == 0:
+        return out
+    name = _C_Q8[q.dtype]
+    fn = _build.kernel(name, _ARGTYPES_Q8)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), kq.data_ptr(), kscale.data_ptr(), vq.data_ptr(),
+                 vscale.data_ptr(), additive_mask.data_ptr(), out.data_ptr(),
+                 b * h, h, m, s, dh, float(scale), _build.stream_of(q))
+    _build.check(err, name)
+    decode_attention_q8.launches += 1
+    return out
+
+
+decode_attention_q8.launches = 0
+
+
+# -------------------------------------------------------------------- routing
+# the routing grammar of CXRMATE_DECODE_KERNEL, as the JAX package accepts it:
+# bare specs route all attention, the "cross-" prefix only the cross-attention,
+# and q8 exists only in cross- form (the self cache is rewritten every step)
+_KERNEL_SPEC_RE = re.compile(
+    r"^(?:1|rowgrid|(?:vpu-)?rowgroup(?::\d+)?"
+    r"|cross-(?:1|rowgrid|(?:vpu-)?rowgroup(?::\d+)?|rowgroup-q8(?::\d+)?))$"
+)
+
+
+def resolve_decode_kernel(spec: Optional[str] = None) -> str:
+    """Resolve the decode-attention routing spec. ``None`` reads
+    ``CXRMATE_DECODE_KERNEL`` at call time; ``""`` and ``"0"`` give ``""``; a
+    spec outside the grammar raises ``ValueError`` (a near-miss must not run
+    another kernel than the one meant).
+
+    The hand-written kernels are the port's default, not an opt-in, so on the
+    card the specs mean:
+
+      ``""``, ``1``, ``rowgrid``, ``rowgroup[:G]`` and their ``cross-`` forms
+          :func:`decode_attention` for self- and cross-attention (the TPU
+          blockings are one function here);
+      ``vpu-rowgroup[:G]``
+          :func:`decode_attention_vpu` for both;
+      ``cross-vpu-rowgroup[:G]``
+          :func:`decode_attention` for self-, :func:`decode_attention_vpu`
+          for cross-attention;
+      ``cross-rowgroup-q8[:G]``
+          :func:`decode_attention` for self-, :func:`decode_attention_q8`
+          over the quantised cross cache for cross-attention (quantised
+          numerics: serving only).
+
+    ``:G`` is a TPU grid blocking (rows per grid cell): the grammar validates
+    it and it has no effect on the card, where every kernel runs one block per
+    (row, head)."""
+    if spec is None:
+        spec = os.environ.get("CXRMATE_DECODE_KERNEL", "")
+    if spec in ("", "0"):
+        return ""
+    if not _KERNEL_SPEC_RE.match(spec):
+        raise ValueError(
+            f"invalid CXRMATE_DECODE_KERNEL spec {spec!r}: expected one of "
+            "'', '0', '1', 'rowgrid', 'rowgroup[:G]', 'vpu-rowgroup[:G]' "
+            "(optionally 'cross-'-prefixed to route only the cross-attention) "
+            "or 'cross-rowgroup-q8[:G]' (q8 requires the 'cross-' prefix)"
+        )
+    return spec
+
+
+def is_q8(spec: str) -> bool:
+    return spec.startswith("cross-rowgroup-q8")
+
+
+def uses_vpu(spec: str, is_cross: bool) -> bool:
+    """Whether a resolved spec sends this attention to the multiply-reduce
+    kernel."""
+    if spec.startswith("cross-"):
+        return is_cross and spec[len("cross-"):].startswith("vpu-rowgroup")
+    return spec.startswith("vpu-rowgroup")

@@ -27,6 +27,21 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return F.linear(x, weight, bias)
 
 
+def lora_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                lora_a: Optional[torch.Tensor], lora_b: Optional[torch.Tensor],
+                scaling: float) -> torch.Tensor:
+    """Linear with a LoRA delta, inference form (PEFT ``lora.Linear`` without
+    its train-only dropout): ``x W^T + b + scaling * (x A^T) B^T`` with
+    ``lora_a`` [r, in] and ``lora_b`` [out, r] as PEFT stores them. The LoRA
+    branch accumulates in fp32 and is rounded to the output dtype before the
+    add, as ``cxrmate_tpu/ops/layers.py:29`` does."""
+    y = linear(x, weight, bias)
+    if lora_a is None:
+        return y
+    delta = F.linear(F.linear(x.float(), lora_a.float()), lora_b.float())
+    return y + (scaling * delta).to(y.dtype)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm over the last axis, output in x's dtype. PyTorch computes the
     statistics and the affine step in fp32 for bf16 input and rounds once."""
@@ -90,6 +105,24 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return linear(x, self.weight, self.bias)
+
+
+class LoraLinear(nn.Module):
+    """A linear wrapped by PEFT's LoRA, under PEFT's key names:
+    ``base_layer.{weight,bias}``, ``lora_A.default.weight`` [r, in] and
+    ``lora_B.default.weight`` [out, r]."""
+
+    def __init__(self, in_features: int, out_features: int, r: int, scaling: float, **kw):
+        super().__init__()
+        self.scaling = scaling
+        self.base_layer = Linear(in_features, out_features, **kw)
+        self.lora_A = nn.ModuleDict({"default": Linear(in_features, r, bias=False, **kw)})
+        self.lora_B = nn.ModuleDict({"default": Linear(r, out_features, bias=False, **kw)})
+
+    def forward(self, x):
+        return lora_linear(x, self.base_layer.weight, self.base_layer.bias,
+                           self.lora_A["default"].weight, self.lora_B["default"].weight,
+                           self.scaling)
 
 
 class LayerNorm(nn.Module):

@@ -14,6 +14,8 @@ import json
 import os
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 # The GPT-2 / ByteLevel pre-tokenization pattern (HF tokenizers `ByteLevel.use_regex`).
 _BYTE_LEVEL_PATTERN = (
     r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
@@ -51,9 +53,9 @@ def unicode_to_bytes() -> Dict[str, int]:
 class ByteLevelBPETokenizer:
     """HF-compatible byte-level BPE with added special tokens.
 
-    The surface the serving path uses: ``encode``,
-    ``decode(skip_special_tokens=True)``, ``bos/eos/sep/pad/mask`` token ids and
-    ``additional_special_tokens``.
+    The surface the serving path uses: ``encode``, the batch call with
+    longest padding and truncation, ``decode(skip_special_tokens=True)``,
+    ``bos/eos/sep/pad/mask`` token ids and ``additional_special_tokens``.
     """
 
     def __init__(
@@ -239,6 +241,27 @@ class ByteLevelBPETokenizer:
                     else:
                         buf.extend(ch.encode("utf-8"))
         return buf.decode("utf-8", errors="replace")
+
+    def __call__(self, texts: Sequence[str], padding: str = "longest", truncation: bool = False,
+                 max_length: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Batch encode with longest (or ``"max_length"``) padding and
+        truncation, as the reference's ``tokenizer(report, padding='longest',
+        truncation=True, max_length=...)`` calls. Returns int32 numpy arrays
+        ``input_ids`` and ``attention_mask``."""
+        if isinstance(texts, str):
+            texts = [texts]
+        encoded = [self.encode(t) for t in texts]
+        if truncation and max_length is not None:
+            encoded = [e[:max_length] for e in encoded]
+        width = max((len(e) for e in encoded), default=0)
+        if padding == "max_length" and max_length is not None:
+            width = max_length
+        input_ids = np.full((len(encoded), width), self.pad_token_id, dtype=np.int32)
+        attention_mask = np.zeros((len(encoded), width), dtype=np.int32)
+        for r, e in enumerate(encoded):
+            input_ids[r, : len(e)] = e
+            attention_mask[r, : len(e)] = 1
+        return {"input_ids": input_ids, "attention_mask": attention_mask}
 
     # -- serialization (HF tokenizer.json) --------------------------------------
     @classmethod

@@ -77,9 +77,14 @@ def test_entry_points_run_on_the_card_unless_asked(hf_dir):
 
 
 def test_unported_variants_raise(hf_dir):
-    for variant in ("single", "longitudinal"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CXRMate.from_hf_checkpoint(hf_dir, variant=variant, device="cpu")
+    """No variant of the JAX package is left unported: all three load (a
+    checkpoint without LoRA factors drops the longitudinal preset's LoRA), and
+    only a name outside them raises."""
+    for variant in ("single", "multi", "longitudinal"):
+        model = CXRMate.from_hf_checkpoint(hf_dir, variant=variant, device="cpu")
+        assert model.config.variant == variant and model.config.lora is None
+    with pytest.raises(ValueError, match="unknown variant"):
+        CXRMate.from_hf_checkpoint(hf_dir, variant="bogus", device="cpu")
 
 
 def test_tokenizer_copy_matches_jax():

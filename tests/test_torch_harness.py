@@ -1,6 +1,8 @@
 """Shared harness of the PyTorch port's tests, and its own checks.
 
-One source of weights: the JAX package initialises a tiny multi model
+One source of weights: the JAX package initialises a tiny model (multi by
+default; ``variant="longitudinal"`` adds LoRA r=8 on the decoder's q/k with a
+randomised ``lora_b``, which JAX initialises to zeros)
 (``init_cvt_variables``, ``init_bert_params``; the shapes of
 tests/oracles.py:80-105, written out here because importing oracles pulls in
 ``transformers``), numpy randomises the BatchNorm running statistics and the
@@ -47,26 +49,31 @@ _DEC = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermed
             cross_attention_hidden_size=32)
 
 
-def jax_config(vocab: int = VOCAB) -> jcfg.EncoderDecoderConfig:
+_LORA = dict(r=8, alpha=32.0)  # the longitudinal preset's
+
+
+def jax_config(vocab: int = VOCAB, variant: str = "multi") -> jcfg.EncoderDecoderConfig:
     return jcfg.EncoderDecoderConfig(
         encoder=jcfg.CvtConfig(**_ENC),
         decoder=jcfg.BertDecoderConfig(vocab_size=vocab, **_DEC),
-        variant="multi", image_size=64)
+        variant=variant, image_size=64,
+        lora=jcfg.LoraConfig(**_LORA) if variant == "longitudinal" else None)
 
 
-def torch_config(vocab: int = VOCAB) -> tcfg.EncoderDecoderConfig:
+def torch_config(vocab: int = VOCAB, variant: str = "multi") -> tcfg.EncoderDecoderConfig:
     return tcfg.EncoderDecoderConfig(
         encoder=tcfg.CvtConfig(**_ENC),
         decoder=tcfg.BertDecoderConfig(vocab_size=vocab, **_DEC),
-        variant="multi", image_size=64)
+        variant=variant, image_size=64,
+        lora=tcfg.LoraConfig(**_LORA) if variant == "longitudinal" else None)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_variables(seed: int = 0, vocab: int = VOCAB):
-    """The tiny multi model's JAX variables, numpy leaves."""
-    cfg = jax_config(vocab)
+def jax_variables(seed: int = 0, vocab: int = VOCAB, variant: str = "multi"):
+    """The tiny model's JAX variables, numpy leaves."""
+    cfg = jax_config(vocab, variant)
     enc = init_cvt_variables(jax.random.PRNGKey(seed), cfg.encoder)
-    dec = init_bert_params(jax.random.PRNGKey(seed + 1), cfg.decoder)
+    dec = init_bert_params(jax.random.PRNGKey(seed + 1), cfg.decoder, lora=cfg.lora)
     variables = {"params": {"encoder": enc["params"], "decoder": dec},
                  "batch_stats": enc["batch_stats"]}
     rs = np.random.RandomState(seed + 2)
@@ -78,7 +85,7 @@ def jax_variables(seed: int = 0, vocab: int = VOCAB):
             return rs.normal(0.0, 0.02, x.shape).astype(x.dtype)
         if name == "var":
             return rs.uniform(0.8, 1.2, x.shape).astype(x.dtype)
-        if name in ("b", "bias", "scale"):  # constants at init: make them count
+        if name in ("b", "bias", "scale", "lora_b"):  # constants at init: make them count
             return (x + rs.normal(0.0, 0.05, x.shape)).astype(x.dtype)
         return x
 
@@ -86,15 +93,15 @@ def jax_variables(seed: int = 0, vocab: int = VOCAB):
 
 
 @functools.lru_cache(maxsize=None)
-def hf_state_dict(seed: int = 0, vocab: int = VOCAB):
-    cfg = jax_config(vocab)
-    return export_encoder_decoder(jax_variables(seed, vocab), cfg.encoder, cfg.decoder)
+def hf_state_dict(seed: int = 0, vocab: int = VOCAB, variant: str = "multi"):
+    cfg = jax_config(vocab, variant)
+    return export_encoder_decoder(jax_variables(seed, vocab, variant), cfg.encoder, cfg.decoder)
 
 
-def torch_model(seed: int = 0, vocab: int = VOCAB) -> EncoderDecoder:
+def torch_model(seed: int = 0, vocab: int = VOCAB, variant: str = "multi") -> EncoderDecoder:
     """The same model in the port, fp32 on the CPU."""
-    model = EncoderDecoder(torch_config(vocab), device="cpu", dtype=torch.float32)
-    load_model_state(model, hf_state_dict(seed, vocab))
+    model = EncoderDecoder(torch_config(vocab, variant), device="cpu", dtype=torch.float32)
+    load_model_state(model, hf_state_dict(seed, vocab, variant))
     return model
 
 
@@ -118,15 +125,18 @@ def _shared():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of cxrmate_torch loads neither jax nor
-    cxrmate_tpu (checked in a fresh interpreter: this one has JAX loaded)."""
+    """Importing every module of cxrmate_torch, and chip_smoke.py, loads
+    neither jax nor cxrmate_tpu (checked in a fresh interpreter: this one has
+    JAX loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cxrmate_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(cxrmate_torch.__path__, 'cxrmate_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cxrmate_tpu'))\n"
-        "assert len(names) >= 15, names\n"
+        "assert 'cxrmate_torch.generate.logits_process' in names, names\n"
+        "assert len(names) >= 23, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

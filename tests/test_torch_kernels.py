@@ -1,9 +1,12 @@
-"""The port's three kernels: each plain version against the JAX Pallas kernel
+"""The port's five kernels: each plain version against the JAX Pallas kernel
 (interpret mode on the CPU, as the JAX package's own tests run it), and on a
-card each CUDA kernel against its plain version.
+card each CUDA kernel against its plain version. Also the routing grammar and
+the int8 quantisation beside the kernels.
 
-Tolerances: attention in fp32 1e-5 (the JAX package's own flash bound),
-bf16 1e-2 on the card; the beam reorder is data movement, so bit-exact.
+Tolerances: attention in fp32 1e-5 (the JAX package's own flash bound; 2e-5
+for the multiply-reduce and int8 kernels, whose sums run in another order
+than the interpreter's), bf16 1e-2 on the card; the beam reorder is data
+movement and the quantisation is elementwise, so both are bit-exact.
 
 The file imports neither JAX nor the shared harness at module level, so that
 the CUDA tests run on the card's machine as they are (with ``--noconftest``:
@@ -69,12 +72,12 @@ def _reorder_inputs(seed, groups, beams, h, t_len, dh):
 def jx():
     """The JAX package's Pallas kernels, run in interpret mode below."""
     jnp = pytest.importorskip("jax.numpy")
+    from cxrmate_tpu.ops import decode_attention as jda
     from cxrmate_tpu.ops.beam_reorder import beam_reorder_write
-    from cxrmate_tpu.ops.decode_attention import decode_attention
     from cxrmate_tpu.ops.flash_attention import flash_attention
 
-    return types.SimpleNamespace(jnp=jnp, flash=flash_attention, decode=decode_attention,
-                                 reorder=beam_reorder_write)
+    return types.SimpleNamespace(jnp=jnp, flash=flash_attention, decode=jda.decode_attention,
+                                 reorder=beam_reorder_write, da=jda)
 
 
 @pytest.mark.parametrize("lq,lk,d", [(64, 64, 16), (100, 52, 16)])  # second: ragged
@@ -95,6 +98,92 @@ def test_decode_plain_matches_jax_kernel(jx, m):
     got = da.decode_attention(t(q), t(k), t(v), t(mask), 0.35)
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_decode_vpu_plain_matches_jax_kernel(jx, m):
+    """2e-5; the last batch row is fully masked and must stay finite."""
+    q, k, v, mask = _decode_inputs(6, 4, 2, m, 40, 8)
+    want = jx.da.decode_attention_rowgroup_vpu(
+        *(jx.jnp.asarray(a) for a in (q, k, v, mask)), 0.35, group=2, interpret=True)
+    got = da.decode_attention_vpu(t(q), t(k), t(v), t(mask), 0.35)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert da.decode_attention_vpu.launches == 0  # the CPU runs the plain version
+
+
+def test_quantize_kv_rowwise_bit_equal_to_jax(jx):
+    """Scales and int8 values equal JAX's bit for bit: an all-zero row (scale
+    1.0), exact .5 ties (round half to even) and a row at full scale."""
+    x = np.random.RandomState(7).randn(2, 3, 16, 8).astype(np.float32)
+    x[0, 0, 3] = 0.0
+    x[0, 1, 2] = np.array([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 63.5], np.float32)
+    x[1, 2, 5] = np.array([-127, 127, 126.5, -126.5, 3.5, 4.5, 0, 1], np.float32)
+    want_q, want_s = jx.da.quantize_kv_rowwise(jx.jnp.asarray(x))
+    got_q, got_s = da.quantize_kv_rowwise(t(x))
+    assert got_q.dtype == torch.int8 and tuple(got_s.shape) == (2, 3, 1, 16)
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    assert got_s[0, 0, 0, 3] == 1.0 and got_s[0, 1, 0, 2] == 1.0
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_decode_q8_plain_matches_jax_kernel(jx, m):
+    """2e-5 on unit-scale data, from the same quantised cache; the last batch
+    row is fully masked and must stay finite."""
+    q, k, v, mask = _decode_inputs(8, 4, 2, m, 40, 8)
+    kq, ks = da.quantize_kv_rowwise(t(k))
+    vq, vs = da.quantize_kv_rowwise(t(v))
+    want = jx.da.decode_attention_rowgroup_q8(
+        *(jx.jnp.asarray(a.numpy() if torch.is_tensor(a) else a)
+          for a in (q, kq, ks, vq, vs, mask)), 0.35, group=2, interpret=True)
+    got = da.decode_attention_q8(t(q), kq, ks, vq, vs, t(mask), 0.35)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert da.decode_attention_q8.launches == 0
+
+
+def test_decode_q8_plain_within_quantisation_bounds():
+    """Against exact attention on the unquantised K/V, unit-normal data: the
+    JAX test's bounds (max < 0.1, RMS < 0.02)."""
+    q, k, v, _ = _decode_inputs(9, 2, 4, 1, 192, 64)
+    mask = np.zeros((2, 192), np.float32)
+    kq, ks = da.quantize_kv_rowwise(t(k))
+    vq, vs = da.quantize_kv_rowwise(t(v))
+    got = da.decode_attention_q8(t(q), kq, ks, vq, vs, t(mask), 0.125)
+    want = da.decode_attention_plain(t(q), t(k), t(v), t(mask), 0.125)
+    err = (got - want).abs()
+    assert err.max() < 0.1 and err.pow(2).mean().sqrt() < 0.02
+
+
+def test_resolve_decode_kernel_matches_jax_grammar(jx, monkeypatch):
+    """The same specs pass and fail as in the JAX package; None reads the
+    environment at call time; :G is validated and changes no routing."""
+    good = ("", "0", "1", "rowgrid", "rowgroup", "rowgroup:4", "vpu-rowgroup:2",
+            "cross-rowgroup:4", "cross-rowgrid", "cross-vpu-rowgroup", "cross-rowgroup-q8",
+            "cross-rowgroup-q8:8")
+    bad = ("rowgroup-q8:4", "q8", "cross-", "cross-q8", "rowgroup:", "rowgroup:x",
+           "cross-rowgroup-q8:", "CROSS-rowgroup:4")
+    for spec in good:
+        assert da.resolve_decode_kernel(spec) == jx.da.resolve_decode_kernel(spec)
+    for spec in bad:
+        for fn in (da.resolve_decode_kernel, jx.da.resolve_decode_kernel):
+            with pytest.raises(ValueError, match="invalid CXRMATE_DECODE_KERNEL"):
+                fn(spec)
+    monkeypatch.setenv("CXRMATE_DECODE_KERNEL", "cross-rowgroup-q8:2")
+    assert da.resolve_decode_kernel(None) == "cross-rowgroup-q8:2"
+    monkeypatch.setenv("CXRMATE_DECODE_KERNEL", "rowgroup-q8")
+    with pytest.raises(ValueError):
+        da.resolve_decode_kernel(None)
+    monkeypatch.delenv("CXRMATE_DECODE_KERNEL")
+    assert da.resolve_decode_kernel(None) == ""
+    routes = {spec: (da.uses_vpu(spec, False), da.uses_vpu(spec, True), da.is_q8(spec))
+              for spec in good}
+    assert routes["vpu-rowgroup:2"] == (True, True, False)
+    assert routes["cross-vpu-rowgroup"] == (False, True, False)
+    assert routes["cross-rowgroup-q8:8"] == (False, False, True)
+    assert all(r == (False, False, False) for s, r in routes.items()
+               if "vpu" not in s and "q8" not in s)
 
 
 @pytest.mark.parametrize("index", [5, 0, 15, -1])
@@ -136,6 +225,39 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,s", [(1, 2880), (4, 2880), (1, 511)])
+def test_decode_vpu_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s):
+    q, k, v, mask = _decode_inputs(10, 3, 12, m, s, 64)
+    q, k, v = (t(a).to(cuda_device, dtype) for a in (q, k, v))
+    mask = t(mask).to(cuda_device)
+    got = da.decode_attention_vpu(q, k, v, mask, 0.125)
+    want = da.decode_attention_vpu_plain(q, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # a row's bits do not depend on the batch it is in
+    alone = da.decode_attention_vpu(q[1:2], k[1:2], v[1:2], mask[1:2], 0.125)
+    assert torch.equal(alone, got[1:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,s", [(1, 2880), (4, 2880), (1, 100)])
+def test_decode_q8_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s):
+    q, k, v, mask = _decode_inputs(11, 3, 12, m, s, 64)
+    q = t(q).to(cuda_device, dtype)
+    kq, ks = da.quantize_kv_rowwise(t(k).to(cuda_device))
+    vq, vs = da.quantize_kv_rowwise(t(v).to(cuda_device))
+    mask = t(mask).to(cuda_device)
+    with parity_mode():
+        got = da.decode_attention_q8(q, kq, ks, vq, vs, mask, 0.125)
+        want = da.decode_attention_q8_plain(q, kq, ks, vq, vs, mask, 0.125)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("index", [70, 0, -1])
 def test_beam_reorder_kernel_matches_plain_on_card(cuda_device, dtype, index):
@@ -167,6 +289,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         da.decode_attention(q, kv.transpose(2, 3).contiguous().transpose(2, 3), kv,
                             torch.zeros(2, 10, device=cuda_device), 0.125)
+    with pytest.raises(ValueError, match="dtype"):
+        da.decode_attention_vpu(q, kv.half(), kv.half(), torch.zeros(2, 10, device=cuda_device),
+                                0.125)
+    scales = torch.ones(2, 12, 1, 10, device=cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        da.decode_attention_q8(q, kv, scales, kv, scales, torch.zeros(2, 10, device=cuda_device),
+                               0.125)
+    with pytest.raises(ValueError, match="scales"):
+        da.decode_attention_q8(q, kv.to(torch.int8), scales[:, :, 0], kv.to(torch.int8), scales,
+                               torch.zeros(2, 10, device=cuda_device), 0.125)
     cache = torch.zeros(8, 2, 16, 64, device=cuda_device)
     new = torch.zeros(8, 2, 64, device=cuda_device)
     sel = torch.zeros(8, dtype=torch.int64, device=cuda_device)
