@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a).
-  3. kernels - each of the five kernels against its plain PyTorch version on
+  3. kernels - each of the nine kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
                calls, self caches 256 to 511 columns wide behind prompts whose
@@ -26,7 +26,13 @@ Phases, each printing one JSON line:
                0.1, RMS < 0.02). For the multiply-reduce kernel also the share
                of outputs bit-identical to its plain version and to
                decode_attention's kernel, and that a row's bits are the same
-               alone and in its batch.
+               alone and in its batch. The four kernels of the fused
+               decoder-layer step at the fused path's shapes (8 studies, T =
+               256, S = 2,880 with 15 of 40 image slots masked, the step at
+               columns 1, 128 and 255), also with a fully masked row, the new
+               K/V column written where it belongs and the rest of the cache
+               bit-exact; their times are taken one launch at a time with the
+               L2 cache flushed before each, as a decode step finds it.
   4. main    - seeded random full-width models (CvT-21@384, BERT 6x768, the
                repository tokenizer's vocabulary) written as HF directories,
                loaded with CXRMate.from_hf_checkpoint and run through
@@ -39,9 +45,12 @@ Phases, each printing one JSON line:
                beam-4 with the default spec, beam-4 and greedy with
                cross-rowgroup-q8, greedy and beam-4 with vpu-rowgroup and one
                sampled call; single (one image per study), greedy and beam-4.
-               studies/s, new tokens/s and ms per step of every call; each
-               call's launch counts checked against the counts its path and
-               spec imply.
+               Then the fused path: CXRMate.encode -> generate(use_fused=True)
+               -> split_and_decode_sections on the multi model, three timed
+               calls, in turns with the unfused greedy through the same entry
+               points. studies/s, new tokens/s and ms per step of every call;
+               each call's launch counts checked against the counts its path
+               and spec imply.
   5. parity  - the whole path with the kernels against the same path with
                every kernel swapped for its plain version: encoder states,
                greedy decoder logits over a prefill and 16 teacher-fed steps,
@@ -51,7 +60,10 @@ Phases, each printing one JSON line:
                vpu-rowgroup and cross-rowgroup-q8 (against the plain path over
                the same quantised cache); fp32 (TF32 off) held to 1e-3, bf16
                to 0.25; the greedy token agreement and the q8 path's distance
-               from the unquantised path are printed.
+               from the unquantised path are printed. The fused path against
+               the fused path over the plain versions (same limits), and in
+               fp32 against the unfused path (1e-3), with the share of greedy
+               tokens that agree.
 Then the card's name and power limit, the kernels summary line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and the last line is not printed. The summary line has one row per
@@ -139,7 +151,17 @@ KERNELS = {
                             "cxrmate_tpu/ops/decode_attention.py:310"),
     "beam_reorder_write": ("cxrmate_torch/csrc/beam_reorder.cu",
                            "cxrmate_tpu/ops/beam_reorder.py:58"),
+    "fused_qkv_attn": ("cxrmate_torch/csrc/fused_qkv_attn.cu",
+                       "cxrmate_tpu/ops/fused_decode.py:251"),
+    "fused_out_ln_q": ("cxrmate_torch/csrc/fused_out_ln_q.cu",
+                       "cxrmate_tpu/ops/fused_decode.py:304"),
+    "fused_cross_attn": ("cxrmate_torch/csrc/fused_cross_attn.cu",
+                         "cxrmate_tpu/ops/fused_decode.py:291"),
+    "fused_out_ln_ffn": ("cxrmate_torch/csrc/fused_out_ln_ffn.cu",
+                         "cxrmate_tpu/ops/fused_decode.py:320"),
 }
+FUSED = ("fused_qkv_attn", "fused_out_ln_q", "fused_cross_attn", "fused_out_ln_ffn")
+D_MODEL, D_FF = HEADS * HEAD_DIM, 3072  # the decoder's width and its FFN's
 # (mode, beams, routing spec, longest prompt in tokens, the 32-token bucket the
 # batch's prompts are padded to, sampling arguments): the longitudinal calls
 LONGITUDINAL_RUNS = (
@@ -450,11 +472,202 @@ def check_reorder(torch, br, dtype, t_len):
             "bytes": reorder_work(sets[0][0], sel, 100, beams), "flops": 0.0}
 
 
-def kernel_phase(torch, F, fa, da, br):
+def time_cold_ms(fns, reps: int = 20, warmup: int = 2) -> float:
+    """Mean device time of one call that finds the L2 cache cold, as a layer's
+    kernel does in a decode step (some 500 MB go by before the layer's weights
+    are read again). Each call is timed alone, queued behind a 512 MB fill:
+    the fill flushes L2 and keeps the card busy while the host enqueues the
+    call, so that the two events bracket the call's own launches only."""
+    import torch
+
+    fns = list(fns)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.int32, device="cuda")
+    total = 0.0
+    for i in range(warmup + reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        start.record()
+        fns[i % len(fns)]()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def fused_operands(torch, dtype, g):
+    """One layer's operands of the fused step at the fused main path's shapes:
+    8 studies, T = 256, S = 2,880 with the all-zero image slots masked, weights
+    N(0, 0.02) as random_init draws them. LayerNorm gains near 0.3 keep the
+    outputs inside (-2, 2), where one bf16 ulp is below the 1e-2 tolerance, and
+    the cached self K/V have std 0.5 for the same reason (at column 1 the
+    context is one cached row). Study 1 has masked columns inside the key
+    range."""
+    import types
+
+    b, d, f, t_len, s = STUDIES, D_MODEL, D_FF, 1 + NEW_TOKENS, SLOTS * 576
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    def gain():
+        return (0.3 + 0.05 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+
+    self_mask = torch.ones(b, t_len, dtype=torch.int32, device="cuda")
+    self_mask[1, 3:9] = 0
+    return types.SimpleNamespace(
+        hidden=rn(b, d), res=rn(b, d), wqkv=rn(3 * d, d, scale=0.02), bqkv=rn(3 * d, scale=0.02),
+        cache_k=rn(b, HEADS, t_len, HEAD_DIM, scale=0.5),
+        cache_v=rn(b, HEADS, t_len, HEAD_DIM, scale=0.5),
+        cross_k=rn(b, HEADS, s, HEAD_DIM), cross_v=rn(b, HEADS, s, HEAD_DIM),
+        self_mask=self_mask, cross_mask=(key_mask(torch, "slots", b, s) == 0).int(),
+        out_ln_q=(rn(d, d, scale=0.02), rn(d, scale=0.02), gain(), rn(d, scale=0.02),
+                  rn(d, d, scale=0.02), rn(d, scale=0.02)),
+        out_ln_ffn=(rn(d, d, scale=0.02), rn(d, scale=0.02), gain(), rn(d, scale=0.02),
+                    rn(f, d, scale=0.02), rn(f, scale=0.02), rn(d, f, scale=0.02),
+                    rn(d, scale=0.02), gain(), rn(d, scale=0.02)))
+
+
+def attend_rows(mask, limit, new_open=None):
+    """(K rows, V rows) an attention over these [B, n] integer masks has to
+    read per head: the open keys below ``limit``; for a row with no open key
+    at all (the uniform softmax) no K row and every V row."""
+    opened = (mask[:, :limit] != 0).sum(1)
+    lit = opened > 0 if new_open is None else (opened > 0) | new_open
+    k_rows = int(opened[lit].sum())
+    return k_rows, k_rows + int((~lit).sum()) * mask.shape[1]
+
+
+def fused_work(x, index):
+    """Bytes (each input read once, each output written once; only the K/V
+    rows these masks need) and fp32 operations of each fused kernel."""
+    b, d = x.hidden.shape
+    f, e = x.out_ln_ffn[4].shape[0], x.hidden.element_size()
+    k_self, v_self = attend_rows(x.self_mask, index, x.self_mask[:, index] != 0)
+    k_cross, v_cross = attend_rows(x.cross_mask, x.cross_mask.shape[1])
+    row = HEADS * HEAD_DIM * e  # one key's K or V row over all heads
+    return {
+        "fused_qkv_attn": (
+            (2 * b * d + 3 * d * d + 3 * d + 2 * b * d) * e + x.self_mask.numel() * 4
+            + (k_self + v_self) * row,
+            2.0 * b * d * 3 * d + 2.0 * (k_self + v_self + 2 * b) * HEADS * HEAD_DIM),
+        "fused_out_ln_q": ((4 * b * d + 2 * d * d + 4 * d) * e, 4.0 * b * d * d),
+        "fused_cross_attn": (2 * b * d * e + x.cross_mask.numel() * 4 + (k_cross + v_cross) * row,
+                             2.0 * (k_cross + v_cross) * HEADS * HEAD_DIM),
+        "fused_out_ln_ffn": ((3 * b * d + d * d + 2 * d * f + 6 * d + f) * e,
+                             2.0 * b * (d * d + 2 * d * f)),
+    }
+
+
+def check_fused(torch, F, fd, dtype):
+    """The four kernels of the fused decoder-layer step against their plain
+    versions at the fused main path's shapes: the self-attention kernel with
+    the step at columns 1, 128 and 255 (the new K/V column within tolerance of
+    the plain version's, every other cache column bit-exact) and with a fully
+    masked study; the cross-attention kernel also with a fully masked study;
+    times (cold L2) of the kernel, the plain version and the same stage in
+    F.linear / F.layer_norm / F.gelu / SDPA calls, at column 128."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = fused_operands(torch, dtype, g)
+    b, d = x.hidden.shape
+    t_len, mid = x.cache_k.shape[2], (1 + NEW_TOKENS) // 2
+    res = {k: {"max_abs_err": 0.0} for k in FUSED}
+
+    def self_attn(index, mask, run):
+        ck, cv = x.cache_k.clone(), x.cache_v.clone()
+        return run(x.hidden, x.wqkv, x.bqkv, ck, cv, index, mask), ck, cv
+
+    qkv = res["fused_qkv_attn"]
+    qkv["by_index"], qkv["cache_exact"] = {}, True
+    dark = x.self_mask.clone()
+    dark[0] = 0
+    for index, mask in [(i, x.self_mask) for i in (1, mid, t_len - 1)] + [(mid, dark)]:
+        got, want = self_attn(index, mask, fd.fused_qkv_attn), \
+            self_attn(index, mask, fd.fused_qkv_attn_plain)
+        others = [c for c in range(t_len) if c != index]
+        err = max(_err(got[0], want[0]), _err(got[1][:, :, index], want[1][:, :, index]),
+                  _err(got[2][:, :, index], want[2][:, :, index]))
+        qkv["cache_exact"] &= (torch.equal(got[1][:, :, others], x.cache_k[:, :, others])
+                               and torch.equal(got[2][:, :, others], x.cache_v[:, :, others]))
+        if mask is dark:
+            qkv["fully_masked_row_err"] = err
+            if not bool(torch.isfinite(got[0].float()).all()):
+                raise AssertionError(f"fused_qkv_attn {dtype}: fully masked row not finite")
+        else:
+            qkv["by_index"][index] = err
+        qkv["max_abs_err"] = max(qkv["max_abs_err"], err)
+    if not qkv["cache_exact"]:
+        raise AssertionError(f"fused_qkv_attn {dtype}: a cache column other than the step's changed")
+
+    lnq = res["fused_out_ln_q"]
+    got, want = fd.fused_out_ln_q(x.hidden, x.res, *x.out_ln_q, 1e-12), \
+        fd.fused_out_ln_q_plain(x.hidden, x.res, *x.out_ln_q, 1e-12)
+    lnq["max_abs_err"] = max(_err(got[0], want[0]), _err(got[1], want[1]))
+
+    cross = res["fused_cross_attn"]
+    dark = x.cross_mask.clone()
+    dark[0] = 0
+    for mask in (x.cross_mask, dark):
+        got = fd.fused_cross_attn(x.hidden, x.cross_k, x.cross_v, mask)
+        err = _err(got, fd.fused_cross_attn_plain(x.hidden, x.cross_k, x.cross_v, mask))
+        if mask is dark:
+            cross["fully_masked_row_err"] = err
+            if not bool(torch.isfinite(got.float()).all()):
+                raise AssertionError(f"fused_cross_attn {dtype}: fully masked row not finite")
+        cross["max_abs_err"] = max(cross["max_abs_err"], err)
+
+    res["fused_out_ln_ffn"]["max_abs_err"] = _err(
+        fd.fused_out_ln_ffn(x.hidden, x.res, *x.out_ln_ffn, 1e-12),
+        fd.fused_out_ln_ffn_plain(x.hidden, x.res, *x.out_ln_ffn, 1e-12))
+
+    # the same stages in PyTorch library calls (timed only)
+    qh = x.hidden.view(b, HEADS, 1, HEAD_DIM)
+    self_bool = ((x.self_mask != 0)
+                 & (torch.arange(t_len, device="cuda") <= mid))[:, None, None, :]
+    cross_bool = (x.cross_mask != 0)[:, None, None, :]
+
+    def lib_qkv():
+        q, k, v = (y.view(b, HEADS, 1, HEAD_DIM) for y in F.linear(x.hidden, x.wqkv, x.bqkv).split(d, 1))
+        x.cache_k[:, :, mid] = k[:, :, 0]
+        x.cache_v[:, :, mid] = v[:, :, 0]
+        return F.scaled_dot_product_attention(q, x.cache_k, x.cache_v, attn_mask=self_bool)
+
+    def lib_lnq():
+        wo, bo, g1, b1, wq, bq = x.out_ln_q
+        y = F.layer_norm(F.linear(x.hidden, wo, bo) + x.res, (d,), g1, b1, 1e-12)
+        return y, F.linear(y, wq, bq)
+
+    def lib_ffn():
+        wo, bo, g2, be2, w1, b1, w2, b2, g3, be3 = x.out_ln_ffn
+        h = F.layer_norm(F.linear(x.hidden, wo, bo) + x.res, (d,), g2, be2, 1e-12)
+        return F.layer_norm(F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2) + h, (d,), g3, be3, 1e-12)
+
+    runs = {
+        "fused_qkv_attn": (lambda fn: lambda: fn(x.hidden, x.wqkv, x.bqkv, x.cache_k, x.cache_v,
+                                                 mid, x.self_mask), lib_qkv),
+        "fused_out_ln_q": (lambda fn: lambda: fn(x.hidden, x.res, *x.out_ln_q, 1e-12), lib_lnq),
+        "fused_cross_attn": (lambda fn: lambda: fn(x.hidden, x.cross_k, x.cross_v, x.cross_mask),
+                             lambda: F.scaled_dot_product_attention(
+                                 qh, x.cross_k, x.cross_v, attn_mask=cross_bool)),
+        "fused_out_ln_ffn": (lambda fn: lambda: fn(x.hidden, x.res, *x.out_ln_ffn, 1e-12), lib_ffn),
+    }
+    work = fused_work(x, mid)
+    for name, (bind, library) in runs.items():
+        r = res[name]
+        r["ms"] = time_cold_ms([bind(getattr(fd, name))])
+        r["plain_ms"] = time_cold_ms([bind(getattr(fd, name + "_plain"))], reps=5, warmup=1)
+        r["library_ms"] = time_cold_ms([library])
+        r["bytes"], r["flops"] = work[name]
+        r["ops_dtype"] = "fp32"  # fp32 inside, whatever the storage type
+    return res
+
+
+def kernel_phase(torch, F, fa, da, br, fd):
     """Each kernel against its plain version at every shape a main path gives
-    it (main_path_calls), fp32 (TF32 off) then bf16. -> {dtype: {"flash":
-    {images: result}, "decode": {call: result}, "reorder": {width: result}}},
-    each result per encode (flash) or per call."""
+    it (main_path_calls; check_fused for the fused step), fp32 (TF32 off) then
+    bf16. -> {dtype: {"flash": {images: result}, "decode": {call: result},
+    "reorder": {width: result}, "fused": {kernel: result}}}, each result per
+    encode (flash) or per call."""
     from cxrmate_torch.utils.precision import parity_mode
 
     paths = main_path_calls(da).values()
@@ -467,15 +680,19 @@ def kernel_phase(torch, F, fa, da, br):
         with parity_mode():
             res = {"flash": {n: check_flash(torch, fa, F, dtype, n) for n in images},
                    "decode": {c: check_decode_call(torch, da, F, g, dtype, *c) for c in calls},
-                   "reorder": {t: check_reorder(torch, br, dtype, t) for t in widths}}
+                   "reorder": {t: check_reorder(torch, br, dtype, t) for t in widths},
+                   "fused": check_fused(torch, F, fd, dtype)}
         checked = ([("flash_attention", {"images": n, **r}) for n, r in res["flash"].items()]
                    + [(c[0], r) for c, r in res["decode"].items()]
-                   + [("beam_reorder_write", r) for r in res["reorder"].values()])
+                   + [("beam_reorder_write", r) for r in res["reorder"].values()]
+                   + list(res["fused"].items()))
         for kname, r in checked:
-            bound, bound_by = bound_ms(r["bytes"], r["flops"], name)
+            bound, bound_by = bound_ms(r["bytes"], r["flops"], r.get("ops_dtype", name))
             emit({"phase": "kernels", "dtype": name, "kernel": kname, "tolerance": tol,
                   "bound_ms": bound, "bound_by": bound_by,
-                  **{k: v for k, v in r.items() if k not in ("bytes", "flops")}})
+                  **{k: v for k, v in r.items() if k not in ("bytes", "flops", "ops_dtype")}})
+            if not r.get("fully_masked_row_err", 0.0) <= tol:
+                raise AssertionError(f"{kname} {name} {r}: fully masked row differs by > {tol}")
             if not r["max_abs_err"] <= tol:
                 raise AssertionError(f"{kname} {name} {r}: max abs err > {tol}")
         results[name] = res
@@ -524,9 +741,10 @@ def plain_kernels():
     from cxrmate_torch.ops import beam_reorder as br
     from cxrmate_torch.ops import decode_attention as da
     from cxrmate_torch.ops import flash_attention as fa
+    from cxrmate_torch.ops import fused_decode as fd
 
     swaps = [(fa, "flash_attention"), (da, "decode_attention"), (da, "decode_attention_vpu"),
-             (da, "decode_attention_q8"), (br, "beam_reorder_write")]
+             (da, "decode_attention_q8"), (br, "beam_reorder_write")] + [(fd, n) for n in FUSED]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -610,17 +828,25 @@ def new_tokens(seqs, eos) -> int:
     return total
 
 
-def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample=None):
-    """One generate_report call, a main path, with every launch count set to
-    0 just before it and read just after; checks the counts against what the
+def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample=None,
+          use_fused=None):
+    """One report batch along a main path, with every launch count set to 0
+    just before it and read just after; checks the counts against what the
     path and the routing spec imply, checks the output, and returns the
-    call's figures."""
+    call's figures. ``use_fused`` None: CXRMate.generate_report. True or
+    False: the entry points that reach the fused step, CXRMate.encode ->
+    generate.decode.generate(use_fused=...) -> split_and_decode_sections
+    (generate_report has no use_fused argument, as in the JAX package): with
+    it each of the four fused kernels runs layers x steps times and
+    decode_attention not once, without it the other way round."""
+    from cxrmate_torch.generate import decode as decode_mod
     from cxrmate_torch.models import api
     from cxrmate_torch.models import bert as bert_mod
     from cxrmate_torch.models import encoder_decoder as ed
     from cxrmate_torch.ops import beam_reorder as br
     from cxrmate_torch.ops import decode_attention as da
     from cxrmate_torch.ops import flash_attention as fa
+    from cxrmate_torch.ops import fused_decode as fd
     import torch
 
     tok = model.tokenizer
@@ -636,38 +862,54 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
     wrappers = {"flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
                 "decode_attention_q8": da.decode_attention_q8,
                 "decode_attention_vpu": da.decode_attention_vpu,
-                "beam_reorder_write": br.beam_reorder_write}
+                "beam_reorder_write": br.beam_reorder_write,
+                **{name: getattr(fd, name) for name in FUSED}}
+    decoder = "beam_search" if beams > 1 else "generate"
     rec = Recorder()
     rec.wrap(bert_mod, "bert_step")
     rec.wrap(ed, "encode_images", timed=True)
-    rec.wrap(api, "beam_search" if beams > 1 else "generate", keep=True)
+    rec.wrap(api, decoder, keep=True)
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        findings, impression = model.generate_report(px, **kw)
+        if use_fused is None:
+            findings, impression = model.generate_report(px, **kw)
+        else:
+            with torch.no_grad():
+                hidden, mask = model.encode(px)
+                prompt = torch.full((STUDIES, 1), tok.bos_token_id, dtype=torch.int32,
+                                    device="cuda")
+                seqs = decode_mod.generate(model.model, model._gen_cfg(1, None), hidden, mask,
+                                           prompt, torch.ones_like(prompt),
+                                           use_fused=use_fused).cpu().numpy()
+            findings, impression = model.split_and_decode_sections(
+                seqs, [tok.sep_token_id, tok.eos_token_id])
     finally:
         rec.restore()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    if use_fused is None:
+        out = rec.outputs[decoder]
+        seqs = (out[0] if beams > 1 else out).cpu().numpy()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     steps = rec.calls.get("bert_step", 0)
     per_kind = layers * steps  # self calls per decode, and as many cross calls
     spec = spec or ""
-    want = {"flash_attention": depth, "decode_attention": 2 * per_kind, "decode_attention_q8": 0,
-            "decode_attention_vpu": 0,
-            "beam_reorder_write": layers * (steps + 1) if beams > 1 else 0}
-    if da.is_q8(spec):
+    want = dict.fromkeys(wrappers, 0)
+    want.update(flash_attention=depth, decode_attention=2 * per_kind,
+                beam_reorder_write=layers * (steps + 1) if beams > 1 else 0)
+    if use_fused:
+        want.update(dict.fromkeys(FUSED, per_kind), decode_attention=0)
+    elif da.is_q8(spec):
         want.update(decode_attention=per_kind, decode_attention_q8=per_kind)
     elif da.uses_vpu(spec, False):
         want.update(decode_attention=0, decode_attention_vpu=2 * per_kind)
     if launches != want or steps == 0:
         raise AssertionError(f"{mode}: launches {launches}, expected {want} ({steps} steps)")
-    out = rec.outputs["beam_search" if beams > 1 else "generate"]
-    seqs = (out[0] if beams > 1 else out).cpu().numpy()
     if not (len(findings) == len(impression) == STUDIES
-            and all(isinstance(s, str) for s in findings + impression)):
+            and all(isinstance(s, str) for s in list(findings) + list(impression))):
         raise AssertionError(f"{mode}: malformed reports")
     if seqs.shape != (STUDIES, p_len + model.config.decoder_max_len - 1) or \
             not ((seqs >= 0) & (seqs < len(tok))).all():
@@ -769,6 +1011,42 @@ def single_phase(torch, np, ckpt):
         emit({"phase": "main", "variant": "single", "mode": mode, "dtype": "bf16",
               "studies": STUDIES, "image_slots": 1, "runs": 1, **res})
     return counts
+
+
+def fused_phase(torch, np, ckpt):
+    """The fused path at full width beside the unfused greedy of the same run:
+    one untimed call each at the full length, then MAIN_RUNS timed calls each,
+    in turns; the median call's figures beside every call's."""
+    from cxrmate_torch.models import api
+
+    model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=torch.bfloat16,
+                                           device="cuda")
+    px = make_pixels(np)
+    layers = model.config.decoder.num_hidden_layers
+    depth = sum(model.config.encoder.depth)
+    runs = {True: [], False: []}
+    def call(use_fused):
+        return drive(model, px, "multi greedy fused" if use_fused else "multi greedy unfused", 1,
+                     depth, layers, use_fused=use_fused)
+
+    for use_fused in (True, False):
+        call(use_fused)  # warm-up, untimed
+    for _ in range(MAIN_RUNS):
+        for use_fused in (True, False):
+            runs[use_fused].append(call(use_fused))
+    out = {}
+    for use_fused, mode in ((True, "fused"), (False, "unfused")):
+        med = sorted(runs[use_fused], key=lambda r: r["studies_per_s"])[MAIN_RUNS // 2]
+        out[mode] = {**med, "runs_studies_per_s": [r["studies_per_s"] for r in runs[use_fused]],
+                     "runs_decode_ms_per_step": [r["decode_ms_per_step"] for r in runs[use_fused]]}
+        emit({"phase": "main", "variant": "multi", "mode": f"greedy-{mode}", "dtype": "bf16",
+              "entry": "encode -> generate(use_fused=%s) -> split_and_decode_sections" % use_fused,
+              "studies": STUDIES, "image_slots": SLOTS, "runs": MAIN_RUNS, "reported": "median",
+              **out[mode]})
+    emit({"phase": "main", "variant": "multi", "mode": "fused-vs-unfused",
+          "decode_ms_per_step": {m: out[m]["decode_ms_per_step"] for m in out},
+          "studies_per_s": {m: out[m]["studies_per_s"] for m in out}})
+    return out["fused"]["launches"]
 
 
 def teacher_fed(torch, model, gen_cfg, px, prompt, col, spec, beam_feed, beam_sel, beams, steps,
@@ -905,6 +1183,67 @@ def parity_phase(torch, np, ckpts):
     return results
 
 
+def fused_parity_phase(torch, np, ckpt):
+    """The fused path on the card: its kernels against its plain versions
+    (greedy logits over a prefill and 15 teacher-fed steps; fp32 within
+    PARITY_TOL, bf16 within BF16_PARITY_TOL), and in fp32 against the unfused
+    path on the same tokens (PARITY_TOL); the share of free-running greedy
+    tokens on which fused and unfused agree is printed."""
+    from cxrmate_torch.generate.decode import generate, prefill
+    from cxrmate_torch.models import api
+    from cxrmate_torch.models import bert as bert_mod
+    from cxrmate_torch.ops.fused_decode import prepare_fused_params
+    from cxrmate_torch.utils.precision import parity_mode
+
+    n, steps = 2, 16
+    pixels = torch.from_numpy(make_pixels(np)[:n]).cuda()
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        with parity_mode(), torch.no_grad():
+            model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=dtype,
+                                                   device="cuda")
+            gen_cfg = model._gen_cfg(1, steps)
+            dec = model.model.decoder
+            prompt = torch.full((n, 1), model.tokenizer.bos_token_id, dtype=torch.int32,
+                                device="cuda")
+            hidden, mask = model.encode(pixels.to(dtype))
+            cols = torch.arange(1 + steps, device="cuda")
+
+            def run(use_fused, tokens=None):
+                seq = generate(model.model, gen_cfg, hidden, mask, prompt, None,
+                               use_fused=use_fused, decode_kernel="")
+                feed = seq if tokens is None else tokens
+                logits0, cache, _ = prefill(model.model, gen_cfg, hidden, mask, prompt, 1 + steps)
+                prep = (prepare_fused_params(dec, dec.config.num_attention_heads)
+                        if use_fused else None)
+                logits = [logits0[:, 0]]
+                for i in range(1, steps):
+                    key_mask = (cols <= i).int().expand(n, 1 + steps).contiguous()
+                    step, cache = bert_mod.bert_step(
+                        dec, cache, feed[:, i], torch.zeros(n, dtype=torch.int32, device="cuda"),
+                        torch.full((n,), i, dtype=torch.long, device="cuda"), i, key_mask, mask,
+                        use_fused=use_fused, fused_prepared=prep, decode_kernel="")
+                    logits.append(step)
+                return torch.stack(logits, 1), seq
+
+            g_k, seq_k = run(True)
+            with plain_kernels():
+                g_p, _ = run(True, tokens=seq_k)
+            g_u, seq_u = run(False, tokens=seq_k)
+            torch.cuda.synchronize()
+        tol = PARITY_TOL if name == "fp32" else BF16_PARITY_TOL
+        res = {"kernels_vs_plain_logits_max_abs_err": _err(g_k, g_p),
+               "fused_vs_unfused_logits_max_abs_err": _err(g_k, g_u), "steps": g_k.shape[1],
+               "fused_vs_unfused_greedy_token_agreement": float((seq_k == seq_u).float().mean()),
+               "finite": bool(torch.isfinite(g_k.float()).all()), "tolerance": tol}
+        emit({"phase": "parity", "dtype": name, "variant": "multi", "path": "fused", **res})
+        held = [res["kernels_vs_plain_logits_max_abs_err"]]
+        if name == "fp32":  # in bf16 the two paths round at different points
+            held.append(res["fused_vs_unfused_logits_max_abs_err"])
+        if not (res["finite"] and max(held) <= tol):
+            raise AssertionError(f"{name} fused path: {res}")
+        del model
+
+
 def kernels_line(da, k, counts):
     """The summary, bf16 (the serving dtype). One row per kernel and per set
     of shapes a main path gives it: times and bound of one unit of that work
@@ -947,6 +1286,19 @@ def kernels_line(da, k, counts):
                     "max_abs_err": max(r["max_abs_err"] for r, _ in parts), "ms": total["ms"],
                     "plain_ms": total["plain_ms"], "bound_ms": b, "bound_by": by,
                     "library_ms": total["library_ms"], "work": work})
+    for kernel in FUSED:  # one decode step of the fused path: LAYERS calls, L2 cold
+        r = bf["fused"][kernel]
+        b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
+        launches = counts["multi"]["fused"][kernel]
+        if launches <= 0:
+            raise AssertionError(f"{kernel}: not launched on the fused main path")
+        source, replaces = KERNELS[kernel]
+        out.append({"name": f"{kernel}[multi fused]", "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
+                    "ms": LAYERS * r["ms"], "plain_ms": LAYERS * r["plain_ms"], "bound_ms": b,
+                    "bound_by": by, "library_ms": LAYERS * r["library_ms"],
+                    "work": f"{LAYERS} x [B={STUDIES}, T={1 + NEW_TOKENS}, S={SLOTS * 576}, "
+                            f"D={D_MODEL}, F={D_FF}], the step at column {(1 + NEW_TOKENS) // 2}"})
     if {r["source"] for r in out} != {src for src, _ in KERNELS.values()}:
         raise AssertionError("a kernel is missing from the summary")
     return {"kernels": out}
@@ -970,6 +1322,7 @@ def main() -> int:
     from cxrmate_torch.ops import beam_reorder as br
     from cxrmate_torch.ops import decode_attention as da
     from cxrmate_torch.ops import flash_attention as fa
+    from cxrmate_torch.ops import fused_decode as fd
 
     t_start = time.perf_counter()
     card = nvidia_smi()
@@ -980,14 +1333,16 @@ def main() -> int:
     lib = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": os.path.relpath(lib, REPO)})
 
-    kernels = kernel_phase(torch, F, fa, da, br)
+    kernels = kernel_phase(torch, F, fa, da, br, fd)
     tokenizer = os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json")
     try:
         ckpts = {v: write_checkpoint(torch, api, tokenizer, v) for v in ("multi", "longitudinal")}
         counts = {"multi": main_phase(torch, np, ckpts["multi"])[1],
                   "longitudinal": longitudinal_phase(torch, np, ckpts["longitudinal"]),
                   "single": single_phase(torch, np, ckpts["multi"])}
+        counts["multi"]["fused"] = fused_phase(torch, np, ckpts["multi"])
         parity_phase(torch, np, ckpts)
+        fused_parity_phase(torch, np, ckpts["multi"])
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

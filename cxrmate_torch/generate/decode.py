@@ -14,7 +14,8 @@ Sequences are pad-filled after EOS to the static width ``P + max_new_tokens``.
 A Python loop replaces ``lax.while_loop``; it stops when every row has
 finished or the width is reached. The self cache has one static width
 ``P + max_new_tokens`` (the JAX package's segmented growth is bit-exact either
-way and is not ported). Sampling draws with an explicit ``torch.Generator``;
+way and is not ported). ``use_fused`` sends the steps through the fused
+decoder-layer kernels (:188, :264-271, :298-299). Sampling draws with an explicit ``torch.Generator``;
 its draws are not the JAX package's.
 """
 
@@ -29,6 +30,7 @@ from cxrmate_torch.generate.logits_process import warp_logits
 from cxrmate_torch.models import bert as bert_mod
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.ops.decode_attention import resolve_decode_kernel
+from cxrmate_torch.ops.fused_decode import prepare_fused_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +98,7 @@ def prefill(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden,
 def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden: torch.Tensor,
              encoder_mask: torch.Tensor, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
-             prompt_logits_col: Optional[int] = None,
+             use_fused: bool = False, prompt_logits_col: Optional[int] = None,
              decode_kernel: Optional[str] = None) -> torch.Tensor:
     """Greedy or sampled decoding (``num_beams == 1``).
 
@@ -107,6 +109,11 @@ def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden
         ``prompt_ids != mask_token_id``), as in the JAX package.
       generator: the ``torch.Generator`` (on the model's device) that
         ``gen_cfg.do_sample`` draws from; required when sampling.
+      use_fused: run every decode step's layers through the fused
+        decoder-layer kernels (``ops.fused_decode``), greedy or sampled. A
+        model with LoRA takes the unfused path all the same; ``decode_kernel``
+        is ignored on the fused path (``bert_step`` warns) and no int8 cross
+        cache is made.
       prompt_logits_col: column of the prefill logits that gives the first
         token; the last prompt column by default. When the prompt is
         bucket-padded beyond the batch's longest row, pass the true longest
@@ -127,10 +134,16 @@ def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden
     max_new = gen_cfg.max_new_tokens
     t_total = p_len + max_new
     dev = prompt_ids.device
+    fused = use_fused and model.config.lora is None
+    # the fused kernels' per-layer operands, built once, never per step
+    fused_prepared = (prepare_fused_params(model.decoder, model.config.decoder.num_attention_heads)
+                      if fused else None)
     prefill_logits, cache, attn_prompt = prefill(model, gen_cfg, encoder_hidden, encoder_mask,
                                                  prompt_ids, t_total)
-    # int8 serving decode: quantise the cross cache once, after prefill
-    cache, cross_q8 = bert_mod.maybe_quantize_cross_cache(cache, decode_kernel)
+    if fused:
+        cross_q8 = None  # the fused path ignores decode_kernel (bert_step warns)
+    else:  # int8 serving decode: quantise the cross cache once, after prefill
+        cache, cross_q8 = bert_mod.maybe_quantize_cross_cache(cache, decode_kernel)
 
     seq = torch.full((b, t_total), gen_cfg.pad_token_id, dtype=prompt_ids.dtype, device=dev)
     seq[:, :p_len] = prompt_ids
@@ -174,6 +187,7 @@ def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden
             pos = torch.full((b,), i, dtype=torch.long, device=dev)
         logits, cache = bert_mod.bert_step(
             model.decoder, cache, seq[:, i], ttype, pos, i, key_mask, encoder_mask,
+            use_fused=use_fused, fused_prepared=fused_prepared,
             decode_kernel=decode_kernel, cross_q8=cross_q8)
         tok = select_token(logits)
         tok = torch.where(finished, torch.full_like(tok, gen_cfg.pad_token_id), tok)

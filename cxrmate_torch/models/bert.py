@@ -16,6 +16,8 @@ under HF's (and PEFT's) names; the functions below run them.
     the K beams fold into the kernel's M rows.
   * ``quantize_cross_cache`` turns the cross K/V into int8 once per decode
     call for the ``cross-rowgroup-q8`` spec.
+  * ``bert_step(use_fused=True)`` runs each layer through the four kernels of
+    ``ops.fused_decode`` instead (greedy and sampled decoding without LoRA).
   * the cache is updated in place (the JAX package returns new arrays).
 
 Numerics follow HF eager order; additive masks are ``(1 - m) * finfo.min``.
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import List, Optional, Tuple
 
 import torch
@@ -33,6 +36,7 @@ from torch import nn
 
 from cxrmate_torch.configs import BertDecoderConfig, LoraConfig
 from cxrmate_torch.ops import decode_attention as da
+from cxrmate_torch.ops import fused_decode
 from cxrmate_torch.ops.layers import (
     Embedding,
     LayerNorm,
@@ -146,6 +150,7 @@ class BertLMHeadModel(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.config = config
+        self.lora = lora
         self.bert = _Bert(config, lora, **kw)
         self.cls = _Cls(config, **kw)
 
@@ -320,6 +325,7 @@ def bert_prefill(model: BertLMHeadModel, cache: DecodeCache, input_ids, attentio
 
 def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_id,
               position_id, index: int, key_mask, encoder_attention_mask, *,
+              use_fused: bool = False, fused_prepared: Optional[List[dict]] = None,
               deferred_write: bool = False, decode_kernel: Optional[str] = None,
               cross_q8: Optional[CrossQ8] = None):
     """One decode step for the token at cache column ``index``.
@@ -330,6 +336,13 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
       key_mask: [B, T] 1 for attendable cache columns.
       encoder_attention_mask: [B_cross, S]; B_cross = B / K when the K beams
         of a study share its cross cache.
+      use_fused: run each layer through the four kernels of
+        ``ops.fused_decode.fused_layer_step_v2`` (the plain versions on CPU
+        tensors). A model with LoRA or ``deferred_write`` takes the unfused
+        path below all the same; a set ``decode_kernel`` is ignored on the
+        fused path with a ``RuntimeWarning``.
+      fused_prepared: ``ops.fused_decode.prepare_fused_params``'s list, built
+        once per decode call; built per step here if missing.
       deferred_write: do not write this step's K/V into the cache. Attention
         reads ``where(col == index, new, cache)`` instead (same values as the
         written cache), and the new columns are returned for the caller's
@@ -347,6 +360,26 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
     heads, dh = c.num_attention_heads, c.head_dim
     dtype = cache.cross_k[0].dtype
     decode_kernel = da.resolve_decode_kernel(decode_kernel)
+    if use_fused and model.lora is None and not deferred_write:
+        if decode_kernel:
+            warnings.warn(
+                "CXRMATE_DECODE_KERNEL=%r is ignored on the fused decode path "
+                "(use_fused=True routes whole layers through ops/fused_decode.py, "
+                "which has no per-module attention routing): unset one of the two "
+                "knobs" % decode_kernel,
+                RuntimeWarning,
+            )
+        hidden = bert_embed(model, input_id[:, None], token_type_id[:, None],
+                            position_id[:, None], dtype=dtype)
+        h = hidden[:, 0].contiguous()
+        key_mask32 = key_mask.to(torch.int32).contiguous()
+        cross_mask32 = encoder_attention_mask.to(torch.int32).contiguous()
+        for i, layer in enumerate(model.bert.encoder.layer):
+            h = fused_decode.fused_layer_step_v2(
+                h, layer, cache.self_k[i], cache.self_v[i], cache.cross_k[i], cache.cross_v[i],
+                index, key_mask32, cross_mask32, eps=c.layer_norm_eps,
+                prepared=fused_prepared[i] if fused_prepared is not None else None)
+        return bert_lm_head(model, h[:, None, :])[:, 0], cache
     if da.is_q8(decode_kernel) != (cross_q8 is not None):
         raise ValueError(
             "cross-rowgroup-q8 requires the caller to pass quantize_cross_cache's "

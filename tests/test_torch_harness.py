@@ -136,7 +136,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cxrmate_tpu'))\n"
         "assert 'cxrmate_torch.generate.logits_process' in names, names\n"
-        "assert len(names) >= 23, names\n"
+        "assert 'cxrmate_torch.ops.fused_decode' in names, names\n"
+        "assert len(names) >= 24, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
