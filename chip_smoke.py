@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a).
-  3. kernels - each of the nine kernels against its plain PyTorch version on
+  3. kernels - each of the twelve kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
                calls, self caches 256 to 511 columns wide behind prompts whose
@@ -33,6 +33,12 @@ Phases, each printing one JSON line:
                K/V column written where it belongs and the rest of the cache
                bit-exact; their times are taken one launch at a time with the
                L2 cache flushed before each, as a decode step finds it.
+               The three kernels of flash_attention_grad (the forward with
+               log-sum-exp rows, dq, dk/dv) at the CvT-21@384 stage shapes
+               of a training micro-step of 20 images, fp32 and bf16, within
+               1e-5 / 1e-2 of the largest output, the forward's out bit-equal
+               to flash_attention's; timed beside SDPA's forward and SDPA's
+               forward + torch.autograd.grad (the yardstick).
   4. main    - seeded random full-width models (CvT-21@384, BERT 6x768, the
                repository tokenizer's vocabulary) written as HF directories,
                loaded with CXRMate.from_hf_checkpoint and run through
@@ -159,8 +165,26 @@ KERNELS = {
                          "cxrmate_tpu/ops/fused_decode.py:291"),
     "fused_out_ln_ffn": ("cxrmate_torch/csrc/fused_out_ln_ffn.cu",
                          "cxrmate_tpu/ops/fused_decode.py:320"),
+    "flash_attention_fwd_lse": ("cxrmate_torch/csrc/flash_attention.cu",
+                                "cxrmate_tpu/ops/flash_attention.py:109"),
+    "flash_attention_bwd_dq": ("cxrmate_torch/csrc/flash_attention_bwd.cu",
+                               "cxrmate_tpu/ops/flash_attention.py:137"),
+    "flash_attention_bwd_dkv": ("cxrmate_torch/csrc/flash_attention_bwd.cu",
+                                "cxrmate_tpu/ops/flash_attention.py:161"),
 }
 FUSED = ("fused_qkv_attn", "fused_out_ln_q", "fused_cross_attn", "fused_out_ln_ffn")
+# the kernels of flash_attention_grad, CvT's attention in training
+FLASH_GRAD = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# teacher-forcing training (config/train/multi_tf.yaml): 4 studies x 5 image
+# slots per micro-step, reports up to decoder_max_len, AdamW lr 5e-5, 8
+# micro-steps per update (accumulated_mbatch_size 32), bf16 on fp32 masters
+TRAIN_IMAGES = IMAGES_PER_STUDY[:4]
+TRAIN_ACCUM, TRAIN_LR = 8, 5e-5
+# fp32 (TF32 off) / bf16 kernel-vs-plain limits of the three flash_attention_grad
+# kernels, relative to the largest output: sums over up to 9,216 terms in
+# another order (2.4e-6 in fp32 on an H100); in bf16 the one rounding of the
+# output, 2^-8 relative, where the two fp32 sums round to neighbouring values
+FLASH_GRAD_TOL = {"fp32": 1e-5, "bf16": 1e-2}
 D_MODEL, D_FF = HEADS * HEAD_DIM, 3072  # the decoder's width and its FFN's
 # (mode, beams, routing spec, longest prompt in tokens, the 32-token bucket the
 # batch's prompts are padded to, sampling arguments): the longitudinal calls
@@ -267,6 +291,84 @@ def check_flash(torch, fa, F, dtype, n_img):
                                  "plain_ms": plain, "library_ms": lib, "max_abs_err": err})
         del q, k, v, got
     return out
+
+
+def check_flash_grad(torch, fa, F, dtype, name):
+    """The three kernels of flash_attention_grad at the CvT-21@384 stage
+    shapes of one training micro-step (20 images: (BH, Lq, Lk, calls) summed
+    over its 21 calls), each against its plain version on the same inputs,
+    the forward's out bit-equal to flash_attention's; times of the kernels,
+    the plain versions and, as the library yardstick, SDPA's forward and
+    SDPA's forward + torch.autograd.grad of q, k, v."""
+    n_img = len(TRAIN_IMAGES) * SLOTS
+    shapes = [(n_img * 1, 9216, 2304, 1), (n_img * 3, 2304, 576, 4), (n_img * 6, 577, 145, 16)]
+    tol = FLASH_GRAD_TOL[name]
+    res = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0,
+               "max_rel_err": 0.0, "per_shape": []} for k in FLASH_GRAD}
+    res["flash_attention_fwd_lse"]["library_ms"] = 0.0
+    lib_fwd_bwd = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for bh, lq, lk, calls in shapes:
+        q, k, v, do = (torch.randn(bh, n, 64, generator=g, device="cuda").to(dtype)
+                       for n in (lq, lk, lk, lq))
+        scale = (64 * (bh // n_img)) ** -0.5  # embed_dim ** -0.5, as CvT passes it
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, scale)
+        if not torch.equal(out, fa.flash_attention(q, k, v, scale)):
+            raise AssertionError(f"flash_attention_fwd_lse {dtype} {(bh, lq, lk)}: out is not "
+                                 "bit-equal to flash_attention's")
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, scale)
+        got = {"flash_attention_fwd_lse": (out, lse),
+               "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq(*args),),
+               "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv(*args)}
+        runs = {"flash_attention_fwd_lse": ((q, k, v, scale), fa.flash_attention_fwd_lse,
+                                            fa.flash_attention_fwd_lse_plain),
+                "flash_attention_bwd_dq": (args, fa.flash_attention_bwd_dq,
+                                           fa.flash_attention_bwd_dq_plain),
+                "flash_attention_bwd_dkv": (args, fa.flash_attention_bwd_dkv,
+                                            fa.flash_attention_bwd_dkv_plain)}
+        e, rows = q.element_size(), bh * lq * 4  # a [BH, Lq] fp32 row set (lse, delta)
+        work = {"flash_attention_fwd_lse": ((2 * q.numel() + 2 * k.numel()) * e + rows,
+                                            4.0 * bh * lq * lk * 64),
+                "flash_attention_bwd_dq": ((3 * q.numel() + 2 * k.numel()) * e + 2 * rows,
+                                           6.0 * bh * lq * lk * 64),
+                "flash_attention_bwd_dkv": ((2 * q.numel() + 4 * k.numel()) * e + 2 * rows,
+                                            8.0 * bh * lq * lk * 64)}
+        for kname, (a, run, plain) in runs.items():
+            want = plain(*a)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(_err(x, y) for x, y in zip(got[kname], want))
+            rel = max(_err(x, y) / float(y.float().abs().max()) for x, y in zip(got[kname], want))
+            del want
+            r = res[kname]
+            ms = time_ms([lambda: run(*a)], reps=10, warmup=2)
+            plain_ms = time_ms([lambda: plain(*a)], reps=3, warmup=1)
+            r["per_shape"].append({"bh": bh, "lq": lq, "lk": lk, "calls": calls, "ms": ms,
+                                   "plain_ms": plain_ms, "max_abs_err": err, "max_rel_err": rel})
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes", work[kname][0]),
+                             ("flops", work[kname][1])):
+                r[key] += calls * val
+            r["max_abs_err"], r["max_rel_err"] = max(r["max_abs_err"], err), max(r["max_rel_err"], rel)
+            if not rel <= tol:
+                raise AssertionError(f"{kname} {dtype} {(bh, lq, lk)}: error {err} is {rel} of "
+                                     f"the largest output, above {tol}")
+        qg, kg, vg = (x[:, None].detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            return torch.autograd.grad(o, (qg, kg, vg), do[:, None])
+
+        res["flash_attention_fwd_lse"]["library_ms"] += calls * time_ms(
+            [lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
+                                                    scale=scale)], reps=10, warmup=2)
+        lib_fwd_bwd += calls * time_ms([sdpa_fwd_bwd], reps=10, warmup=2)
+        del q, k, v, do, out, lse, got, args, runs, qg, kg, vg
+    for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        res[kname]["library_ms"] = None  # no one PyTorch call computes dq, or dk/dv, alone
+        res[kname]["sdpa_fwd_and_grad_ms"] = lib_fwd_bwd
+    for r in res.values():
+        r["tolerance_relative_to_largest_output"] = tol
+    return res
 
 
 def decode_work(kernel, q, mask):
@@ -664,10 +766,11 @@ def check_fused(torch, F, fd, dtype):
 
 def kernel_phase(torch, F, fa, da, br, fd):
     """Each kernel against its plain version at every shape a main path gives
-    it (main_path_calls; check_fused for the fused step), fp32 (TF32 off) then
-    bf16. -> {dtype: {"flash": {images: result}, "decode": {call: result},
-    "reorder": {width: result}, "fused": {kernel: result}}}, each result per
-    encode (flash) or per call."""
+    it (main_path_calls; check_fused for the fused step; check_flash_grad for
+    training), fp32 (TF32 off) then bf16. -> {dtype: {"flash": {images:
+    result}, "decode": {call: result}, "reorder": {width: result}, "fused":
+    {kernel: result}, "flash_grad": {kernel: result}}}, each result per encode
+    (flash), per call, or per training micro-step (flash_grad)."""
     from cxrmate_torch.utils.precision import parity_mode
 
     paths = main_path_calls(da).values()
@@ -681,11 +784,12 @@ def kernel_phase(torch, F, fa, da, br, fd):
             res = {"flash": {n: check_flash(torch, fa, F, dtype, n) for n in images},
                    "decode": {c: check_decode_call(torch, da, F, g, dtype, *c) for c in calls},
                    "reorder": {t: check_reorder(torch, br, dtype, t) for t in widths},
-                   "fused": check_fused(torch, F, fd, dtype)}
+                   "fused": check_fused(torch, F, fd, dtype),
+                   "flash_grad": check_flash_grad(torch, fa, F, dtype, name)}
         checked = ([("flash_attention", {"images": n, **r}) for n, r in res["flash"].items()]
                    + [(c[0], r) for c, r in res["decode"].items()]
                    + [("beam_reorder_write", r) for r in res["reorder"].values()]
-                   + list(res["fused"].items()))
+                   + list(res["fused"].items()) + list(res["flash_grad"].items()))
         for kname, r in checked:
             bound, bound_by = bound_ms(r["bytes"], r["flops"], r.get("ops_dtype", name))
             emit({"phase": "kernels", "dtype": name, "kernel": kname, "tolerance": tol,
@@ -693,7 +797,7 @@ def kernel_phase(torch, F, fa, da, br, fd):
                   **{k: v for k, v in r.items() if k not in ("bytes", "flops", "ops_dtype")}})
             if not r.get("fully_masked_row_err", 0.0) <= tol:
                 raise AssertionError(f"{kname} {name} {r}: fully masked row differs by > {tol}")
-            if not r["max_abs_err"] <= tol:
+            if kname not in FLASH_GRAD and not r["max_abs_err"] <= tol:
                 raise AssertionError(f"{kname} {name} {r}: max abs err > {tol}")
         results[name] = res
     return results
@@ -743,7 +847,8 @@ def plain_kernels():
     from cxrmate_torch.ops import flash_attention as fa
     from cxrmate_torch.ops import fused_decode as fd
 
-    swaps = [(fa, "flash_attention"), (da, "decode_attention"), (da, "decode_attention_vpu"),
+    swaps = [(fa, "flash_attention"), (fa, "flash_attention_grad"),
+             (da, "decode_attention"), (da, "decode_attention_vpu"),
              (da, "decode_attention_q8"), (br, "beam_reorder_write")] + [(fd, n) for n in FUSED]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
@@ -843,10 +948,7 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
     from cxrmate_torch.models import api
     from cxrmate_torch.models import bert as bert_mod
     from cxrmate_torch.models import encoder_decoder as ed
-    from cxrmate_torch.ops import beam_reorder as br
     from cxrmate_torch.ops import decode_attention as da
-    from cxrmate_torch.ops import flash_attention as fa
-    from cxrmate_torch.ops import fused_decode as fd
     import torch
 
     tok = model.tokenizer
@@ -859,11 +961,7 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
     if sample is not None:
         kw.update(do_sample=True, **sample,
                   generator=torch.Generator(device="cuda").manual_seed(SEED + 7))
-    wrappers = {"flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
-                "decode_attention_q8": da.decode_attention_q8,
-                "decode_attention_vpu": da.decode_attention_vpu,
-                "beam_reorder_write": br.beam_reorder_write,
-                **{name: getattr(fd, name) for name in FUSED}}
+    wrappers = all_wrappers()
     decoder = "beam_search" if beams > 1 else "generate"
     rec = Recorder()
     rec.wrap(bert_mod, "bert_step")
@@ -1244,6 +1342,235 @@ def fused_parity_phase(torch, np, ckpt):
         del model
 
 
+def train_batch(np, tok, config):
+    """One micro-batch of config/train/multi_tf.yaml: 4 studies x 5 image
+    slots (TRAIN_IMAGES real images, the other slots all-zero) and synthetic
+    findings and impressions through build_tf_batch with the repository
+    tokenizer; the longest report is truncated at decoder_max_len."""
+    from cxrmate_torch.train.tf_trainer import build_tf_batch
+
+    rs = np.random.RandomState(SEED + 20)
+    n = len(TRAIN_IMAGES)
+    px = rs.randn(n, SLOTS, 3, 384, 384).astype(np.float32)
+    for i, k in enumerate(TRAIN_IMAGES):
+        px[i, k:] = 0.0
+    lengths = (300, 180, 90, 40)  # tokens of findings + impression per study
+    findings = [synthetic_section(tok, rs, m * 2 // 3) for m in lengths]
+    impression = [synthetic_section(tok, rs, m - m * 2 // 3) for m in lengths]
+    batch = build_tf_batch(tok, config, px, findings, impression)
+    if batch["decoder_input_ids"].shape != (n, config.decoder_max_len):
+        raise AssertionError(f"train batch ids {batch['decoder_input_ids'].shape}, expected "
+                             f"({n}, {config.decoder_max_len})")
+    return batch
+
+
+def all_wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from cxrmate_torch.ops import beam_reorder as br
+    from cxrmate_torch.ops import decode_attention as da
+    from cxrmate_torch.ops import flash_attention as fa
+    from cxrmate_torch.ops import fused_decode as fd
+
+    return {"flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
+            "decode_attention_q8": da.decode_attention_q8,
+            "decode_attention_vpu": da.decode_attention_vpu,
+            "beam_reorder_write": br.beam_reorder_write,
+            **{name: getattr(fd, name) for name in FUSED},
+            **{name: getattr(fa, name) for name in FLASH_GRAD}}
+
+
+def train_breakdown(torch, net, batch, pad_id, reps=3):
+    """Where a bf16 micro-step's device time goes: the same forward and
+    backward as the train step, on a bf16 copy of the model, split at the
+    encoder's output (synchronised host clock, median of ``reps``): encoder
+    forward, decoder forward + loss, decoder backward, encoder backward."""
+    import copy
+
+    from cxrmate_torch.models import bert as bert_mod
+    from cxrmate_torch.models import encoder_decoder as ed
+    from cxrmate_torch.train import tf_trainer as tt
+    from cxrmate_torch.utils.precision import cast_floats
+
+    m16 = cast_floats(copy.deepcopy(net), torch.bfloat16).requires_grad_(True)
+    b = tt.batch_to_device(batch, torch.device("cuda"), torch.bfloat16)
+    enc_params, dec_params = list(m16.encoder.parameters()), list(m16.decoder.parameters())
+    times = {"encoder_forward": [], "decoder_forward": [], "decoder_backward": [],
+             "encoder_backward": []}
+    for i in range(reps + 1):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        hidden, mask = ed.encode_images(m16, b["pixel_values"], train=True, generator=gen)
+        mark()
+        h = hidden.detach().requires_grad_()
+        logits = bert_mod.bert_forward(m16.decoder, b["decoder_input_ids"],
+                                       b["decoder_attention_mask"], b["decoder_token_type_ids"],
+                                       None, h, mask, train=True, generator=gen)
+        loss = tt.cross_entropy_ignore_pad(logits, b["label_ids"], pad_id)
+        mark()
+        grads = torch.autograd.grad(loss, [h] + dec_params)
+        mark()
+        torch.autograd.grad(hidden, enc_params, grads[0])
+        mark()
+        if i:  # the first is a warm-up
+            for key, t0, t1 in zip(times, marks, marks[1:]):
+                times[key].append((t1 - t0) * 1e3)
+    del m16
+    out = {f"{k}_ms": sorted(v)[reps // 2] for k, v in times.items()}
+    total = sum(out.values())
+    out["encoder_backward_share"] = out["encoder_backward_ms"] / total
+    out["encoder_share"] = (out["encoder_forward_ms"] + out["encoder_backward_ms"]) / total
+    return out
+
+
+def train_phase(torch, np, ckpt):
+    """Teacher-forcing training of the multi model at full width through the
+    entry points cli.stages.fit calls: mask_for_stage -> adamw ->
+    create_train_state -> make_train_step(bf16) -> build_tf_batch -> step.
+    One untimed micro-step, then TRAIN_ACCUM timed ones with dropout on (a
+    generator per micro-step from train_generator), so that exactly one AdamW
+    update is applied among them; every micro-step's launch counts checked
+    (each flash_attention_grad kernel once per CvT layer, no other kernel)."""
+    from cxrmate_torch.models import api
+    from cxrmate_torch.train import optim
+    from cxrmate_torch.train import tf_trainer as tt
+
+    model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=torch.float32,
+                                           device="cuda")
+    net, config, tok = model.model, model.config, model.tokenizer
+    depth = sum(config.encoder.depth)
+    batch = train_batch(np, tok, config)
+    params = dict(net.named_parameters())
+    mask = optim.mask_for_stage(params, "multi")
+    tx = optim.adamw(TRAIN_LR, accumulate_steps=TRAIN_ACCUM, trainable_mask=mask)
+    state = tt.create_train_state(net, tx)
+    step = tt.make_train_step(config, tx, mask, pad_id=tok.pad_token_id,
+                              compute_dtype=torch.bfloat16)
+    update, update_ms, applied = tx.update, [], []
+
+    def timed_update(*a, **kw):  # the optimizer's own time, synchronised
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*a, **kw)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        applied.append(out)
+        return out
+
+    tx.update = timed_update
+    wrappers = all_wrappers()
+    want = dict.fromkeys(wrappers, 0)
+    want.update(dict.fromkeys(FLASH_GRAD, depth))
+    w0 = params["decoder.cls.predictions.bias"].detach().clone()
+    state, loss0 = step(state, batch, tt.train_generator(0, 0))  # warm-up, untimed
+    torch.cuda.reset_peak_memory_stats()
+    steps_ms, losses, launches = [], [float(loss0)], {k: 0 for k in wrappers}
+    for i in range(1, TRAIN_ACCUM + 1):
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, tt.train_generator(0, i))
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        if counts != want:
+            raise AssertionError(f"train micro-step {i}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+    peak = torch.cuda.max_memory_allocated()
+    tx.update = update
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if sum(applied) != 1 or state.opt_state.count != 1 or torch.equal(
+            params["decoder.cls.predictions.bias"], w0):
+        raise AssertionError(f"train: {sum(applied)} updates applied (expected exactly 1)")
+    med = sorted(steps_ms)[len(steps_ms) // 2]
+    accumulate = sorted(u for u, a in zip(update_ms, applied) if not a)
+    breakdown = train_breakdown(torch, net, batch, tok.pad_token_id)
+    res = {"phase": "train", "variant": "multi", "dtype": "bf16 (fp32 masters)",
+           "studies": len(TRAIN_IMAGES), "image_slots": SLOTS,
+           "images_per_study": list(TRAIN_IMAGES),
+           "report_tokens": int(batch["decoder_attention_mask"].sum(1).max()),
+           "micro_steps_timed": TRAIN_ACCUM, "ms_per_micro_step_median": med,
+           "ms_per_micro_step": steps_ms,
+           "trained_studies_per_s": len(TRAIN_IMAGES) / (med / 1e3),
+           "update_applied_at_timed_micro_step": applied.index(True),
+           "update_ms": update_ms[applied.index(True)],
+           "accumulate_ms_median": accumulate[len(accumulate) // 2],
+           "losses": losses, "peak_memory_gb": peak / 1e9,
+           "launches_per_micro_step": {k: v for k, v in want.items() if v},
+           "launches": {k: v for k, v in launches.items() if v}, **breakdown}
+    emit(res)
+    del model, net, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_parity_phase(torch, np, ckpt):
+    """One multi training micro-step with the kernels against the same
+    micro-step with every kernel swapped for its plain version
+    (plain_kernels(), flash_attention_grad included), from the same weights
+    and statistics and with the same dropout draws: the loss, each
+    parameter's gradient relative to its largest |g| (floored at a share of
+    the largest gradient in the model: gradients that are zero in exact
+    arithmetic, as a key bias's, sit at rounding level), the direction of
+    the whole gradient, and the BatchNorm running statistics. fp32 (TF32
+    off) within PARITY_TOL, bf16 (the training dtype) within
+    BF16_PARITY_TOL."""
+    from cxrmate_torch.models import api
+    from cxrmate_torch.models.cvt import batch_stats
+    from cxrmate_torch.train import tf_trainer as tt
+    from cxrmate_torch.utils.precision import parity_mode
+
+    out = {}
+    for name, dtype, tol, floor in (("fp32", None, PARITY_TOL, 1e-6),
+                                    ("bf16", torch.bfloat16, BF16_PARITY_TOL, 1e-3)):
+        with parity_mode():
+            model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=torch.float32,
+                                                   device="cuda")
+            net, tok = model.model, model.tokenizer
+            batch = train_batch(np, tok, model.config)
+            start = {k: v.clone() for k, v in net.state_dict().items()}
+            runs = []
+            for plain in (False, True):
+                net.load_state_dict(start)
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    loss, grads = tt.loss_and_grads(net, batch, tt.train_generator(0, 0),
+                                                    pad_id=tok.pad_token_id, compute_dtype=dtype)
+                runs.append((float(loss), grads,
+                             {k: v.clone() for k, v in batch_stats(net.encoder).items()}))
+            torch.cuda.synchronize()
+        (lk, gk, sk), (lp, gp, sp) = runs
+        big = max(float(g.abs().max()) for g in gp.values())
+        rel = sorted(((_err(gk[n], gp[n]) / max(float(gp[n].abs().max()), floor * big), n)
+                      for n in gp), reverse=True)
+        flat_k = torch.cat([g.flatten() for g in gk.values()])
+        flat_p = torch.cat([g.flatten() for g in gp.values()])
+        res = {"loss": lk, "loss_plain": lp, "loss_abs_err": abs(lk - lp),
+               "grad_max_rel_err": rel[0][0], "grad_worst": rel[:3],
+               "grad_median_rel_err": rel[len(rel) // 2][0],
+               "grad_cosine": float(torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0)),
+               "batch_stats_max_abs_err": max(_err(sk[n], sp[n]) for n in sp),
+               "finite": bool(np.isfinite(lk) and torch.isfinite(flat_k).all()),
+               "tolerance": tol, "grad_floor_share_of_largest": floor}
+        emit({"phase": "parity", "dtype": name, "variant": "multi", "path": "train", **res})
+        if not (res["finite"] and res["loss_abs_err"] <= tol * abs(lp)
+                and res["grad_max_rel_err"] <= tol and res["batch_stats_max_abs_err"] <= tol):
+            raise AssertionError(f"{name} train micro-step: kernel path disagrees with the plain "
+                                 f"path: {res}")
+        out[name] = res
+        del model, net, runs, start, flat_k, flat_p
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(da, k, counts):
     """The summary, bf16 (the serving dtype). One row per kernel and per set
     of shapes a main path gives it: times and bound of one unit of that work
@@ -1299,7 +1626,24 @@ def kernels_line(da, k, counts):
                     "bound_by": by, "library_ms": LAYERS * r["library_ms"],
                     "work": f"{LAYERS} x [B={STUDIES}, T={1 + NEW_TOKENS}, S={SLOTS * 576}, "
                             f"D={D_MODEL}, F={D_FF}], the step at column {(1 + NEW_TOKENS) // 2}"})
-    if {r["source"] for r in out} != {src for src, _ in KERNELS.values()}:
+    for kernel in FLASH_GRAD:  # one training micro-step: 21 calls at three shapes
+        r = bf["flash_grad"][kernel]
+        b, by = bound_ms(r["bytes"], r["flops"], "bf16")
+        launches = counts["train"][kernel]
+        if launches <= 0:
+            raise AssertionError(f"{kernel}: not launched on the training main path")
+        source, replaces = KERNELS[kernel]
+        row = {"name": f"{kernel}[multi train]", "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
+               "library_ms": r["library_ms"],
+               "work": f"one micro-step of {len(TRAIN_IMAGES) * SLOTS} images: 21 calls, "
+                       f"D=64, (BH, Lq, Lk) = {[(x['bh'], x['lq'], x['lk']) for x in r['per_shape']]}"}
+        if "sdpa_fwd_and_grad_ms" in r:
+            row["sdpa_fwd_and_grad_ms"] = r["sdpa_fwd_and_grad_ms"]
+        out.append(row)
+    if {r["source"] for r in out} != {src for src, _ in KERNELS.values()} or \
+            {r["name"].split("[")[0] for r in out} != set(KERNELS):
         raise AssertionError("a kernel is missing from the summary")
     return {"kernels": out}
 
@@ -1343,6 +1687,8 @@ def main() -> int:
         counts["multi"]["fused"] = fused_phase(torch, np, ckpts["multi"])
         parity_phase(torch, np, ckpts)
         fused_parity_phase(torch, np, ckpts["multi"])
+        counts["train"] = train_phase(torch, np, ckpts["multi"])["launches"]
+        train_parity_phase(torch, np, ckpts["multi"])
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

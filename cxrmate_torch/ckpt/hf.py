@@ -121,17 +121,22 @@ def model_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
 def load_model_state(model: nn.Module, sd: Dict) -> None:
     """Load an HF-layout state dict (tensors or numpy arrays) into the port's
     encoder-decoder, strictly, after dropping what the port does not hold:
-    BatchNorm's ``num_batches_tracked`` counters, the ``decoder.bias`` alias of
-    ``cls.predictions.bias`` and, for a tied head, the projection weight. The
-    PEFT prefix of a LoRA decoder's keys is stripped."""
+    the ``decoder.bias`` alias of ``cls.predictions.bias`` and, for a tied
+    head, the projection weight. The PEFT prefix of a LoRA decoder's keys is
+    stripped. BatchNorm's ``num_batches_tracked`` counters load when the
+    state dict has them (a checkpoint trained with torch); without them (the
+    JAX package's export) the model's own are kept."""
     tied = not hasattr(model.decoder.cls.predictions, "decoder")
     drop = ("decoder.cls.predictions.decoder.bias",)
     if tied:
         drop += ("decoder.cls.predictions.decoder.weight",)
     clean = {k: torch.as_tensor(np.asarray(v)) if isinstance(v, np.ndarray) else v
-             for k, v in ((_strip_peft(k), v) for k, v in sd.items())
-             if k not in drop and not k.endswith("num_batches_tracked")}
-    model.load_state_dict(clean, strict=True)
+             for k, v in ((_strip_peft(k), v) for k, v in sd.items()) if k not in drop}
+    missing, unexpected = model.load_state_dict(clean, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise RuntimeError(f"state dict does not fit the model: missing {missing[:8]}, "
+                           f"unexpected {unexpected[:8]}")
 
 
 def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarray]:

@@ -1,10 +1,13 @@
 // CvT stage attention: unmasked online-softmax ("flash") attention that never
 // holds the [Lq, Lk] score matrix in device memory.
 //
-// Replaces cxrmate_tpu/ops/flash_attention.py:60 flash_attention (Pallas, TPU).
-// Layout q [BH, Lq, D], k/v [BH, Lk, D], out [BH, Lq, D] with D = 64 (every
-// CvT-21 stage); fp32 or bf16 in, fp32 arithmetic throughout (scores, running
-// max and sum, context).
+// Replaces cxrmate_tpu/ops/flash_attention.py:60 flash_attention (Pallas, TPU)
+// and, with its log-sum-exp output, :109 _flash_fwd_kernel, the forward of
+// flash_attention_grad (pallas_call :218). Layout q [BH, Lq, D], k/v [BH, Lk, D],
+// out [BH, Lq, D] with D = 64 (every CvT-21 stage), lse [BH, Lq] fp32; fp32 or
+// bf16 in, fp32 arithmetic throughout (scores, running max and sum, context).
+// Both entries launch the same compiled kernel (the lse pointer is null for
+// inference), so the training forward's out is bit-identical to inference's.
 //
 // Bound on the H100: arithmetic. At CvT-21@384 (D = 64) one image needs about
 // 11.6 GFLOP of attention (4 * Lq * Lk * D per head: stage 0 is 9,216 x 2,304,
@@ -32,7 +35,7 @@ constexpr int DP = 64;      // head dim
 template <typename T>
 __global__ void __launch_bounds__(kRows)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int lq, int lk, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int lq, int lk, float scale) {
   __shared__ float ks[kKeys][DP];
   __shared__ float vs[kKeys][DP];
   const int bh = blockIdx.x;
@@ -91,19 +94,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* op = o + ((size_t)bh * lq + row) * DP;
 #pragma unroll
     for (int c = 0; c < DP; ++c) op[c] = cxr::from_float<T>(acc[c] / l);
+    if (lse != nullptr) lse[(size_t)bh * lq + row] = m + logf(l);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int lq,
-                   int lk, int d, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                   int lq, int lk, int d, float scale, cudaStream_t stream) {
   const dim3 grid(bh, (lq + kRows - 1) / kRows);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (d != DP) return cudaErrorInvalidValue;
-  flash_fwd_kernel<T><<<grid, kRows, 0, stream>>>(qp, kp, vp, op, lq, lk, scale);
+  flash_fwd_kernel<T><<<grid, kRows, 0, stream>>>(qp, kp, vp, op, lse, lq, lk, scale);
   return cudaGetLastError();
 }
 
@@ -112,12 +116,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 extern "C" int cxr_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                        int bh, int lq, int lk, int d, float scale,
                                        void* stream) {
-  return launch<float>(q, k, v, o, bh, lq, lk, d, scale, static_cast<cudaStream_t>(stream));
+  return launch<float>(q, k, v, o, nullptr, bh, lq, lk, d, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cxr_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                         int bh, int lq, int lk, int d, float scale,
                                         void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, bh, lq, lk, d, scale,
+  return launch<__nv_bfloat16>(q, k, v, o, nullptr, bh, lq, lk, d, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The training forward: as above, and lse[bh, row] = m + log(l), fp32.
+extern "C" int cxr_flash_attention_lse_f32(const void* q, const void* k, const void* v, void* o,
+                                           void* lse, int bh, int lq, int lk, int d,
+                                           float scale, void* stream) {
+  return launch<float>(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, d, scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cxr_flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* o,
+                                            void* lse, int bh, int lq, int lk, int d,
+                                            float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, d, scale,
                                static_cast<cudaStream_t>(stream));
 }

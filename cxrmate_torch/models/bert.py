@@ -1,4 +1,4 @@
-"""BERT LM-head decoder with cross-attention, inference, cache-aware.
+"""BERT LM-head decoder with cross-attention, cache-aware.
 
 The port of ``cxrmate_tpu/models/bert.py``: HF ``BertLMHeadModel`` behaviour
 (``is_decoder=True, add_cross_attention=True``, eager attention) with a
@@ -19,6 +19,11 @@ under HF's (and PEFT's) names; the functions below run them.
   * ``bert_step(use_fused=True)`` runs each layer through the four kernels of
     ``ops.fused_decode`` instead (greedy and sampled decoding without LoRA).
   * the cache is updated in place (the JAX package returns new arrays).
+  * ``bert_forward(train=True, generator=...)`` is the teacher-forcing
+    forward of training: hidden dropout after the embeddings and after each
+    sublayer's output projection, attention-probs dropout, and LoRA's input
+    dropout, all drawn from the generator. The tied LM head reads the one
+    word-embedding ``Parameter``, so its gradient sums both uses.
 
 Numerics follow HF eager order; additive masks are ``(1 - m) * finfo.min``.
 """
@@ -43,6 +48,7 @@ from cxrmate_torch.ops.layers import (
     Linear,
     LoraLinear,
     attention,
+    dropout,
     gelu,
     merge_heads,
     split_heads,
@@ -68,8 +74,8 @@ class _QKV(nn.Module):
             self.query = Linear(d, d, **kw)
             self.key = Linear(kv_in, d, **kw)
         else:
-            self.query = LoraLinear(d, d, lora.r, lora.scaling, **kw)
-            self.key = LoraLinear(kv_in, d, lora.r, lora.scaling, **kw)
+            self.query = LoraLinear(d, d, lora.r, lora.scaling, lora.dropout, **kw)
+            self.key = LoraLinear(kv_in, d, lora.r, lora.scaling, lora.dropout, **kw)
         self.value = Linear(kv_in, d, **kw)
 
 
@@ -128,6 +134,7 @@ class _Predictions(nn.Module):
     def __init__(self, c: BertDecoderConfig, **kw):
         super().__init__()
         self.transform = _Transform(c.hidden_size, **kw)
+        # requires_grad off for serving, as every holder's (ops.layers._empty)
         self.bias = nn.Parameter(torch.empty(c.vocab_size, **kw), requires_grad=False)
         if not c.tie_word_embeddings:
             self.decoder = Linear(c.hidden_size, c.vocab_size, bias=False, **kw)
@@ -157,7 +164,8 @@ class BertLMHeadModel(nn.Module):
 
 # -------------------------------------------------------------------- forward
 def bert_embed(model: BertLMHeadModel, input_ids, token_type_ids, position_ids,
-               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               dtype: Optional[torch.dtype] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     e = model.bert.embeddings
     x = e.word_embeddings(input_ids)
     if dtype is not None:
@@ -166,7 +174,7 @@ def bert_embed(model: BertLMHeadModel, input_ids, token_type_ids, position_ids,
         token_type_ids = torch.zeros_like(input_ids)
     x = x + e.token_type_embeddings(token_type_ids).to(x.dtype)
     x = x + e.position_embeddings(position_ids).to(x.dtype)
-    return e.LayerNorm(x)
+    return dropout(e.LayerNorm(x), model.config.hidden_dropout_prob, generator)
 
 
 def bert_lm_head(model: BertLMHeadModel, hidden: torch.Tensor) -> torch.Tensor:
@@ -192,25 +200,40 @@ def padding_additive_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - attention_mask.float()) * NEG)[:, None, None, :]
 
 
-def _sublayer(att: _Attention, hidden, kv_hidden, mask, heads: int, scale: float):
-    """Full-sequence attention sublayer (plain attention) + residual LN."""
-    qkv = att.self
-    ctx = attention(split_heads(qkv.query(hidden), heads),
-                    split_heads(qkv.key(kv_hidden), heads),
-                    split_heads(qkv.value(kv_hidden), heads), scale, mask)
-    return att.output.LayerNorm(att.output.dense(merge_heads(ctx)) + hidden)
+def _project(lin, x, generator):
+    """A q/k/v projection; a LoRA one draws its input dropout first."""
+    return lin(x, generator) if isinstance(lin, LoraLinear) else lin(x)
 
 
-def _mlp(layer: _Layer, hidden):
-    y = layer.output.dense(gelu(layer.intermediate.dense(hidden)))
+def _sublayer(att: _Attention, hidden, kv_hidden, mask, c: BertDecoderConfig,
+              generator: Optional[torch.Generator] = None):
+    """Full-sequence attention sublayer (plain attention) + residual LN. With
+    a generator (training), in the JAX package's order: LoRA dropout of q
+    then k, probs dropout, output dropout."""
+    qkv, heads = att.self, c.num_attention_heads
+    q = _project(qkv.query, hidden, generator)
+    k = _project(qkv.key, kv_hidden, generator)
+    ctx = attention(split_heads(q, heads), split_heads(k, heads),
+                    split_heads(qkv.value(kv_hidden), heads), 1.0 / math.sqrt(c.head_dim), mask,
+                    c.attention_probs_dropout_prob, generator)
+    out = dropout(att.output.dense(merge_heads(ctx)), c.hidden_dropout_prob, generator)
+    return att.output.LayerNorm(out + hidden)
+
+
+def _mlp(layer: _Layer, hidden, rate: float = 0.0,
+         generator: Optional[torch.Generator] = None):
+    y = dropout(layer.output.dense(gelu(layer.intermediate.dense(hidden))), rate, generator)
     return layer.output.LayerNorm(y + hidden)
 
 
 def bert_forward(model: BertLMHeadModel, input_ids, attention_mask=None, token_type_ids=None,
                  position_ids=None, encoder_hidden_states=None,
-                 encoder_attention_mask=None) -> torch.Tensor:
-    """Full-sequence (teacher-forcing) forward -> logits [B, L, V]."""
+                 encoder_attention_mask=None, train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Full-sequence (teacher-forcing) forward -> logits [B, L, V]. Dropout
+    runs only with ``train`` and a ``generator``."""
     c = model.config
+    gen = generator if train else None
     b, l = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones(b, l, dtype=torch.int32, device=input_ids.device)
@@ -221,14 +244,14 @@ def bert_forward(model: BertLMHeadModel, input_ids, attention_mask=None, token_t
     if encoder_hidden_states is not None and encoder_attention_mask is not None:
         cross_mask = padding_additive_mask(encoder_attention_mask)
     hidden = bert_embed(model, input_ids, token_type_ids, position_ids,
-                        dtype=None if encoder_hidden_states is None else encoder_hidden_states.dtype)
-    heads, scale = c.num_attention_heads, 1.0 / math.sqrt(c.head_dim)
+                        dtype=None if encoder_hidden_states is None else encoder_hidden_states.dtype,
+                        generator=gen)
     for layer in model.bert.encoder.layer:
-        hidden = _sublayer(layer.attention, hidden, hidden, self_mask, heads, scale)
+        hidden = _sublayer(layer.attention, hidden, hidden, self_mask, c, gen)
         if encoder_hidden_states is not None:
             hidden = _sublayer(layer.crossattention, hidden, encoder_hidden_states,
-                               cross_mask, heads, scale)
-        hidden = _mlp(layer, hidden)
+                               cross_mask, c, gen)
+        hidden = _mlp(layer, hidden, c.hidden_dropout_prob, gen)
     return bert_lm_head(model, hidden)
 
 

@@ -4,11 +4,12 @@ all-zero image slots are padding and masked out of cross-attention.
 ``single``: one image per example, no encoder mask. ``longitudinal`` adds the
 previous report as a decoder prompt.
 
-The port of ``cxrmate_tpu/models/encoder_decoder.py``'s serving helpers
-(``encode_images`` :40, ``token_ids_to_token_type_ids`` :145 and ``_past``
-:173, ``tokenize_report_teacher_forcing`` :196, ``tokenize_prompt`` :213,
+The port of ``cxrmate_tpu/models/encoder_decoder.py``: ``encode_images``
+:40, the teacher-forcing ``forward`` :97 (also in train mode),
+``token_ids_to_token_type_ids`` :145 and ``_past`` :173,
+``tokenize_report_teacher_forcing`` :196, ``tokenize_prompt`` :213,
 ``split_and_decode_sections`` :241, ``bucket_prompt`` :264,
-``cumulative_position_ids`` :284).
+``cumulative_position_ids`` :284.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch
 from torch import nn
 
 from cxrmate_torch.configs import EncoderDecoderConfig
-from cxrmate_torch.models.bert import BertLMHeadModel
-from cxrmate_torch.models.cvt import CvtWithProjectionHead, cvt_encode
+from cxrmate_torch.models.bert import BertLMHeadModel, bert_forward
+from cxrmate_torch.models.cvt import CvtWithProjectionHead, batch_stats, cvt_encode
 
 
 class EncoderDecoder(nn.Module):
@@ -34,27 +35,61 @@ class EncoderDecoder(nn.Module):
         self.encoder = CvtWithProjectionHead(config.encoder, device=device, dtype=dtype)
         self.decoder = BertLMHeadModel(config.decoder, config.lora, device=device, dtype=dtype)
 
+    def forward(self, *args, **kwargs):
+        """:func:`forward` on this model (so ``torch.func.functional_call``
+        can run it over other parameter tensors)."""
+        return forward(self, *args, **kwargs)
 
-def encode_images(model: EncoderDecoder, pixel_values: torch.Tensor
+
+def encode_images(model: EncoderDecoder, pixel_values: torch.Tensor, train: bool = False,
+                  generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, N, 3, H, W] pixel values -> (encoder_hidden [B, N*T_img, P],
     encoder_mask [B, N*T_img] int32). The N images are folded into the batch
     for CvT; an image is padding iff its pixel [0, 0, 0] is exactly 0
-    (reference modelling_multi.py:80). ``single``: [B, 3, H, W], or slot 0 of
-    a 5-D batch (its other slots are padding), and a mask of all ones."""
+    (reference modelling_multi.py:80): padding slots are encoded all the same
+    (and in train mode enter the BatchNorm statistics), as in JAX.
+    ``single``: [B, 3, H, W], or slot 0 of a 5-D batch (its other slots are
+    padding), and a mask of all ones. ``train``/``generator``: CvT's train
+    mode (``models.cvt``)."""
     if model.config.variant == "single":
         if pixel_values.dim() == 5:
             pixel_values = pixel_values[:, 0]
-        hidden = cvt_encode(model.encoder, pixel_values)
+        hidden = cvt_encode(model.encoder, pixel_values, train, generator)
         return hidden, torch.ones(hidden.shape[:2], dtype=torch.int32, device=hidden.device)
     b, n = pixel_values.shape[:2]
     flat = pixel_values.reshape((b * n,) + tuple(pixel_values.shape[2:]))
-    hidden = cvt_encode(model.encoder, flat)
+    hidden = cvt_encode(model.encoder, flat, train, generator)
     tokens_per = hidden.shape[1]
     hidden = hidden.reshape(b, n * tokens_per, hidden.shape[-1])
     img_mask = (pixel_values[:, :, 0, 0, 0] != 0.0).to(torch.int32)
     mask = img_mask.repeat_interleave(tokens_per, dim=1)
     return hidden, mask
+
+
+def forward(model: EncoderDecoder, pixel_values: Optional[torch.Tensor],
+            decoder_input_ids: torch.Tensor, *,
+            decoder_attention_mask: Optional[torch.Tensor] = None,
+            decoder_token_type_ids: Optional[torch.Tensor] = None,
+            decoder_position_ids: Optional[torch.Tensor] = None,
+            encoder_outputs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            train: bool = False, generator: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Teacher-forcing forward -> (logits [B, L, V], the encoder's BatchNorm
+    running statistics after the call: in train mode the updated ones,
+    ``models.cvt.batch_stats``). The encoder draws from ``generator`` first,
+    then the decoder. ``single``: the cross-attention mask is all ones
+    (modelling_single.py:176)."""
+    if encoder_outputs is None:
+        enc_hidden, enc_mask = encode_images(model, pixel_values, train, generator)
+    else:
+        enc_hidden, enc_mask = encoder_outputs
+    if model.config.variant == "single":
+        enc_mask = torch.ones(enc_hidden.shape[:2], dtype=torch.int32, device=enc_hidden.device)
+    logits = bert_forward(model.decoder, decoder_input_ids, decoder_attention_mask,
+                          decoder_token_type_ids, decoder_position_ids, enc_hidden, enc_mask,
+                          train=train, generator=generator)
+    return logits, batch_stats(model.encoder)
 
 
 def token_ids_to_token_type_ids(token_ids: torch.Tensor, special_token_ids: Sequence[int],

@@ -8,12 +8,18 @@ output back to the input dtype; normalisation statistics are fp32.
 The ``nn.Module`` holders (:class:`Linear`, :class:`LayerNorm`, ...) only own
 parameters under HF's names, so an HF state dict loads with
 ``load_state_dict``. Their storage is left uninitialised: a model is filled by
-``load_state_dict`` or by ``models.api.random_init``.
+``load_state_dict`` or by ``models.api.random_init``. Parameters are created
+with ``requires_grad`` off, for serving; a trainer turns it on for the ones it
+trains (``train.tf_trainer.loss_and_grads``).
+
+Train-only randomness (:func:`dropout`, LoRA's input dropout, attention-probs
+dropout, CvT's drop-path) draws from an explicit ``torch.Generator``; without
+one (``None``) each is the identity, as ``rng=None`` is in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,16 +35,19 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
 
 def lora_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                 lora_a: Optional[torch.Tensor], lora_b: Optional[torch.Tensor],
-                scaling: float) -> torch.Tensor:
-    """Linear with a LoRA delta, inference form (PEFT ``lora.Linear`` without
-    its train-only dropout): ``x W^T + b + scaling * (x A^T) B^T`` with
-    ``lora_a`` [r, in] and ``lora_b`` [out, r] as PEFT stores them. The LoRA
-    branch accumulates in fp32 and is rounded to the output dtype before the
-    add, as ``cxrmate_tpu/ops/layers.py:29`` does."""
+                scaling: float, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Linear with a LoRA delta (PEFT ``lora.Linear``): ``x W^T + b + scaling
+    * (drop(x) A^T) B^T`` with ``lora_a`` [r, in] and ``lora_b`` [out, r] as
+    PEFT stores them; the dropout, on the LoRA branch's input only, runs in
+    training (a ``generator``). The LoRA branch accumulates in fp32 and is
+    rounded to the output dtype before the add, as
+    ``cxrmate_tpu/ops/layers.py:29`` does."""
     y = linear(x, weight, bias)
     if lora_a is None:
         return y
-    delta = F.linear(F.linear(x.float(), lora_a.float()), lora_b.float())
+    xa = dropout(x, dropout_rate, generator)
+    delta = F.linear(F.linear(xa.float(), lora_a.float()), lora_b.float())
     return y + (scaling * delta).to(y.dtype)
 
 
@@ -57,6 +66,28 @@ def batch_norm_infer(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor, eps: float,
+                     momentum: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BatchNorm over NCHW channels with the batch's statistics, in fp32 ->
+    (y in x's dtype, new running mean, new running var), as
+    ``cxrmate_tpu/ops/layers.py:68``: the normalisation uses the biased
+    variance, the running update ``(1 - momentum) * old + momentum * batch``
+    the unbiased one; the new statistics are fp32 and carry no gradient."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    centred = xf - mean[None, :, None, None]
+    var = centred.square().mean(dim=(0, 2, 3))
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * running_mean.float() + momentum * mean
+        new_var = (1 - momentum) * running_var.float() + momentum * unbiased
+    y = centred * torch.rsqrt(var + eps)[None, :, None, None]
+    y = y * weight.float()[None, :, None, None] + bias.float()[None, :, None, None]
+    return y.to(x.dtype), new_mean, new_var
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
     """NCHW convolution with an OIHW kernel and symmetric padding."""
@@ -68,14 +99,29 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability ``1 - rate``
+    (a uniform fp32 draw below it, the Bernoulli of ``jax.random.bernoulli``)
+    and scale the kept ones by ``1 / (1 - rate)`` in x's dtype. The identity
+    for ``rate == 0`` or ``generator is None``. The draws are not the JAX
+    package's (another generator)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-              additive_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              additive_mask: Optional[torch.Tensor] = None, probs_dropout: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Eager-order attention on [B, H, T, Dh]: fp32 scores, x scale, + mask,
-    softmax, probs cast to the input dtype, fp32 context, cast back."""
+    softmax, probs cast to the input dtype (then, in training, dropped out
+    with ``probs_dropout``), fp32 context, cast back."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if additive_mask is not None:
         scores = scores + additive_mask.float()
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype), probs_dropout, generator)
     ctx = torch.matmul(probs.float(), v.float())
     return ctx.to(q.dtype)
 
@@ -112,17 +158,18 @@ class LoraLinear(nn.Module):
     ``base_layer.{weight,bias}``, ``lora_A.default.weight`` [r, in] and
     ``lora_B.default.weight`` [out, r]."""
 
-    def __init__(self, in_features: int, out_features: int, r: int, scaling: float, **kw):
+    def __init__(self, in_features: int, out_features: int, r: int, scaling: float,
+                 dropout: float = 0.0, **kw):
         super().__init__()
-        self.scaling = scaling
+        self.scaling, self.dropout = scaling, dropout
         self.base_layer = Linear(in_features, out_features, **kw)
         self.lora_A = nn.ModuleDict({"default": Linear(in_features, r, bias=False, **kw)})
         self.lora_B = nn.ModuleDict({"default": Linear(r, out_features, bias=False, **kw)})
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         return lora_linear(x, self.base_layer.weight, self.base_layer.bias,
                            self.lora_A["default"].weight, self.lora_B["default"].weight,
-                           self.scaling)
+                           self.scaling, self.dropout, generator)
 
 
 class LayerNorm(nn.Module):
@@ -149,20 +196,33 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Inference-only BatchNorm. HF's ``num_batches_tracked`` counter is not
-    held: it plays no part in inference (``ckpt.hf`` drops it on load)."""
+    """BatchNorm with HF's buffers. ``train=False`` normalises with the
+    running statistics; ``train=True`` with the batch's, and then updates the
+    running buffers in place (:func:`batch_norm_train`) and adds one to
+    ``num_batches_tracked``, as torch's BatchNorm2d does in training (with a
+    set momentum the counter is bookkeeping only)."""
 
-    def __init__(self, dim: int, eps: float, **kw):
+    def __init__(self, dim: int, eps: float, momentum: float = 0.1, device=None, dtype=None):
         super().__init__()
-        self.eps = eps
-        self.weight = _empty(dim, **kw)
-        self.bias = _empty(dim, **kw)
-        self.register_buffer("running_mean", torch.empty(dim, **kw))
-        self.register_buffer("running_var", torch.empty(dim, **kw))
+        self.eps, self.momentum = eps, momentum
+        self.weight = _empty(dim, device=device, dtype=dtype)
+        self.bias = _empty(dim, device=device, dtype=dtype)
+        self.register_buffer("running_mean", torch.empty(dim, device=device, dtype=dtype))
+        self.register_buffer("running_var", torch.empty(dim, device=device, dtype=dtype))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long, device=device))
 
-    def forward(self, x):
-        return batch_norm_infer(x, self.weight, self.bias, self.running_mean,
-                                self.running_var, self.eps)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return batch_norm_infer(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var, self.eps)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                        self.running_var, self.eps, self.momentum)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class Embedding(nn.Module):

@@ -137,7 +137,8 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cxrmate_tpu'))\n"
         "assert 'cxrmate_torch.generate.logits_process' in names, names\n"
         "assert 'cxrmate_torch.ops.fused_decode' in names, names\n"
-        "assert len(names) >= 24, names\n"
+        "assert {'cxrmate_torch.train.tf_trainer', 'cxrmate_torch.train.optim'} <= set(names), names\n"
+        "assert len(names) >= 27, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -161,11 +162,14 @@ def test_state_dict_from_jax_matches_export():
 
 def test_model_loads_every_parameter():
     """The port's modules hold exactly the export's tensors under HF names
-    (the tied head and the decoder.bias alias excepted)."""
+    (the tied head and the decoder.bias alias excepted), and BatchNorm's
+    num_batches_tracked counters, which the export lacks, at 0."""
     h = _shared()
     model = h.torch_model()
     want = h.hf_state_dict()
     got = model.state_dict()
+    counters = {k for k in got if k.endswith("num_batches_tracked")}
+    assert counters and all(int(got.pop(k)) == 0 for k in counters)
     dropped = {"decoder.cls.predictions.decoder.weight", "decoder.cls.predictions.decoder.bias"}
     assert set(got) == set(want) - dropped
     for k, v in got.items():

@@ -93,4 +93,5 @@ def test_cast_floats_casts_bn_statistics():
     bn = BatchNorm2d(4, 1e-5, device="cpu", dtype=torch.float32)
     cast_floats(bn, torch.bfloat16)
     assert {p.dtype for p in bn.parameters()} == {torch.bfloat16}
-    assert {b.dtype for b in bn.buffers()} == {torch.bfloat16}
+    assert {b.dtype for b in bn.buffers() if b.is_floating_point()} == {torch.bfloat16}
+    assert bn.num_batches_tracked.dtype == torch.long  # an integer buffer keeps its type
