@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a).
-  3. kernels - each of the twelve kernels against its plain PyTorch version on
+  3. kernels - each of the thirteen kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
                calls, self caches 256 to 511 columns wide behind prompts whose
@@ -37,8 +37,16 @@ Phases, each printing one JSON line:
                log-sum-exp rows, dq, dk/dv) at the CvT-21@384 stage shapes
                of a training micro-step of 20 images, fp32 and bf16, within
                1e-5 / 1e-2 of the largest output, the forward's out bit-equal
-               to flash_attention's; timed beside SDPA's forward and SDPA's
-               forward + torch.autograd.grad (the yardstick).
+               to flash_attention's; timed beside SDPA's forward and aten's
+               flash backward (dq, dk and dv in one call, bf16), the
+               yardsticks. The flash forward runs on tensor cores in bf16
+               (per stage shape and call counts in per_shape) and as a SIMT
+               kernel in fp32. fused_layer_step (v1, one kernel per layer; no
+               path calls it, as in the JAX package) at the fused path's
+               shapes against its plain version (fp32 <= 1e-5, bf16 <= 1e-2
+               of the largest output), the written column and the untouched
+               rest, with fully masked self and cross rows, and against v2 on
+               the same operands; timed cold beside v2's four kernels summed.
   4. main    - seeded random full-width models (CvT-21@384, BERT 6x768, the
                repository tokenizer's vocabulary) written as HF directories,
                loaded with CXRMate.from_hf_checkpoint and run through
@@ -69,7 +77,9 @@ Phases, each printing one JSON line:
                from the unquantised path are printed. The fused path against
                the fused path over the plain versions (same limits), and in
                fp32 against the unfused path (1e-3), with the share of greedy
-               tokens that agree.
+               tokens that agree; one decode step with every layer through
+               v1 against the same step through v2, from the caches of a
+               prefill and 7 teacher-fed steps (same limits, 6 v1 launches).
 Then the card's name and power limit, the kernels summary line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and the last line is not printed. The summary line has one row per
@@ -171,6 +181,8 @@ KERNELS = {
                                "cxrmate_tpu/ops/flash_attention.py:137"),
     "flash_attention_bwd_dkv": ("cxrmate_torch/csrc/flash_attention_bwd.cu",
                                 "cxrmate_tpu/ops/flash_attention.py:161"),
+    "fused_layer_step": ("cxrmate_torch/csrc/fused_layer_step.cu",
+                         "cxrmate_tpu/ops/fused_decode.py:164"),
 }
 FUSED = ("fused_qkv_attn", "fused_out_ln_q", "fused_cross_attn", "fused_out_ln_ffn")
 # the kernels of flash_attention_grad, CvT's attention in training
@@ -298,15 +310,16 @@ def check_flash_grad(torch, fa, F, dtype, name):
     shapes of one training micro-step (20 images: (BH, Lq, Lk, calls) summed
     over its 21 calls), each against its plain version on the same inputs,
     the forward's out bit-equal to flash_attention's; times of the kernels,
-    the plain versions and, as the library yardstick, SDPA's forward and
-    SDPA's forward + torch.autograd.grad of q, k, v."""
+    the plain versions and, as the library yardsticks, SDPA's forward and (bf16)
+    aten's flash backward, fed aten's flash forward on the same inputs and
+    timed alone (dq, dk and dv in one call)."""
     n_img = len(TRAIN_IMAGES) * SLOTS
     shapes = [(n_img * 1, 9216, 2304, 1), (n_img * 3, 2304, 576, 4), (n_img * 6, 577, 145, 16)]
     tol = FLASH_GRAD_TOL[name]
     res = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0,
                "max_rel_err": 0.0, "per_shape": []} for k in FLASH_GRAD}
     res["flash_attention_fwd_lse"]["library_ms"] = 0.0
-    lib_fwd_bwd = 0.0
+    lib_bwd = 0.0
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     for bh, lq, lk, calls in shapes:
         q, k, v, do = (torch.randn(bh, n, 64, generator=g, device="cuda").to(dtype)
@@ -352,20 +365,24 @@ def check_flash_grad(torch, fa, F, dtype, name):
             if not rel <= tol:
                 raise AssertionError(f"{kname} {dtype} {(bh, lq, lk)}: error {err} is {rel} of "
                                      f"the largest output, above {tol}")
-        qg, kg, vg = (x[:, None].detach().requires_grad_() for x in (q, k, v))
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-            return torch.autograd.grad(o, (qg, kg, vg), do[:, None])
-
         res["flash_attention_fwd_lse"]["library_ms"] += calls * time_ms(
             [lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
                                                     scale=scale)], reps=10, warmup=2)
-        lib_fwd_bwd += calls * time_ms([sdpa_fwd_bwd], reps=10, warmup=2)
-        del q, k, v, do, out, lse, got, args, runs, qg, kg, vg
+        if dtype == torch.bfloat16:  # the flash backward takes 16-bit inputs only
+            q4, k4, v4, do4 = (x[:, None] for x in (q, k, v, do))
+            o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
+                torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False, False,
+                                                                    scale=scale)
+            bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+            lib_bwd += calls * time_ms([lambda: bwd(do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0,
+                                                    False, seed, offset, scale=scale)],
+                                       reps=10, warmup=2)
+            del q4, k4, v4, do4, o4, lse4
+        del q, k, v, do, out, lse, got, args, runs
     for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        res[kname]["library_ms"] = None  # no one PyTorch call computes dq, or dk/dv, alone
-        res[kname]["sdpa_fwd_and_grad_ms"] = lib_fwd_bwd
+        # one PyTorch call computes dq, dk and dv together; none computes one alone
+        res[kname]["library_ms"] = lib_bwd if dtype == torch.bfloat16 else None
+        res[kname]["library_computes"] = "dq, dk and dv"
     for r in res.values():
         r["tolerance_relative_to_largest_output"] = tol
     return res
@@ -661,6 +678,109 @@ def fused_work(x, index):
     }
 
 
+def layer_step_work(x, index):
+    """Bytes and fp32 operations of one v1 layer step on these inputs: hidden
+    in, out and the new K/V column written, every weight once, the masks, and
+    the K/V rows the masks leave open; the intermediates never leave the
+    kernel in this count."""
+    b, d = x.hidden.shape
+    f, e = x.out_ln_ffn[4].shape[0], x.hidden.element_size()
+    k_self, v_self = attend_rows(x.self_mask, index, x.self_mask[:, index] != 0)
+    k_cross, v_cross = attend_rows(x.cross_mask, x.cross_mask.shape[1])
+    row = HEADS * HEAD_DIM * e
+    weights = 6 * d * d + 2 * d * f + 13 * d + f
+    nbytes = ((4 * b * d + weights) * e + (x.self_mask.numel() + x.cross_mask.numel()) * 4
+              + (k_self + v_self + k_cross + v_cross) * row)
+    flops = (2.0 * b * (6 * d * d + 2 * d * f)
+             + 2.0 * (k_self + v_self + 2 * b + k_cross + v_cross) * HEADS * HEAD_DIM)
+    return nbytes, flops
+
+
+def check_layer_step(torch, F, fd, x, dtype, v2_ms):
+    """fused_layer_step (v1, one kernel; no path calls it) at the fused path's
+    shapes: against its plain version (fp32 <= 1e-5, bf16 <= 1e-2 of the
+    largest output) with the step at columns 1, 128 and 255 and with a study
+    whose self keys and one whose cross keys are all masked, the new column
+    within tolerance and every other column bit-exact; against v2 on the same
+    operands (fp32 <= 1e-5; bf16 printed: v2 rounds ctx, h1, cq and cctx);
+    timed cold beside v2's four kernels summed and the same layer in library
+    calls."""
+    b, d = x.hidden.shape
+    t_len, mid = x.cache_k.shape[2], (1 + NEW_TOKENS) // 2
+    prep = {"wqkv": x.wqkv, "bqkv": x.bqkv, "out_ln_q": x.out_ln_q, "out_ln_ffn": x.out_ln_ffn}
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "by_index": {}, "cache_exact": True}
+
+    def step(fn, index, self_mask, cross_mask):
+        ck, cv = x.cache_k.clone(), x.cache_v.clone()
+        out = fn(x.hidden, None, ck, cv, x.cross_k, x.cross_v, index, self_mask, cross_mask,
+                 1e-12, prep)
+        return out[0] if isinstance(out, tuple) else out, ck, cv
+
+    dark_self, dark_cross = x.self_mask.clone(), x.cross_mask.clone()
+    dark_self[0] = 0
+    dark_cross[2] = 0
+    cases = [(i, x.self_mask, x.cross_mask) for i in (1, mid, t_len - 1)]
+    cases.append((mid, dark_self, dark_cross))
+    for index, smask, cmask in cases:
+        got = step(fd.fused_layer_step, index, smask, cmask)
+        want = step(fd.fused_layer_step_plain, index, smask, cmask)
+        if not bool(torch.isfinite(got[0].float()).all()):
+            raise AssertionError(f"fused_layer_step {dtype} index {index}: output not finite")
+        err = max(_err(got[0], want[0]), _err(got[1][:, :, index], want[1][:, :, index]),
+                  _err(got[2][:, :, index], want[2][:, :, index]))
+        rel = err / float(want[0].float().abs().max())
+        others = [c for c in range(t_len) if c != index]
+        r["cache_exact"] &= (torch.equal(got[1][:, :, others], x.cache_k[:, :, others])
+                             and torch.equal(got[2][:, :, others], x.cache_v[:, :, others]))
+        if smask is dark_self:
+            r["fully_masked_row_err"] = err
+        else:
+            r["by_index"][index] = err
+        r["max_abs_err"], r["max_rel_err"] = max(r["max_abs_err"], err), max(r["max_rel_err"], rel)
+    if not r["cache_exact"]:
+        raise AssertionError(f"fused_layer_step {dtype}: a cache column other than the step's "
+                             "changed")
+    if not r["max_rel_err"] <= tol:
+        raise AssertionError(f"fused_layer_step {dtype}: {r}, above {tol} of the largest output")
+    v1 = step(fd.fused_layer_step, mid, x.self_mask, x.cross_mask)
+    v2 = step(fd.fused_layer_step_v2, mid, x.self_mask, x.cross_mask)
+    r["vs_v2_max_abs_err"] = max(_err(a, b) for a, b in zip(v1, v2))
+    if dtype == torch.float32 and not r["vs_v2_max_abs_err"] <= tol:
+        raise AssertionError(f"fused_layer_step fp32: {r['vs_v2_max_abs_err']} from v2")
+
+    self_bool = ((x.self_mask != 0)
+                 & (torch.arange(t_len, device="cuda") <= mid))[:, None, None, :]
+    cross_bool = (x.cross_mask != 0)[:, None, None, :]
+
+    def library():  # the same layer in F.linear / F.layer_norm / F.gelu / SDPA calls
+        wo, bo, g1, be1, wq, bq = x.out_ln_q
+        wco, bco, g2, be2, w1, b1, w2, b2, g3, be3 = x.out_ln_ffn
+        q, k, v = (y.view(b, HEADS, 1, HEAD_DIM)
+                   for y in F.linear(x.hidden, x.wqkv, x.bqkv).split(d, 1))
+        x.cache_k[:, :, mid] = k[:, :, 0]
+        x.cache_v[:, :, mid] = v[:, :, 0]
+        ctx = F.scaled_dot_product_attention(q, x.cache_k, x.cache_v, attn_mask=self_bool)
+        h1 = F.layer_norm(F.linear(ctx.reshape(b, d), wo, bo) + x.hidden, (d,), g1, be1, 1e-12)
+        cq = F.linear(h1, wq, bq).view(b, HEADS, 1, HEAD_DIM)
+        cctx = F.scaled_dot_product_attention(cq, x.cross_k, x.cross_v, attn_mask=cross_bool)
+        h2 = F.layer_norm(F.linear(cctx.reshape(b, d), wco, bco) + h1, (d,), g2, be2, 1e-12)
+        return F.layer_norm(F.linear(F.gelu(F.linear(h2, w1, b1)), w2, b2) + h2, (d,), g3, be3,
+                            1e-12)
+
+    def run(fn):
+        return lambda: fn(x.hidden, None, x.cache_k, x.cache_v, x.cross_k, x.cross_v, mid,
+                          x.self_mask, x.cross_mask, 1e-12, prep)
+
+    r["ms"] = time_cold_ms([run(fd.fused_layer_step)])
+    r["plain_ms"] = time_cold_ms([run(fd.fused_layer_step_plain)], reps=5, warmup=1)
+    r["library_ms"] = time_cold_ms([library])
+    r["v2_four_kernels_ms"] = v2_ms
+    r["bytes"], r["flops"] = layer_step_work(x, mid)
+    r["ops_dtype"] = "fp32"
+    return r
+
+
 def check_fused(torch, F, fd, dtype):
     """The four kernels of the fused decoder-layer step against their plain
     versions at the fused main path's shapes: the self-attention kernel with
@@ -761,6 +881,8 @@ def check_fused(torch, F, fd, dtype):
         r["library_ms"] = time_cold_ms([library])
         r["bytes"], r["flops"] = work[name]
         r["ops_dtype"] = "fp32"  # fp32 inside, whatever the storage type
+    res["fused_layer_step"] = check_layer_step(torch, F, fd, x, dtype,
+                                               sum(res[k]["ms"] for k in FUSED))
     return res
 
 
@@ -849,7 +971,8 @@ def plain_kernels():
 
     swaps = [(fa, "flash_attention"), (fa, "flash_attention_grad"),
              (da, "decode_attention"), (da, "decode_attention_vpu"),
-             (da, "decode_attention_q8"), (br, "beam_reorder_write")] + [(fd, n) for n in FUSED]
+             (da, "decode_attention_q8"), (br, "beam_reorder_write"),
+             (fd, "fused_layer_step")] + [(fd, n) for n in FUSED]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -1286,10 +1409,17 @@ def fused_parity_phase(torch, np, ckpt):
     (greedy logits over a prefill and 15 teacher-fed steps; fp32 within
     PARITY_TOL, bf16 within BF16_PARITY_TOL), and in fp32 against the unfused
     path on the same tokens (PARITY_TOL); the share of free-running greedy
-    tokens on which fused and unfused agree is printed."""
+    tokens on which fused and unfused agree is printed. Then one real decode
+    step at column 8 with each of the 6 layers through v1 (fused_layer_step,
+    which no path calls) against the same step through v2, from the caches of
+    a prefill and 7 teacher-fed steps (same limits; launches counted). ->
+    the launch counts of that v1 step (bf16)."""
+    import copy
+
     from cxrmate_torch.generate.decode import generate, prefill
     from cxrmate_torch.models import api
     from cxrmate_torch.models import bert as bert_mod
+    from cxrmate_torch.ops import fused_decode as fd
     from cxrmate_torch.ops.fused_decode import prepare_fused_params
     from cxrmate_torch.utils.precision import parity_mode
 
@@ -1323,23 +1453,63 @@ def fused_parity_phase(torch, np, ckpt):
                     logits.append(step)
                 return torch.stack(logits, 1), seq
 
+            def v1_step(at):
+                """One teacher-fed step at column ``at`` with every layer through
+                v1 (fused_layer_step) and through v2, from the same caches: a
+                prefill and the v2 steps before ``at``."""
+                _, cache, _ = prefill(model.model, gen_cfg, hidden, mask, prompt, 1 + steps)
+                prep = prepare_fused_params(dec, dec.config.num_attention_heads)
+
+                def step(i, c):
+                    key_mask = (cols <= i).int().expand(n, 1 + steps).contiguous()
+                    return bert_mod.bert_step(
+                        dec, c, seq_k[:, i], torch.zeros(n, dtype=torch.int32, device="cuda"),
+                        torch.full((n,), i, dtype=torch.long, device="cuda"), i, key_mask, mask,
+                        use_fused=True, fused_prepared=prep, decode_kernel="")[0]
+
+                for i in range(1, at):
+                    step(i, cache)
+                twin = copy.copy(cache)
+                twin.self_k = [x.clone() for x in cache.self_k]
+                twin.self_v = [x.clone() for x in cache.self_v]
+                via_v2 = step(at, cache)
+                v2, wrappers = fd.fused_layer_step_v2, all_wrappers()
+                fd.fused_layer_step_v2 = lambda *a, **kw: fd.fused_layer_step(*a, **kw)[0]
+                for fn in wrappers.values():
+                    fn.launches = 0
+                try:
+                    via_v1 = step(at, twin)
+                finally:
+                    fd.fused_layer_step_v2 = v2
+                counts = {k: fn.launches for k, fn in wrappers.items()}
+                want = dict.fromkeys(wrappers, 0)
+                want["fused_layer_step"] = len(prep)
+                if counts != want:
+                    raise AssertionError(f"v1 step: launches {counts}, expected {want}")
+                return via_v1, via_v2, counts
+
             g_k, seq_k = run(True)
             with plain_kernels():
                 g_p, _ = run(True, tokens=seq_k)
             g_u, seq_u = run(False, tokens=seq_k)
+            l_v1, l_v2, v1_counts = v1_step(steps // 2)
             torch.cuda.synchronize()
         tol = PARITY_TOL if name == "fp32" else BF16_PARITY_TOL
         res = {"kernels_vs_plain_logits_max_abs_err": _err(g_k, g_p),
                "fused_vs_unfused_logits_max_abs_err": _err(g_k, g_u), "steps": g_k.shape[1],
                "fused_vs_unfused_greedy_token_agreement": float((seq_k == seq_u).float().mean()),
-               "finite": bool(torch.isfinite(g_k.float()).all()), "tolerance": tol}
+               "v1_vs_v2_step_logits_max_abs_err": _err(l_v1, l_v2),
+               "v1_step_column": steps // 2, "v1_step_launches": v1_counts["fused_layer_step"],
+               "finite": bool(torch.isfinite(g_k.float()).all()
+                              and torch.isfinite(l_v1.float()).all()), "tolerance": tol}
         emit({"phase": "parity", "dtype": name, "variant": "multi", "path": "fused", **res})
-        held = [res["kernels_vs_plain_logits_max_abs_err"]]
+        held = [res["kernels_vs_plain_logits_max_abs_err"], res["v1_vs_v2_step_logits_max_abs_err"]]
         if name == "fp32":  # in bf16 the two paths round at different points
             held.append(res["fused_vs_unfused_logits_max_abs_err"])
         if not (res["finite"] and max(held) <= tol):
             raise AssertionError(f"{name} fused path: {res}")
         del model
+    return v1_counts
 
 
 def train_batch(np, tok, config):
@@ -1376,6 +1546,7 @@ def all_wrappers():
             "decode_attention_vpu": da.decode_attention_vpu,
             "beam_reorder_write": br.beam_reorder_write,
             **{name: getattr(fd, name) for name in FUSED},
+            "fused_layer_step": fd.fused_layer_step,
             **{name: getattr(fa, name) for name in FLASH_GRAD}}
 
 
@@ -1626,6 +1797,25 @@ def kernels_line(da, k, counts):
                     "bound_by": by, "library_ms": LAYERS * r["library_ms"],
                     "work": f"{LAYERS} x [B={STUDIES}, T={1 + NEW_TOKENS}, S={SLOTS * 576}, "
                             f"D={D_MODEL}, F={D_FF}], the step at column {(1 + NEW_TOKENS) // 2}"})
+    # v1: no path of the JAX package or of the port calls it, so every main
+    # path launches it 0 times (drive and train_phase hold that); it is held
+    # in the kernels phase and through one real decode step (fused_parity_phase,
+    # whose launches are parity_step_launches)
+    r = bf["fused"]["fused_layer_step"]
+    b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
+    runs = [counts["train"]] + [run for variant in ("multi", "longitudinal", "single")
+                                for run in counts[variant].values()]
+    source, replaces = KERNELS["fused_layer_step"]
+    out.append({"name": "fused_layer_step[no path: function only]", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": sum(run.get("fused_layer_step", 0) for run in runs),
+                "max_abs_err": r["max_abs_err"], "ms": LAYERS * r["ms"],
+                "plain_ms": LAYERS * r["plain_ms"], "bound_ms": b, "bound_by": by,
+                "library_ms": LAYERS * r["library_ms"],
+                "v2_four_kernels_ms": LAYERS * r["v2_four_kernels_ms"],
+                "parity_step_launches": counts["fused_parity"]["fused_layer_step"],
+                "work": f"{LAYERS} x [B={STUDIES}, T={1 + NEW_TOKENS}, S={SLOTS * 576}, "
+                        f"D={D_MODEL}, F={D_FF}], the step at column {(1 + NEW_TOKENS) // 2}"})
     for kernel in FLASH_GRAD:  # one training micro-step: 21 calls at three shapes
         r = bf["flash_grad"][kernel]
         b, by = bound_ms(r["bytes"], r["flops"], "bf16")
@@ -1639,8 +1829,8 @@ def kernels_line(da, k, counts):
                "library_ms": r["library_ms"],
                "work": f"one micro-step of {len(TRAIN_IMAGES) * SLOTS} images: 21 calls, "
                        f"D=64, (BH, Lq, Lk) = {[(x['bh'], x['lq'], x['lk']) for x in r['per_shape']]}"}
-        if "sdpa_fwd_and_grad_ms" in r:
-            row["sdpa_fwd_and_grad_ms"] = r["sdpa_fwd_and_grad_ms"]
+        if "library_computes" in r:
+            row["library_computes"] = r["library_computes"]
         out.append(row)
     if {r["source"] for r in out} != {src for src, _ in KERNELS.values()} or \
             {r["name"].split("[")[0] for r in out} != set(KERNELS):
@@ -1686,7 +1876,7 @@ def main() -> int:
                   "single": single_phase(torch, np, ckpts["multi"])}
         counts["multi"]["fused"] = fused_phase(torch, np, ckpts["multi"])
         parity_phase(torch, np, ckpts)
-        fused_parity_phase(torch, np, ckpts["multi"])
+        counts["fused_parity"] = fused_parity_phase(torch, np, ckpts["multi"])
         counts["train"] = train_phase(torch, np, ckpts["multi"])["launches"]
         train_parity_phase(torch, np, ckpts["multi"])
     finally:

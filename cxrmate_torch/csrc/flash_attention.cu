@@ -4,10 +4,10 @@
 // Replaces cxrmate_tpu/ops/flash_attention.py:60 flash_attention (Pallas, TPU)
 // and, with its log-sum-exp output, :109 _flash_fwd_kernel, the forward of
 // flash_attention_grad (pallas_call :218). Layout q [BH, Lq, D], k/v [BH, Lk, D],
-// out [BH, Lq, D] with D = 64 (every CvT-21 stage), lse [BH, Lq] fp32; fp32 or
-// bf16 in, fp32 arithmetic throughout (scores, running max and sum, context).
-// Both entries launch the same compiled kernel (the lse pointer is null for
-// inference), so the training forward's out is bit-identical to inference's.
+// out [BH, Lq, D] with D = 64 (every CvT-21 stage), lse [BH, Lq] fp32 = m + log l.
+// Both entries of a dtype launch the same compiled kernel (the lse pointer is
+// null for inference), so the training forward's out is bit-identical to
+// inference's.
 //
 // Bound on the H100: arithmetic. At CvT-21@384 (D = 64) one image needs about
 // 11.6 GFLOP of attention (4 * Lq * Lk * D per head: stage 0 is 9,216 x 2,304,
@@ -15,27 +15,53 @@
 // only q, k, v and out. The plain version instead writes and reads an fp32
 // score matrix of 85 MB per image per layer at stage 0.
 //
-// Design: one block per (bh, tile of 128 query rows), one query row per
-// thread. The row's q and its fp32 context accumulator stay in registers; the
-// block walks the keys in tiles of 32 rows of K and V staged in shared memory
-// (converted to fp32 once, read by every thread as a broadcast), computing the
-// tile's 32 scores, the new running max, and rescaling the accumulator once
-// per tile. Keys past Lk in the ragged last tile get score -1e30 and weight 0,
-// as the TPU kernel masks them. Simple and exact; wgmma/TMA tiles are later
-// work.
+// bf16: Hopper's tensor cores (flash_fwd_tc_kernel). A block of two
+// warpgroups owns 128 query rows, 64 per warpgroup; two blocks share an SM
+// (at most 128 registers a thread, 83 KB of shared memory a block). Q's tile
+// and a ring of kStages K/V tiles of 64 keys sit in shared memory in the
+// 128-byte swizzled layout, loaded by TMA (3-D tensor maps [BH, L, 64], so
+// rows past L are zero-filled and never the next head's) and signalled
+// through mbarriers. Per tile a warpgroup runs S = Q K^T as four wgmma
+// m64n64k16 (A and B from shared memory, both K-major as stored), masks keys
+// past Lk to -inf (the last tile only), updates the running max and sum on
+// the fp32 accumulator fragments in registers (ex2.approx, the scale folded
+// into one FFMA per score), converts P to bf16 in registers (the accumulator
+// fragment is the A fragment of the next product) and runs O += P V as four
+// wgmma with A from registers and V's tile read through the transposed
+// (MN-major) descriptor; the next tile's Q K^T is issued into the same commit
+// group, since S's registers are free once P is packed. The second warpgroup
+// to finish with a stage refills it (a per-stage count, no block-wide
+// barrier), so the two drift apart and one's softmax runs under the other's
+// products, and the copies of the next tiles run under both. Deviation from
+// the TPU kernel, whose p is fp32: P is rounded to bf16 before P V (the row
+// sum l is not).
+//
+// fp32 (parity mode, the CPU tests' shapes on the card): the SIMT kernel
+// (flash_fwd_simt_kernel), because tensor cores would compute in TF32 (about
+// three decimal digits), which misses the 1e-5 fp32 gate. One block per (bh,
+// tile of 128 query rows), one query row per thread: the row's q and its fp32
+// context stay in registers; the block walks the keys in tiles of 32 rows of
+// K and V staged in shared memory (converted to fp32 once, read by every
+// thread as a broadcast), rescaling the context once per tile. Keys past Lk in
+// the ragged last tile get score -1e30 and weight 0, as the TPU kernel masks
+// them.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
+constexpr int DP = 64;  // head dim
+
+// ------------------------------------------------------------------ fp32 SIMT
 constexpr int kRows = 128;  // query rows per block, one per thread
 constexpr int kKeys = 32;   // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
-constexpr int DP = 64;      // head dim
 
-template <typename T>
 __global__ void __launch_bounds__(kRows)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int lq, int lk, float scale) {
+flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                      int lq, int lk, float scale) {
   __shared__ float ks[kKeys][DP];
   __shared__ float vs[kKeys][DP];
   const int bh = blockIdx.x;
@@ -43,15 +69,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const bool valid = row < lq;
 
   float qr[DP], acc[DP];
-  const T* qp = q + ((size_t)bh * lq + (valid ? row : 0)) * DP;
+  const float* qp = q + ((size_t)bh * lq + (valid ? row : 0)) * DP;
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
-    qr[c] = valid ? cxr::to_float(qp[c]) : 0.f;
+    qr[c] = valid ? qp[c] : 0.f;
     acc[c] = 0.f;
   }
   float m = kNegInf, l = 0.f;
-  const T* kb = k + (size_t)bh * lk * DP;
-  const T* vb = v + (size_t)bh * lk * DP;
+  const float* kb = k + (size_t)bh * lk * DP;
+  const float* vb = v + (size_t)bh * lk * DP;
 
   for (int t0 = 0; t0 < lk; t0 += kKeys) {
     const int n = min(kKeys, lk - t0);
@@ -60,8 +86,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int j = i / DP, c = i % DP;
       const bool ok = j < n;
       const size_t off = (size_t)(t0 + j) * DP + c;
-      ks[j][c] = ok ? cxr::to_float(kb[off]) : 0.f;
-      vs[j][c] = ok ? cxr::to_float(vb[off]) : 0.f;
+      ks[j][c] = ok ? kb[off] : 0.f;
+      vs[j][c] = ok ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -91,23 +117,380 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   if (valid) {
-    T* op = o + ((size_t)bh * lq + row) * DP;
+    float* op = o + ((size_t)bh * lq + row) * DP;
 #pragma unroll
-    for (int c = 0; c < DP; ++c) op[c] = cxr::from_float<T>(acc[c] / l);
+    for (int c = 0; c < DP; ++c) op[c] = acc[c] / l;
     if (lse != nullptr) lse[(size_t)bh * lq + row] = m + logf(l);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                   int lq, int lk, int d, float scale, cudaStream_t stream) {
+// -------------------------------------------------------- bf16 tensor cores
+constexpr int kM = 128;                 // query rows per block: two warpgroups of 64
+constexpr int kN = 64;                  // keys per K/V tile
+constexpr int kStages = 4;              // K/V tiles in flight
+constexpr int kThreads = 256;
+constexpr int kRowBytes = DP * 2;       // one bf16 row: 128 bytes, the swizzle span
+constexpr int kTileBytes = kN * kRowBytes;  // 8 KB: one K or one V tile
+constexpr int kQBytes = kM * kRowBytes;     // 16 KB
+// 1 KB of slack to align the tiles to the 1,024-byte swizzle atom, the tiles,
+// then the mbarriers (one per stage, one for Q)
+constexpr size_t kSmemBytes = 1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (kStages + 1);
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase `parity` completes. A completion that never
+// comes (a lost copy) traps after some seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, spins = 0;
+  do {
+    if (++spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map ({64, rows, 1} at (0, row, bh)) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading and
+// stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from touching accumulator registers across an
+// asynchronous product: every later use depends on this after the wait.
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, bf16 in, fp32 accumulate; A and B in shared memory,
+// both K-major. accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, "
+      "0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, m64n64k16: A (bf16) from registers, B in shared memory MN-major
+// (transposed: the N index, here the head dim, is the contiguous one).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit (flush-to-zero; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Accumulator fragment of m64nNk16 (fp32), per thread of a warpgroup: element
+// i sits at row 16 warp + lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) +
+// 2 (lane % 4) + i % 2. A thread holds two rows (r0, r1 = r0 + 8), each shared
+// by the four threads of a quad.
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int lq, int lk, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;                            // [128 rows][64], swizzled
+  const uint32_t sk = sq + kQBytes;                    // kStages x [64 keys][64]
+  const uint32_t sv = sk + kStages * kTileBytes;       // kStages x [64 keys][64]
+  const uint32_t full = sv + kStages * kTileBytes;     // kStages mbarriers
+  const uint32_t qbar = full + 8 * kStages;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kM;
+  const int ntiles = (lk + kN - 1) / kN;
+
+  __shared__ int passed[kStages];  // warpgroups past a stage's current tile
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      passed[s] = 0;
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, kQBytes);
+    tma_load(sq, &qmap, qbar, q0, bh);
+    for (int j = 0; j < kStages && j < ntiles; ++j) {
+      mbar_expect_tx(full + 8 * j, 2 * kTileBytes);
+      tma_load(sk + j * kTileBytes, &kmap, full + 8 * j, j * kN, bh);
+      tma_load(sv + j * kTileBytes, &vmap, full + 8 * j, j * kN, bh);
+    }
+  }
+
+  // Q: this warpgroup's 64 rows, K-major; the k-th 16-wide slice of the head
+  // dim starts 32 bytes further (inside the swizzled 128-byte row)
+  const uint64_t qdesc = smem_desc(sq + wg * 64 * kRowBytes, 16, 1024);
+  float acc[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  // running max of the raw scores and (per thread) sum of exp2(s * scale_log2 - m')
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  // S = Q K^T of tile j into sc, issued (not committed): K's tile is
+  // [64 keys][64], K-major as stored
+  auto issue_s = [&](int j) {
+    const int s = j % kStages;
+    mbar_wait(full + 8 * s, (j / kStages) & 1);
+    const uint64_t kdesc = smem_desc(sk + s * kTileBytes, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, qdesc + 2 * kk, kdesc + 2 * kk, kk > 0);
+  };
+  mbar_wait(qbar, 0);
+  wg_fence();
+  issue_s(0);
+  wg_commit();
+  wg_wait_all();
+  fence_regs(sc);
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kStages;
+    const int kbase = j * kN;
+    if (kbase + kN > lk) {  // keys past lk (only in the last tile) to -inf
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (kbase + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1) >= lk) sc[i] = -INFINITY;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i >> 1) & 1) mx1 = fmaxf(mx1, sc[i]);
+      else mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // every tile holds at least one key below lk, so mx is finite (the first
+    // tile's alpha is 2^-inf = 0)
+    const float a0 = fast_exp2((m0 - mx0) * scale_log2);
+    const float a1 = fast_exp2((m1 - mx1) * scale_log2);
+    const float ms0 = mx0 * scale_log2, ms1 = mx1 * scale_log2;
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool second = (i >> 1) & 1;
+      acc[i] *= second ? a1 : a0;
+      const float p = fast_exp2(fmaf(sc[i], scale_log2, second ? -ms1 : -ms0));
+      if (second) l1 += p;
+      else l0 += p;
+      sc[i] = p;
+    }
+    // P in bf16 as the A fragments of four k16 steps over the tile's keys
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    // O += P V: V's tile [64 keys][64] is MN-major for this product; the k-th
+    // 16 keys start 16 rows (2,048 bytes) further
+    const uint64_t vdesc = smem_desc(sv + s * kTileBytes, kTileBytes, 1024);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(acc, pa[kk], vdesc + (2048 >> 4) * kk);
+    // P sits in pa now, so sc is free: the next tile's S = Q K^T goes into the
+    // same commit group as this tile's P V
+    if (j + 1 < ntiles) issue_s(j + 1);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    fence_regs(sc);
+
+    // this warpgroup is past stage s; the second of the two to get here refills
+    // it, so that the warpgroups drift apart and one's softmax runs under the
+    // other's products
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if ((tid & 127) == 0 && atomicAdd(&passed[s], 1) == 1) {
+      passed[s] = 0;
+      if (j + kStages < ntiles) {
+        const int jn = j + kStages;
+        mbar_expect_tx(full + 8 * s, 2 * kTileBytes);
+        tma_load(sk + s * kTileBytes, &kmap, full + 8 * s, jn * kN, bh);
+        tma_load(sv + s * kTileBytes, &vmap, full + 8 * s, jn * kN, bh);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  __nv_bfloat16* ob = o + (size_t)bh * lq * DP;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * (lane & 3);
+    if (r0 < lq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * DP + col) =
+          __floats2bfloat162_rn(acc[4 * c] * inv0, acc[4 * c + 1] * inv0);
+    if (r1 < lq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r1 * DP + col) =
+          __floats2bfloat162_rn(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lb = lse + (size_t)bh * lq;
+    if (r0 < lq) lb[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;
+    if (r1 < lq) lb[r1] = (m1 * scale_log2 + log2f(l1)) * kLn2;
+  }
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [bh, len, 64] bf16 as a 3-D tensor map whose box is `rows` rows of one head,
+// 128-byte swizzled (as the wgmma descriptors read it); rows past len read as 0.
+cudaError_t make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int len,
+                     int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)DP, (cuuint64_t)len, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)kRowBytes, (cuuint64_t)len * kRowBytes};
+  const cuuint32_t box[3] = {(cuuint32_t)DP, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                      int lq, int lk, float scale, cudaStream_t stream) {
+  // TMA needs 16-byte aligned bases; the grid's y dimension holds bh
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0 || bh > 65535)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  cudaError_t err = make_map(encode, &qm, q, bh, lq, kM);
+  if (err == cudaSuccess) err = make_map(encode, &km, k, bh, lk, kN);
+  if (err == cudaSuccess) err = make_map(encode, &vm, v, bh, lk, kN);
+  if (err != cudaSuccess) return err;
+  static bool smem_set = false;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid((lq + kM - 1) / kM, bh);
+  flash_fwd_tc_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, lq, lk, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                        int lq, int lk, float scale, cudaStream_t stream) {
   const dim3 grid(bh, (lq + kRows - 1) / kRows);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  if (d != DP) return cudaErrorInvalidValue;
-  flash_fwd_kernel<T><<<grid, kRows, 0, stream>>>(qp, kp, vp, op, lse, lq, lk, scale);
+  flash_fwd_simt_kernel<<<grid, kRows, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, lq, lk, scale);
   return cudaGetLastError();
 }
 
@@ -116,28 +499,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 extern "C" int cxr_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                        int bh, int lq, int lk, int d, float scale,
                                        void* stream) {
-  return launch<float>(q, k, v, o, nullptr, bh, lq, lk, d, scale,
-                       static_cast<cudaStream_t>(stream));
+  if (d != DP) return cudaErrorInvalidValue;
+  return launch_simt(q, k, v, o, nullptr, bh, lq, lk, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cxr_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                         int bh, int lq, int lk, int d, float scale,
                                         void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, nullptr, bh, lq, lk, d, scale,
-                               static_cast<cudaStream_t>(stream));
+  if (d != DP) return cudaErrorInvalidValue;
+  return launch_tc(q, k, v, o, nullptr, bh, lq, lk, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The training forward: as above, and lse[bh, row] = m + log(l), fp32.
 extern "C" int cxr_flash_attention_lse_f32(const void* q, const void* k, const void* v, void* o,
                                            void* lse, int bh, int lq, int lk, int d,
                                            float scale, void* stream) {
-  return launch<float>(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, d, scale,
-                       static_cast<cudaStream_t>(stream));
+  if (d != DP) return cudaErrorInvalidValue;
+  return launch_simt(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cxr_flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* o,
                                             void* lse, int bh, int lq, int lk, int d,
                                             float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, d, scale,
-                               static_cast<cudaStream_t>(stream));
+  if (d != DP) return cudaErrorInvalidValue;
+  return launch_tc(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, scale,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // Device code shared by the four kernels of the fused decoder-layer step
 // (fused_qkv_attn.cu, fused_out_ln_q.cu, fused_cross_attn.cu,
 // fused_out_ln_ffn.cu), which replace the four Pallas bodies of
-// cxrmate_tpu/ops/fused_decode.py:366 fused_layer_step_v2.
+// cxrmate_tpu/ops/fused_decode.py:366 fused_layer_step_v2, and by the one
+// kernel of v1 (fused_layer_step.cu, :164 fused_layer_step).
 //
 // Three building blocks, all fp32 inside (weights and activations are cast up
 // from their storage type, as the Pallas bodies do with .astype(float32)):
@@ -75,6 +76,11 @@ template <> __device__ __forceinline__ void load_x<__nv_bfloat16>(const float* r
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
+
+// The store type O of layer_norm_rows and attend defaults to the storage
+// type T (v2's kernels round there); the v1 step names float to keep its
+// intermediates unrounded. Never deduced, so a bare nullptr still passes.
+template <typename X> struct store_t { using type = X; };
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -251,13 +257,13 @@ __device__ __forceinline__ void dense_pass(const float* xs, int n_in, const T* _
 // copies the row into xs (dense-pass layout) in one pass over device memory
 // (16-byte loads, kUnroll in flight per lane), takes the statistics from
 // there and normalises in place. Rows up to kRows are zeroed. If out is not
-// null the result also goes there ([rows, n]), rounded to T. The caller syncs
-// the block.
-template <typename T, int NW>
+// null the result also goes there ([rows, n]), stored as O (rounded when O is
+// T = bf16). The caller syncs the block.
+template <typename T, int NW, typename O = T>
 __device__ __forceinline__ void layer_norm_rows(const float* y, int rows, int n,
                                                 const T* __restrict__ gamma,
                                                 const T* __restrict__ beta, float eps, float* xs,
-                                                T* out) {
+                                                typename store_t<O>::type* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nq = n / 4;
   for (int r = warp; r < kRows; r += NW) {
@@ -315,11 +321,11 @@ __device__ __forceinline__ void layer_norm_rows(const float* y, int rows, int n,
           z.w = (v.w - mean) * rstd * g[u][3] + be[u][3];
           *at = z;
           if (out != nullptr) {
-            T* o = out + (size_t)r * n + 4 * c;
-            o[0] = from_float<T>(z.x);
-            o[1] = from_float<T>(z.y);
-            o[2] = from_float<T>(z.z);
-            o[3] = from_float<T>(z.w);
+            O* o = out + (size_t)r * n + 4 * c;
+            o[0] = from_float<O>(z.x);
+            o[1] = from_float<O>(z.y);
+            o[2] = from_float<O>(z.z);
+            o[3] = from_float<O>(z.w);
           }
         }
       }
@@ -338,13 +344,13 @@ __host__ __device__ inline size_t attend_floats(int n_all, int warps) {
 // non-zero = may be attended; only columns below `limit` count. With has_new,
 // one more key (kn, vn: 64 fp32 each in shared memory) is scored after the
 // cached ones, open iff new_ok. sc holds attend_floats(n_all, NW) floats, red
-// NW floats. Writes the 64 context values, rounded to T, to out. Every thread
+// NW floats. Writes the 64 context values, as O, to out. Every thread
 // of the block calls it; it ends with a block-wide sync.
-template <typename T, int NW>
+template <typename T, int NW, typename O = T>
 __device__ __forceinline__ void attend(const float* qs, const T* kc, const T* vc, const int* mask,
                                        int n_all, int limit, bool has_new, const float* kn,
                                        const float* vn, bool new_ok, float scale, float* sc,
-                                       float* red, T* out) {
+                                       float* red, typename store_t<O>::type* out) {
   constexpr int VPR = 16 / sizeof(T);  // elements per 16-byte vector
   constexpr int LPK = kDh / VPR;       // lanes per key row
   constexpr int KPW = 32 / LPK;        // key rows one warp load covers
@@ -452,7 +458,7 @@ __device__ __forceinline__ void attend(const float* qs, const T* kc, const T* vc
 #pragma unroll
     for (int w = 0; w < NW; ++w) x += part[w * kDh + i];
     if (has_new) x = fmaf(sc[n], vn[i], x);
-    out[i] = from_float<T>(x);
+    out[i] = from_float<O>(x);
   }
   __syncthreads();
 }

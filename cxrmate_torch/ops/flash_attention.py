@@ -14,7 +14,10 @@ Replaces ``cxrmate_tpu/ops/flash_attention.py``:
 
 The CUDA kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``)
 never write the [Lq, Lk] score matrix; the source notes there say what bounds
-them on the H100 and how the designs meet that.
+them on the H100 and how the designs meet that. The forward has two: bf16 runs
+on Hopper's tensor cores (wgmma, K/V tiles streamed by TMA; P is rounded to
+bf16 before P.V, which the TPU kernel's fp32 p is not), fp32 keeps a SIMT
+kernel (tensor cores would compute in TF32).
 
 On CPU tensors every wrapper runs its plain version (``*_plain``); on CUDA
 tensors it launches its kernel or raises. :func:`flash_attention_grad_plain`
@@ -92,13 +95,24 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, scale: float
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rows) -> None:
     """What every kernel of this module takes: q [BH, Lq, 64], k/v [BH, Lk,
     64] with Lk > 0, one CUDA device and dtype (float32 or bfloat16), all
-    contiguous; ``rows`` are [BH, Lq, 64] tensors in q's dtype (dO)."""
+    contiguous; ``rows`` are [BH, Lq, 64] tensors in q's dtype (dO). The bf16
+    forward reads q, k, v by TMA: 16-byte aligned, BH <= 65,535. The messages
+    are built only on failure: CvT makes 21 of these calls per encode."""
+    dev, dt, ts = q.device, q.dtype, (q, k, v, *rows)
+    if (q.is_cuda and dt in _C and q.dim() == 3 and k.dim() == 3 and k.shape == v.shape
+            and k.shape[0] == q.shape[0] and q.shape[2] == 64 and k.shape[2] == 64
+            and k.shape[1] > 0 and all(t.shape == q.shape for t in rows)
+            and all(t.device == dev and t.dtype == dt and t.is_contiguous() for t in ts)
+            and (dt != torch.bfloat16 or (q.shape[0] <= 65535 and q.data_ptr() % 16 == 0
+                                          and k.data_ptr() % 16 == 0
+                                          and v.data_ptr() % 16 == 0))):
+        return
     req = _build.require
-    req(q.is_cuda and all(t.device == q.device for t in (k, v, *rows)),
+    req(q.is_cuda and all(t.device == dev for t in ts),
         f"{name}: every tensor must be on one CUDA device")
-    req(q.dtype in _C and all(t.dtype == q.dtype for t in (k, v, *rows)),
+    req(dt in _C and all(t.dtype == dt for t in ts),
         f"{name}: dtype must be float32 or bfloat16 for all of q, k, v (and dout), got "
-        f"{[t.dtype for t in (q, k, v, *rows)]}")
+        f"{[t.dtype for t in ts]}")
     req(q.dim() == 3 and k.dim() == 3 and k.shape == v.shape
         and k.shape[0] == q.shape[0] and k.shape[2] == q.shape[2]
         and all(t.shape == q.shape for t in rows),
@@ -106,8 +120,8 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rows) 
         f"rows {[tuple(t.shape) for t in rows]}")
     req(q.shape[2] == 64 and k.shape[1] > 0,
         f"{name}: needs D = 64 and Lk > 0, got D={q.shape[2]}, Lk={k.shape[1]}")
-    req(all(t.is_contiguous() for t in (q, k, v, *rows)),
-        f"{name}: q, k, v (and dout) must be contiguous")
+    req(all(t.is_contiguous() for t in ts), f"{name}: q, k, v (and dout) must be contiguous")
+    req(False, f"{name}: the bf16 kernel reads q, k, v by TMA: 16-byte aligned, BH <= 65,535")
 
 
 def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
@@ -119,8 +133,11 @@ def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Ten
 def _launch(table, argtypes, q: torch.Tensor, *args) -> None:
     name = table[q.dtype]
     fn = _build.kernel(name, argtypes)
-    with torch.cuda.device(q.device):
+    if q.device.index == torch.cuda.current_device():
         err = fn(*args, _build.stream_of(q))
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, _build.stream_of(q))
     _build.check(err, name)
 
 

@@ -1,5 +1,6 @@
 """Fused decoder-layer decode step: one BERT decoder layer for one new token
-per study in four kernels, instead of some twenty PyTorch calls.
+per study in four kernels (v2) or one (v1), instead of some twenty PyTorch
+calls.
 
 The port of ``cxrmate_tpu/ops/fused_decode.py:366 fused_layer_step_v2`` and its
 four Pallas bodies. Each has a CUDA kernel here (``csrc/fused_*.cu``, shared
@@ -37,6 +38,14 @@ the other parameters into tuples, once per ``generate`` call.
 
 The self cache is updated in place: ``fused_qkv_attn`` writes the new token's
 K/V into column ``index`` (the JAX function returns new arrays).
+
+:func:`fused_layer_step` is the port of v1 (``fused_decode.py:164``, one
+``pallas_call`` for the whole layer): the same stages in one cooperative
+launch (``csrc/fused_layer_step.cu``) with v1's rounding points: everything
+from the input to the outputs stays fp32 (ctx, h1, cq, cctx are not rounded,
+as v2 rounds them), and only ``out`` and the new K/V column are rounded. No
+path of the JAX package calls v1, and none of the port does: it is a function,
+held to the JAX kernel on the CPU and to its plain version on the card.
 
 On CPU tensors a wrapper runs its ``*_plain`` version; on CUDA tensors it
 launches its kernel or raises.
@@ -85,8 +94,20 @@ def _smem_out_ln_ffn(d_model: int, d_ff: int) -> int:
     return 4 * _ROWS * (d_model + max(d_model, d_ff))
 
 
-def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor) -> bool:
-    """Whether the fused step applies to this layer and these caches: no LoRA
+_STEP_WARPS = 16  # warps per block of the v1 kernel, attention stages included
+
+
+def _smem_layer_step(d_model: int, d_ff: int, t_len: int, s_len: int) -> int:
+    """Dynamic shared memory (bytes) of the v1 kernel's blocks: the largest of
+    its stages' (v2's four, with 16 warps in the cross stage)."""
+    return 4 * max(_ROWS * d_model, 3 * _DH + _attend_floats(t_len, _STEP_WARPS),
+                   _DH + _attend_floats(s_len, _STEP_WARPS),
+                   _ROWS * (d_model + max(d_model, d_ff)))
+
+
+def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor, version: int = 2) -> bool:
+    """Whether the fused step (``version`` 2: :func:`fused_layer_step_v2`; 1:
+    :func:`fused_layer_step`) applies to this layer and these caches: no LoRA
     (as ``fused_decode.py:219``), and the kernels' own limits in place of the
     TPU's memory budget: float32 or bfloat16, head dim 64, widths that are
     multiples of 8, and the shared memory one block may use (the T + 1 and S
@@ -102,8 +123,11 @@ def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor) -> bool:
     d_ff, d_model = layer.intermediate.dense.weight.shape
     if d_model != cache_k.shape[1] * _DH or d_model % 8 or d_ff % 8:
         return False
-    need = max(_smem_qkv_attn(d_model, cache_k.shape[2]), _smem_out_ln_q(d_model),
-               _smem_cross_attn(cross_k.shape[2]), _smem_out_ln_ffn(d_model, d_ff))
+    if version == 1:
+        need = _smem_layer_step(d_model, d_ff, cache_k.shape[2], cross_k.shape[2])
+    else:
+        need = max(_smem_qkv_attn(d_model, cache_k.shape[2]), _smem_out_ln_q(d_model),
+                   _smem_cross_attn(cross_k.shape[2]), _smem_out_ln_ffn(d_model, d_ff))
     return need <= _SMEM_LIMIT
 
 
@@ -118,12 +142,8 @@ def _dense_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return torch.matmul(x, w.float().t()) + b.float()
 
 
-def fused_qkv_attn_plain(hidden, wqkv, bqkv, cache_k, cache_v, index: int, key_mask):
-    """The plain version of :func:`fused_qkv_attn`, the op order of
-    ``_qkv_attn_kernel_v2`` (:257-288): the T cached columns masked by
-    ``key_mask * (col < index)``, the new token as column T + 1 masked by
-    ``key_mask[:, index]``, scored and weighted with its unrounded fp32 K/V.
-    Reads the cache as it is, then writes column ``index``."""
+def _self_attn_f32(hidden, wqkv, bqkv, cache_k, cache_v, index: int, key_mask):
+    """The self-attention stage, fp32 ctx [B, D]; writes the cache column."""
     b, d = hidden.shape
     h, t, dh = cache_k.shape[1:]
     scale = 1.0 / math.sqrt(dh)
@@ -138,26 +158,52 @@ def fused_qkv_attn_plain(hidden, wqkv, bqkv, cache_k, cache_v, index: int, key_m
     ctx = torch.einsum("bht,bhtd->bhd", p[..., :t], cache_v.float()) + p[..., t:] * vn
     cache_k[:, :, index] = kn.to(cache_k.dtype)
     cache_v[:, :, index] = vn.to(cache_v.dtype)
-    return ctx.reshape(b, d).to(hidden.dtype)
+    return ctx.reshape(b, d)
+
+
+def fused_qkv_attn_plain(hidden, wqkv, bqkv, cache_k, cache_v, index: int, key_mask):
+    """The plain version of :func:`fused_qkv_attn`, the op order of
+    ``_qkv_attn_kernel_v2`` (:257-288): the T cached columns masked by
+    ``key_mask * (col < index)``, the new token as column T + 1 masked by
+    ``key_mask[:, index]``, scored and weighted with its unrounded fp32 K/V.
+    Reads the cache as it is, then writes column ``index``."""
+    return _self_attn_f32(hidden, wqkv, bqkv, cache_k, cache_v, index,
+                          key_mask).to(hidden.dtype)
+
+
+def _out_ln_q_f32(ctx, res, wo, bo, gamma, beta, wq, bq, eps: float):
+    y = _layer_norm_f32(_dense_f32(ctx.float(), wo, bo) + res.float(), gamma, beta, eps)
+    return y, _dense_f32(y, wq, bq)
 
 
 def fused_out_ln_q_plain(ctx, res, wo, bo, gamma, beta, wq, bq, eps: float):
     """The plain version of :func:`fused_out_ln_q` (``_out_ln_q_kernel``
     :307-317): cq is computed from the unrounded LayerNorm output."""
-    y = _dense_f32(ctx.float(), wo, bo) + res.float()
-    y = _layer_norm_f32(y, gamma, beta, eps)
-    return y.to(ctx.dtype), _dense_f32(y, wq, bq).to(ctx.dtype)
+    y, cq = _out_ln_q_f32(ctx, res, wo, bo, gamma, beta, wq, bq, eps)
+    return y.to(ctx.dtype), cq.to(ctx.dtype)
 
 
-def fused_cross_attn_plain(cq, cross_k, cross_v, cross_mask):
-    """The plain version of :func:`fused_cross_attn` (``_cross_attn_kernel_v2``
-    :292-301): fp32 probabilities, not rounded before P.V."""
+def _cross_attn_f32(cq, cross_k, cross_v, cross_mask):
     b, d = cq.shape
     h, _, dh = cross_k.shape[1:]
     add = (1.0 - cross_mask.float()) * NEG
     s = torch.einsum("bhd,bhsd->bhs", cq.float().reshape(b, h, dh), cross_k.float())
     p = torch.softmax(s * (1.0 / math.sqrt(dh)) + add[:, None, :], dim=-1)
-    return torch.einsum("bhs,bhsd->bhd", p, cross_v.float()).reshape(b, d).to(cq.dtype)
+    return torch.einsum("bhs,bhsd->bhd", p, cross_v.float()).reshape(b, d)
+
+
+def fused_cross_attn_plain(cq, cross_k, cross_v, cross_mask):
+    """The plain version of :func:`fused_cross_attn` (``_cross_attn_kernel_v2``
+    :292-301): fp32 probabilities, not rounded before P.V."""
+    return _cross_attn_f32(cq, cross_k, cross_v, cross_mask).to(cq.dtype)
+
+
+def _out_ln_ffn_f32(cctx, res, wo, bo, gamma2, beta2, w1, b1, w2, b2, gamma3, beta3,
+                    eps: float):
+    h = _layer_norm_f32(_dense_f32(cctx.float(), wo, bo) + res.float(), gamma2, beta2, eps)
+    z = _dense_f32(h, w1, b1)
+    z = z * (0.5 * (1.0 + torch.erf(z * (2.0 ** -0.5))))
+    return _layer_norm_f32(_dense_f32(z, w2, b2) + h, gamma3, beta3, eps)
 
 
 def fused_out_ln_ffn_plain(cctx, res, wo, bo, gamma2, beta2, w1, b1, w2, b2, gamma3, beta3,
@@ -165,10 +211,8 @@ def fused_out_ln_ffn_plain(cctx, res, wo, bo, gamma2, beta2, w1, b1, w2, b2, gam
     """The plain version of :func:`fused_out_ln_ffn` (``_out_ln_ffn_kernel``
     :324-339), with ``torch.erf`` for the GELU; the FFN's residual is the
     unrounded LayerNorm output."""
-    h = _layer_norm_f32(_dense_f32(cctx.float(), wo, bo) + res.float(), gamma2, beta2, eps)
-    z = _dense_f32(h, w1, b1)
-    z = z * (0.5 * (1.0 + torch.erf(z * (2.0 ** -0.5))))
-    return _layer_norm_f32(_dense_f32(z, w2, b2) + h, gamma3, beta3, eps).to(cctx.dtype)
+    return _out_ln_ffn_f32(cctx, res, wo, bo, gamma2, beta2, w1, b1, w2, b2, gamma3, beta3,
+                           eps).to(cctx.dtype)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -428,3 +472,83 @@ def fused_layer_step_v2(hidden: torch.Tensor, layer, cache_k: torch.Tensor,
     h1, cq = fused_out_ln_q(ctx, hidden, *prepared["out_ln_q"], eps)
     cctx = fused_cross_attn(cq, cross_k, cross_v, cross_mask)
     return fused_out_ln_ffn(cctx, h1, *prepared["out_ln_ffn"], eps)
+
+
+# ----------------------------------------------------------------- v1: one kernel
+def fused_layer_step_plain(hidden: torch.Tensor, layer, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor,
+                           index: int, key_mask: torch.Tensor, cross_mask: torch.Tensor,
+                           eps: float = 1e-12, prepared: Optional[dict] = None):
+    """The plain version of :func:`fused_layer_step`: v2's stages in fp32
+    torch ops with nothing rounded in between (``_kernel`` :71-161); only
+    hidden_out and the new K/V column are rounded."""
+    if prepared is None:
+        prepared = _prepare_layer(layer)
+    ctx = _self_attn_f32(hidden, prepared["wqkv"], prepared["bqkv"], cache_k, cache_v, index,
+                         key_mask)
+    h1, cq = _out_ln_q_f32(ctx, hidden, *prepared["out_ln_q"], eps)
+    cctx = _cross_attn_f32(cq, cross_k, cross_v, cross_mask)
+    out = _out_ln_ffn_f32(cctx, h1, *prepared["out_ln_ffn"], eps)
+    return out.to(hidden.dtype), cache_k, cache_v
+
+
+_ARGS_STEP = [ctypes.POINTER(_P)] + [_I] * 8 + [_F] * 2 + [_P]
+
+
+def fused_layer_step(hidden: torch.Tensor, layer, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cross_k: torch.Tensor, cross_v: torch.Tensor, index: int,
+                     key_mask: torch.Tensor, cross_mask: torch.Tensor, eps: float = 1e-12,
+                     prepared: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """v1 (``fused_decode.py:164``): one decoder layer for the token at cache
+    column ``index`` in one kernel, fp32 from the input to the outputs.
+
+    Arguments as :func:`fused_layer_step_v2` (the JAX order; ``layer`` the
+    decoder's layer module, or None with ``prepared``). Returns (hidden_out
+    [B, D], cache_k, cache_v) as the JAX function does, but the caches are the
+    ones passed in: the new token's K/V, rounded to the cache dtype, are
+    written into their column ``index`` in place. On CPU tensors the plain
+    version runs; on CUDA tensors the kernel (``csrc/fused_layer_step.cu``)
+    or an error."""
+    if prepared is None:
+        prepared = _prepare_layer(layer)
+    key_mask = key_mask.to(torch.int32)
+    cross_mask = cross_mask.to(torch.int32)
+    if hidden.device.type == "cpu":
+        return fused_layer_step_plain(hidden, layer, cache_k, cache_v, cross_k, cross_v, index,
+                                      key_mask, cross_mask, eps, prepared)
+    name = "fused_layer_step"
+    if hidden.dim() != 2 or cache_k.dim() != 4 or cross_k.dim() != 4:
+        raise ValueError(f"{name}: hidden must be [B, D] and the caches 4-D")
+    b, d = hidden.shape
+    _, h, t, dh = cache_k.shape
+    s, f = cross_k.shape[2], prepared["out_ln_ffn"][4].shape[0]
+    if dh != _DH or d != h * dh or d % 8 or f % 8 or not f or s < 1:
+        raise ValueError(f"{name}: needs head dim {_DH}, D = H x {_DH}, F a multiple of 8 and "
+                         f"S >= 1, got D={d}, H={h}, dh={dh}, F={f}, S={s}")
+    if not 0 <= index < t:
+        raise ValueError(f"{name}: index {index} outside [0, {t})")
+    dev = hidden.device
+    vec, mat = (d,), (d, d)
+    ptrs = _pointers(name, hidden.dtype, dev, (
+        (hidden, (b, d), None), (prepared["wqkv"], (3 * d, d), None),
+        (prepared["bqkv"], (3 * d,), None),
+        *zip(prepared["out_ln_q"], (mat, vec, vec, vec, mat, vec), (None,) * 6),
+        *zip(prepared["out_ln_ffn"], (mat, vec, vec, vec, (f, d), (f,), (d, f), vec, vec, vec),
+             (None,) * 10),
+        (cache_k, (b, h, t, dh), None), (cache_v, (b, h, t, dh), None),
+        (cross_k, (b, h, s, dh), None), (cross_v, (b, h, s, dh), None),
+        (key_mask, (b, t), torch.int32), (cross_mask, (b, s), torch.int32)))
+    _check_smem(name, _smem_layer_step(d, f, t, s))
+    out = torch.empty_like(hidden)
+    if b == 0:
+        return out, cache_k, cache_v
+    scratch = torch.empty(b, 10 * d + f, dtype=torch.float32, device=dev)
+    arr = (_P * 27)(*ptrs, out.data_ptr(), scratch.data_ptr())
+    _launch(f"cxr_fused_layer_step_{_SUFFIX[hidden.dtype]}", _ARGS_STEP, dev, arr, b, h, t, s, d,
+            f, dh, int(index), 1.0 / math.sqrt(dh), float(eps))
+    fused_layer_step.launches += 1
+    return out, cache_k, cache_v
+
+
+fused_layer_step.launches = 0

@@ -1,7 +1,7 @@
 """The fused decoder-layer step of the port (``cxrmate_torch.ops.fused_decode``
 and the ``use_fused`` path through ``bert_step`` and ``generate``) against the
-JAX package, on the CPU, and on a card each of its four CUDA kernels against
-its plain version.
+JAX package, on the CPU, and on a card each of its five CUDA kernels (v2's
+four, v1's one) against its plain version.
 
 The JAX side runs its Pallas kernels in interpret mode, as
 ``tests/test_fused_decode.py`` does. One interpreted run of the JAX
@@ -9,6 +9,10 @@ The JAX side runs its Pallas kernels in interpret mode, as
 keeps the operands and results of its four calls, so the whole layer (a) and
 each of the port's four plain stages, fed the JAX stage's own operands (b), are
 held to it. Every stage is exposed that way: none is held through (a) only.
+
+v1 (``fused_layer_step``, one kernel, no path calls it) is held to one
+interpreted run of the JAX ``fused_layer_step`` per dtype at the same shapes,
+hidden_out and both whole caches, and in fp32 to the port's v2 plain version.
 
 Tolerances: fp32 rtol = atol = 1e-5 (another summation order, ``torch.erf``
 against the Pallas body's rational erf, which is within 1.5e-7); bf16 5e-2,
@@ -180,6 +184,55 @@ def test_fully_masked_row_is_uniform_and_finite():
                                atol=1e-5)
 
 
+# -------------------------------------------- (b2) v1: the one-kernel layer step
+@pytest.fixture(scope="module", params=list(DTYPES))
+def v1_run(request, jx):
+    """One interpreted run of the JAX fused_layer_step (v1) on the tiny layer
+    and the same operands as layer_run, and the port's layer in that dtype."""
+    dtype, tol = DTYPES[request.param]
+    jdtype = jx.jnp.float32 if dtype == torch.float32 else jx.jnp.bfloat16
+    x = layer_inputs()
+    jlayer = jx.jax.tree_util.tree_map(
+        lambda a: jx.jnp.asarray(a, jdtype), jx.h.jax_variables()["params"]["decoder"]["layers"][0])
+    floats = {k: jx.jnp.asarray(v, jdtype) for k, v in x.items() if v.dtype == np.float32}
+    out = jx.fd.fused_layer_step(
+        floats["hidden"], jlayer, floats["cache_k"], floats["cache_v"], floats["cross_k"],
+        floats["cross_v"], jx.jnp.asarray(INDEX, jx.jnp.int32), jx.jnp.asarray(x["key_mask"]),
+        jx.jnp.asarray(x["cross_mask"]), eps=1e-12, interpret=True)
+    layer = copy.deepcopy(jx.h.torch_model().decoder.bert.encoder.layer[0]).to(dtype)
+    tx = {k: t(v, dtype) if v.dtype == np.float32 else t(v) for k, v in x.items()}
+    return types.SimpleNamespace(dtype=dtype, tol=tol, x=tx, layer=layer, out=out)
+
+
+def test_v1_matches_jax_kernel(v1_run):
+    """hidden_out and both whole caches (column INDEX written, the rest as it
+    was), with study 0's query masked (it must not attend to itself)."""
+    r, x = v1_run, v1_run.x
+    ck, cv = x["cache_k"].clone(), x["cache_v"].clone()
+    got, got_k, got_v = fd.fused_layer_step(x["hidden"], r.layer, ck, cv, x["cross_k"],
+                                            x["cross_v"], INDEX, x["key_mask"], x["cross_mask"])
+    assert got_k is ck and got_v is cv  # written in place
+    for g, w in zip((got, ck, cv), r.out):
+        close(g, w, r.tol)
+    others = [c for c in range(T_LEN) if c != INDEX]
+    assert torch.equal(ck[:, :, others], x["cache_k"][:, :, others])
+    assert got.dtype == r.dtype and fd.fused_layer_step.launches == 0
+
+
+def test_v1_plain_matches_v2_plain_in_fp32(jx):
+    """In fp32 v1 and v2 round at no point in between: the same function."""
+    x = {k: t(v, torch.float32) if v.dtype == np.float32 else t(v)
+         for k, v in layer_inputs().items()}
+    layer = jx.h.torch_model().decoder.bert.encoder.layer[0]
+    caches = [(x["cache_k"].clone(), x["cache_v"].clone()) for _ in range(2)]
+    args = (x["cross_k"], x["cross_v"], INDEX, x["key_mask"], x["cross_mask"])
+    got, _, _ = fd.fused_layer_step_plain(x["hidden"], layer, *caches[0], *args)
+    want = fd.fused_layer_step_v2(x["hidden"], layer, *caches[1], *args)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    for a, b in zip(caches[0], caches[1]):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------------ (c) the slice
 def test_generate_fused_ids_identical(jx):
     """The tiny multi model of tests/test_fused_decode.py (2 decoder layers, 12
@@ -321,6 +374,18 @@ def test_supports_and_prepare(step_setup):
     assert not fd.supports(wide, k64.half(), k64.half())                      # dtype
     assert not fd.supports(wide, torch.zeros(2, 4, 8, 8), torch.zeros(2, 4, 8, 8))  # head dim
     assert not fd.supports(wide, k64, torch.zeros(2, 4, 60000, 64, dtype=torch.bfloat16))  # S
+    # v1's one kernel: the same gate, its own shared-memory limit
+    assert fd.supports(wide, k64, k64, version=1)
+    assert not fd.supports(types.SimpleNamespace(attention=lora.attention,
+                                                 intermediate=wide.intermediate), k64, k64,
+                           version=1)
+    assert not fd.supports(wide, torch.zeros(2, 4, 8, 8), torch.zeros(2, 4, 8, 8), version=1)
+    s_max = (fd._SMEM_LIMIT // 4 - 64 - 16 * 64) // 4 * 4 - 4  # the most cross scores it holds
+    def cross(s_len):  # shapes only: the gate reads no data
+        return torch.empty(1, 4, s_len, 64, dtype=torch.bfloat16, device="meta")
+
+    assert fd.supports(wide, k64, cross(s_max), version=1)
+    assert not fd.supports(wide, k64, cross(s_max + 4), version=1)
     with pytest.raises(ValueError, match="no LoRA"):
         fd.prepare_fused_params(step_setup["longitudinal"], 4)
     prep = fd.prepare_fused_params(step_setup["multi"], 4)
@@ -412,6 +477,32 @@ def test_cross_attn_kernel_matches_plain_on_card(cuda_device, dtype, tol):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("index", [1, 255])
+def test_layer_step_kernel_matches_plain_on_card(cuda_device, dtype, tol, index):
+    """v1 at full width: hidden_out within tol, the written column within tol
+    of the plain version's, every other column bit-exact; a study with no
+    open self key and one with no open cross key stay finite."""
+    x = card_operands(cuda_device, dtype)
+    x.key_mask[0] = 0
+    x.cross_mask[2] = 0
+    prep = {"wqkv": x.wqkv, "bqkv": x.bqkv, "out_ln_q": x.out_ln_q, "out_ln_ffn": x.out_ln_ffn}
+    caches = [(x.cache_k.clone(), x.cache_v.clone()) for _ in range(2)]
+    args = (x.cross_k, x.cross_v, index, x.key_mask, x.cross_mask)
+    with parity_mode():
+        got, _, _ = fd.fused_layer_step(x.hidden, None, *caches[0], *args, prepared=prep)
+        want, _, _ = fd.fused_layer_step_plain(x.hidden, None, *caches[1], *args, prepared=prep)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    others = [c for c in range(x.cache_k.shape[2]) if c != index]
+    for a, b, old in zip(caches[0], caches[1], (x.cache_k, x.cache_v)):
+        torch.testing.assert_close(a[:, :, index].float(), b[:, :, index].float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(a[:, :, others], old[:, :, others])
 
 
 @pytest.mark.cuda

@@ -200,7 +200,9 @@ def test_beam_reorder_plain_matches_jax_kernel_bit_exact(jx, index):
 # ---------------------------------------------- card: kernel vs plain version
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("lq,lk", [(577, 145), (300, 52)])  # CvT stage 2; ragged
+# CvT stage 2 (ragged in Lq and Lk, three key tiles); one ragged tile; a
+# multi-tile Lk that is not a multiple of the tile; CvT stage 1
+@pytest.mark.parametrize("lq,lk", [(577, 145), (300, 52), (300, 200), (2304, 576)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, lq, lk):
     q, k, v = (t(a).to(cuda_device, dtype) for a in _qkv(3, 6, lq, lk, 64))
     with parity_mode():
@@ -208,6 +210,21 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, lq, lk):
         want = fa.flash_attention_plain(q, k, v, 384 ** -0.5)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_entries_give_bit_equal_out_on_card(cuda_device, dtype):
+    """Inference and the training forward launch one compiled kernel: the
+    same out, bit for bit; lse within 1e-5 of the plain log-sum-exp."""
+    q, k, v = (t(a).to(cuda_device, dtype) for a in _qkv(4, 6, 577, 145, 64))
+    with parity_mode():
+        out = fa.flash_attention(q, k, v, 384 ** -0.5)
+        out_lse, lse = fa.flash_attention_fwd_lse(q, k, v, 384 ** -0.5)
+        _, want = fa.flash_attention_fwd_lse_plain(q, k, v, 384 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_lse)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -282,6 +299,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 8, 128, device=cuda_device)  # head dim above 64
     with pytest.raises(ValueError, match="D = 64"):
         fa.flash_attention(q, q, q, 0.125)
+    odd = torch.zeros(2 * 8 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # TMA reads the bf16 tiles
+        fa.flash_attention(odd, odd, odd, 0.125)
     q = torch.zeros(2, 12, 1, 64, device=cuda_device)
     kv = torch.zeros(2, 12, 10, 64, device=cuda_device)
     with pytest.raises(ValueError, match="mask"):
