@@ -39,9 +39,14 @@ Phases, each printing one JSON line:
                1e-5 / 1e-2 of the largest output, the forward's out bit-equal
                to flash_attention's; timed beside SDPA's forward and aten's
                flash backward (dq, dk and dv in one call, bf16), the
-               yardsticks. The flash forward runs on tensor cores in bf16
-               (per stage shape and call counts in per_shape) and as a SIMT
-               kernel in fp32. fused_layer_step (v1, one kernel per layer; no
+               yardsticks, per stage shape and in sum. All three run on
+               tensor cores in bf16 (per stage shape and call counts in
+               per_shape) and as SIMT kernels in fp32. Where bf16 F.linear
+               (ops/layers.py:linear) adds the bias: the share of its outputs
+               bit-equal to the fp32 product plus the fp32 bias rounded once,
+               and to the same rounded twice (the product first), at the main
+               paths' linear shapes, 2-D and 3-D, contiguous and transposed
+               views. fused_layer_step (v1, one kernel per layer; no
                path calls it, as in the JAX package) at the fused path's
                shapes against its plain version (fp32 <= 1e-5, bf16 <= 1e-2
                of the largest output), the written column and the untouched
@@ -365,18 +370,22 @@ def check_flash_grad(torch, fa, F, dtype, name):
             if not rel <= tol:
                 raise AssertionError(f"{kname} {dtype} {(bh, lq, lk)}: error {err} is {rel} of "
                                      f"the largest output, above {tol}")
-        res["flash_attention_fwd_lse"]["library_ms"] += calls * time_ms(
-            [lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
-                                                    scale=scale)], reps=10, warmup=2)
+        lib = time_ms([lambda: F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                                              v[:, None], scale=scale)],
+                      reps=10, warmup=2)
+        res["flash_attention_fwd_lse"]["library_ms"] += calls * lib
+        res["flash_attention_fwd_lse"]["per_shape"][-1]["library_ms"] = lib
         if dtype == torch.bfloat16:  # the flash backward takes 16-bit inputs only
             q4, k4, v4, do4 = (x[:, None] for x in (q, k, v, do))
             o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
                 torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False, False,
                                                                     scale=scale)
             bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
-            lib_bwd += calls * time_ms([lambda: bwd(do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0,
-                                                    False, seed, offset, scale=scale)],
-                                       reps=10, warmup=2)
+            lib = time_ms([lambda: bwd(do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, False,
+                                       seed, offset, scale=scale)], reps=10, warmup=2)
+            lib_bwd += calls * lib
+            for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                res[kname]["per_shape"][-1]["library_ms"] = lib  # dq, dk and dv together
             del q4, k4, v4, do4, o4, lse4
         del q, k, v, do, out, lse, got, args, runs
     for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -385,6 +394,66 @@ def check_flash_grad(torch, fa, F, dtype, name):
         res[kname]["library_computes"] = "dq, dk and dv"
     for r in res.values():
         r["tolerance_relative_to_largest_output"] = tol
+    return res
+
+
+# bf16 linears of the main paths (CvT's at a training micro-step's 20 images):
+# (what, x's shape, output width, x a transposed view, as CvT's tokens of a
+# convolution output are)
+LINEAR_SHAPES = (
+    ("decoder step, beam-4: q, k, v, out", (STUDIES * 4, 1, D_MODEL), D_MODEL, False),
+    ("decoder step: FFN in", (STUDIES * 4, 1, D_MODEL), D_FF, False),
+    ("decoder step: FFN out", (STUDIES * 4, 1, D_FF), D_MODEL, False),
+    ("decoder step, 2-D", (STUDIES * 4, D_MODEL), D_MODEL, False),
+    ("decoder step, 2-D transposed view", (STUDIES * 4, D_MODEL), D_MODEL, True),
+    ("prefill: cross K/V of 5 images", (STUDIES, SLOTS * 576, D_MODEL), D_MODEL, False),
+    ("training: decoder FFN in", (len(TRAIN_IMAGES), 256, D_MODEL), D_FF, False),
+    ("CvT stage 0: q, k, v of conv tokens", (20, 9216, 64), 64, True),
+    ("CvT stage 0: MLP in", (20, 9216, 64), 256, False),
+    ("CvT stage 1: q, k, v of conv tokens", (20, 2304, 192), 192, True),
+    ("CvT stage 2: q, k, v (with cls)", (20, 577, 384), 384, False),
+    ("CvT stage 2: MLP out", (20, 577, 1536), 384, False),
+)
+
+
+def check_linear_rounding(torch, F):
+    """Where bf16 ops/layers.py:linear adds the bias, which must be where the
+    JAX package's linear adds it (fp32 product + fp32 bias, one rounding):
+    per shape, the share of its outputs bit-equal to that, and to the same
+    with the product rounded to bf16 before the bias (two roundings), both
+    from an fp32 product with TF32 off. The sums differ in order from
+    cuBLAS's, so neither share is 1; one rounding shows as the larger share,
+    and a shape where two roundings do fails the run."""
+    from cxrmate_torch.ops.layers import linear
+    from cxrmate_torch.utils.precision import parity_mode
+
+    bf16, rows = torch.bfloat16, []
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    with parity_mode():
+        for what, shape, n_out, transposed in LINEAR_SHAPES:
+            n_in = shape[-1]
+            if transposed:
+                x = torch.randn(*shape[:-2], n_in, shape[-2], generator=g,
+                                device="cuda").to(bf16).transpose(-1, -2)
+            else:
+                x = torch.randn(*shape, generator=g, device="cuda").to(bf16)
+            w = (torch.randn(n_out, n_in, generator=g, device="cuda") * n_in ** -0.5).to(bf16)
+            b = torch.randn(n_out, generator=g, device="cuda").to(bf16)
+            got = linear(x, w, b)
+            prod = F.linear(x.float(), w.float())
+            once = (prod + b.float()).to(bf16)
+            twice = (prod.to(bf16).float() + b.float()).to(bf16)
+            share_once, share_twice = 1 - _mismatch(got, once), 1 - _mismatch(got, twice)
+            rows.append({"what": what, "x": list(x.shape), "contiguous": x.is_contiguous(),
+                         "out": n_out, "share_bit_equal_one_rounding": share_once,
+                         "share_bit_equal_two_roundings": share_twice,
+                         "rounds": "once" if share_once > share_twice else "twice"})
+            del x, w, b, got, prod, once, twice
+    res = {"phase": "kernels", "check": "linear_bias_rounding", "dtype": "bf16",
+           "rows": rows, "rounds_twice_at": [r["what"] for r in rows if r["rounds"] == "twice"]}
+    emit(res)
+    if res["rounds_twice_at"]:
+        raise AssertionError(f"bf16 linear rounds before the bias at {res['rounds_twice_at']}")
     return res
 
 
@@ -889,10 +958,11 @@ def check_fused(torch, F, fd, dtype):
 def kernel_phase(torch, F, fa, da, br, fd):
     """Each kernel against its plain version at every shape a main path gives
     it (main_path_calls; check_fused for the fused step; check_flash_grad for
-    training), fp32 (TF32 off) then bf16. -> {dtype: {"flash": {images:
-    result}, "decode": {call: result}, "reorder": {width: result}, "fused":
-    {kernel: result}, "flash_grad": {kernel: result}}}, each result per encode
-    (flash), per call, or per training micro-step (flash_grad)."""
+    training), fp32 (TF32 off) then bf16; then where bf16 linear adds the
+    bias. -> {dtype: {"flash": {images: result}, "decode": {call: result},
+    "reorder": {width: result}, "fused": {kernel: result}, "flash_grad":
+    {kernel: result}}, "linear_bias_rounding": result}, each kernel result per
+    encode (flash), per call, or per training micro-step (flash_grad)."""
     from cxrmate_torch.utils.precision import parity_mode
 
     paths = main_path_calls(da).values()
@@ -922,6 +992,7 @@ def kernel_phase(torch, F, fa, da, br, fd):
             if kname not in FLASH_GRAD and not r["max_abs_err"] <= tol:
                 raise AssertionError(f"{kname} {name} {r}: max abs err > {tol}")
         results[name] = res
+    results["linear_bias_rounding"] = check_linear_rounding(torch, F)
     return results
 
 
@@ -1554,8 +1625,13 @@ def train_breakdown(torch, net, batch, pad_id, reps=3):
     """Where a bf16 micro-step's device time goes: the same forward and
     backward as the train step, on a bf16 copy of the model, split at the
     encoder's output (synchronised host clock, median of ``reps``): encoder
-    forward, decoder forward + loss, decoder backward, encoder backward."""
+    forward, decoder forward + loss, decoder backward, encoder backward. Then
+    one more encoder backward traced by torch.profiler: the device's busy
+    time in it (the sum of its kernels' and copies' device times), in all and
+    in the flash_attention_grad backward kernels, beside its wall time."""
     import copy
+
+    from torch.profiler import ProfilerActivity, profile
 
     from cxrmate_torch.models import bert as bert_mod
     from cxrmate_torch.models import encoder_decoder as ed
@@ -1567,14 +1643,10 @@ def train_breakdown(torch, net, batch, pad_id, reps=3):
     enc_params, dec_params = list(m16.encoder.parameters()), list(m16.decoder.parameters())
     times = {"encoder_forward": [], "decoder_forward": [], "decoder_backward": [],
              "encoder_backward": []}
-    for i in range(reps + 1):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
-        marks = []
 
-        def mark():
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
+    def to_encoder_grad(seed, mark):
+        """-> (the encoder's output, the loss's gradient at it)"""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
         mark()
         hidden, mask = ed.encode_images(m16, b["pixel_values"], train=True, generator=gen)
         mark()
@@ -1586,17 +1658,41 @@ def train_breakdown(torch, net, batch, pad_id, reps=3):
         mark()
         grads = torch.autograd.grad(loss, [h] + dec_params)
         mark()
-        torch.autograd.grad(hidden, enc_params, grads[0])
+        return hidden, grads[0]
+
+    for i in range(reps + 1):
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        hidden, grad = to_encoder_grad(SEED + 30 + i, mark)
+        torch.autograd.grad(hidden, enc_params, grad)
         mark()
         if i:  # the first is a warm-up
             for key, t0, t1 in zip(times, marks, marks[1:]):
                 times[key].append((t1 - t0) * 1e3)
-    del m16
     out = {f"{k}_ms": sorted(v)[reps // 2] for k, v in times.items()}
     total = sum(out.values())
     out["encoder_backward_share"] = out["encoder_backward_ms"] / total
     out["encoder_share"] = (out["encoder_forward_ms"] + out["encoder_backward_ms"]) / total
-    return out
+    hidden, grad = to_encoder_grad(SEED + 29, torch.cuda.synchronize)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.autograd.grad(hidden, enc_params, grad)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()}
+    traced = {"encoder_backward_traced_wall_ms": wall,
+              "encoder_backward_device_busy_ms": sum(busy.values()),
+              "encoder_backward_flash_bwd_device_ms": sum(
+                  v for k, v in busy.items() if "flash_bwd" in k)}
+    if not traced["encoder_backward_device_busy_ms"] > 0:  # the trace saw no device time
+        traced.update(dict.fromkeys(["encoder_backward_device_busy_ms",
+                                     "encoder_backward_flash_bwd_device_ms"], "not measured"))
+    del m16
+    return {**out, **traced}
 
 
 def train_phase(torch, np, ckpt):

@@ -1,7 +1,8 @@
 """HF checkpoint directories: load a state dict, and carry JAX parameters across.
 
 ``load_hf_pretrained_dir`` reads ``pytorch_model.bin`` (or ``model.safetensors``
-when the ``safetensors`` package imports). ``state_dict_from_jax`` is the
+when the ``safetensors`` package imports), unwrapping a wrapped state dict.
+``state_dict_from_jax`` is the
 port's own numpy-only copy of ``cxrmate_tpu/ckpt/hf_convert.py:178
 export_encoder_decoder``: the JAX package's parameter pytree -> the torch-layout
 state dict that the released checkpoints use. ``load_model_state`` maps such a
@@ -29,10 +30,17 @@ WEIGHTS_SAFETENSORS = "model.safetensors"
 
 
 def load_hf_pretrained_dir(path: str) -> Dict[str, torch.Tensor]:
-    """State dict of an HF checkpoint directory, on the CPU."""
+    """State dict of an HF checkpoint directory, on the CPU. A
+    ``pytorch_model.bin`` that keeps its state dict under ``state_dict``
+    (Lightning) or ``model_state_dict`` (CheXbert) is unwrapped, as
+    ``cxrmate_tpu/ckpt/orbax_io.py:315 load_torch_checkpoint`` does."""
     bin_path = os.path.join(path, WEIGHTS_BIN)
     if os.path.exists(bin_path):
-        return torch.load(bin_path, map_location="cpu", weights_only=True)
+        blob = torch.load(bin_path, map_location="cpu", weights_only=True)
+        for key in ("state_dict", "model_state_dict"):
+            if isinstance(blob, dict) and key in blob:
+                return blob[key]
+        return blob
     st_path = os.path.join(path, WEIGHTS_SAFETENSORS)
     if os.path.exists(st_path):
         try:

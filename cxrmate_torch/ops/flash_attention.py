@@ -14,10 +14,11 @@ Replaces ``cxrmate_tpu/ops/flash_attention.py``:
 
 The CUDA kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``)
 never write the [Lq, Lk] score matrix; the source notes there say what bounds
-them on the H100 and how the designs meet that. The forward has two: bf16 runs
-on Hopper's tensor cores (wgmma, K/V tiles streamed by TMA; P is rounded to
-bf16 before P.V, which the TPU kernel's fp32 p is not), fp32 keeps a SIMT
-kernel (tensor cores would compute in TF32).
+them on the H100 and how the designs meet that. Each pass has two: bf16 runs
+on Hopper's tensor cores (wgmma, tiles streamed by TMA; P, and in the
+backward dS, is rounded to bf16 before it enters a product, which the TPU
+kernels' fp32 p and ds are not), fp32 keeps a SIMT kernel (tensor cores would
+compute in TF32).
 
 On CPU tensors every wrapper runs its plain version (``*_plain``); on CUDA
 tensors it launches its kernel or raises. :func:`flash_attention_grad_plain`
@@ -96,16 +97,16 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rows) 
     """What every kernel of this module takes: q [BH, Lq, 64], k/v [BH, Lk,
     64] with Lk > 0, one CUDA device and dtype (float32 or bfloat16), all
     contiguous; ``rows`` are [BH, Lq, 64] tensors in q's dtype (dO). The bf16
-    forward reads q, k, v by TMA: 16-byte aligned, BH <= 65,535. The messages
-    are built only on failure: CvT makes 21 of these calls per encode."""
+    kernels read q, k, v (and dO) by TMA: 16-byte aligned, BH <= 65,535. The
+    messages are built only on failure: CvT makes 21 of these calls per
+    encode."""
     dev, dt, ts = q.device, q.dtype, (q, k, v, *rows)
     if (q.is_cuda and dt in _C and q.dim() == 3 and k.dim() == 3 and k.shape == v.shape
             and k.shape[0] == q.shape[0] and q.shape[2] == 64 and k.shape[2] == 64
             and k.shape[1] > 0 and all(t.shape == q.shape for t in rows)
             and all(t.device == dev and t.dtype == dt and t.is_contiguous() for t in ts)
-            and (dt != torch.bfloat16 or (q.shape[0] <= 65535 and q.data_ptr() % 16 == 0
-                                          and k.data_ptr() % 16 == 0
-                                          and v.data_ptr() % 16 == 0))):
+            and (dt != torch.bfloat16 or (q.shape[0] <= 65535
+                                          and all(t.data_ptr() % 16 == 0 for t in ts)))):
         return
     req = _build.require
     req(q.is_cuda and all(t.device == dev for t in ts),
@@ -121,13 +122,17 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rows) 
     req(q.shape[2] == 64 and k.shape[1] > 0,
         f"{name}: needs D = 64 and Lk > 0, got D={q.shape[2]}, Lk={k.shape[1]}")
     req(all(t.is_contiguous() for t in ts), f"{name}: q, k, v (and dout) must be contiguous")
-    req(False, f"{name}: the bf16 kernel reads q, k, v by TMA: 16-byte aligned, BH <= 65,535")
+    req(False, f"{name}: the bf16 kernels read q, k, v (and dout) by TMA: 16-byte aligned, "
+        "BH <= 65,535")
 
 
 def _check_stats(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
-    _build.require(all(t.device == q.device and t.dtype == torch.float32 and t.is_contiguous()
-                       and t.shape == q.shape[:2] for t in (lse, delta)),
-                   f"{name}: lse and delta must be contiguous float32 [BH, Lq] on q's device")
+    rows = q.shape[:2]
+    for t in (lse, delta):
+        if not (t.device == q.device and t.dtype == torch.float32 and t.is_contiguous()
+                and t.shape == rows):
+            _build.require(False, f"{name}: lse and delta must be contiguous float32 [BH, Lq] "
+                                  "on q's device")
 
 
 def _launch(table, argtypes, q: torch.Tensor, *args) -> None:

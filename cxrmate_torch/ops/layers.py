@@ -28,8 +28,15 @@ from torch import nn
 
 # ------------------------------------------------------------------ functions
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ weight.T + bias``. fp32 stays fp32; in bf16 cuBLAS accumulates in
-    fp32 and adds the bias in its fp32 epilogue before the one rounding."""
+    """``x @ weight.T + bias``. fp32 stays fp32; in bf16 the product
+    accumulates in fp32 and the bias is added in fp32 before the one rounding,
+    as ``cxrmate_tpu/ops/layers.py:22`` does. ``F.linear`` does that (addmm)
+    for a 2-D or a contiguous input, but runs a non-contiguous one of three or
+    more dims (CvT's tokens of a convolution output) through matmul and a
+    separate bias add, rounding twice; such an input is made contiguous first,
+    the copy matmul would make anyway."""
+    if bias is not None and x.dim() > 2 and not x.is_contiguous():
+        x = x.contiguous()
     return F.linear(x, weight, bias)
 
 

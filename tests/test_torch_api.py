@@ -3,7 +3,8 @@ directory (``pytorch_model.bin``, the repository's ``tokenizer.json``, a tiny
 ``config.json``) gives the same findings and impression strings from
 ``cxrmate_tpu.models.api.CXRMate`` and the port's ``CXRMate(device="cpu")``,
 greedy and beam-4. The port's tokenizer copy encodes and decodes as the JAX
-one does."""
+one does. Both packages read the same state dict out of a ``pytorch_model.bin``
+that holds it bare or wrapped (``state_dict``, ``model_state_dict``)."""
 
 import os
 import shutil
@@ -12,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from cxrmate_tpu.ckpt.orbax_io import load_hf_pretrained_dir as jax_load_hf_dir
 from cxrmate_tpu.models.api import CXRMate as JaxCXRMate
 from cxrmate_tpu.tokenizer import ByteLevelBPETokenizer as JaxTokenizer
-from cxrmate_torch.ckpt.hf import save_hf_pretrained_dir
+from cxrmate_torch.ckpt.hf import load_hf_pretrained_dir, save_hf_pretrained_dir
 from cxrmate_torch.models.api import CXRMate
 from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
 from tests.test_torch_harness import REPO, hf_state_dict, pixels, torch_config
@@ -97,3 +99,21 @@ def test_tokenizer_copy_matches_jax():
         assert tt.decode(ids, skip_special_tokens=False) == jt.decode(ids, skip_special_tokens=False)
     assert (tt.bos_token_id, tt.eos_token_id, tt.sep_token_id, tt.pad_token_id) == \
         (jt.bos_token_id, jt.eos_token_id, jt.sep_token_id, jt.pad_token_id)
+
+
+@pytest.mark.parametrize("wrapper", [None, "state_dict", "model_state_dict"])
+def test_load_hf_pretrained_dir_unwraps_as_jax_does(tmp_path, wrapper):
+    """A bare state dict, a Lightning checkpoint (``state_dict`` beside other
+    entries) and a CheXbert one (``model_state_dict``): the same keys and
+    tensors from both packages."""
+    rs = np.random.RandomState(11)
+    sd = {"encoder.projection_head.projection.weight": rs.randn(6, 4).astype(np.float32),
+          "decoder.cls.predictions.bias": rs.randn(6).astype(np.float32),
+          "decoder.bert.embeddings.word_embeddings.weight": rs.randn(6, 4).astype(np.float32)}
+    sd = {k: torch.from_numpy(v) for k, v in sd.items()}
+    blob = sd if wrapper is None else {wrapper: sd, "epoch": 3, "global_step": 120}
+    torch.save(blob, tmp_path / "pytorch_model.bin")
+    got, want = load_hf_pretrained_dir(str(tmp_path)), jax_load_hf_dir(str(tmp_path))
+    assert sorted(got) == sorted(want) == sorted(sd)
+    for key, value in sd.items():
+        assert torch.equal(got[key], want[key]) and torch.equal(got[key], value), key

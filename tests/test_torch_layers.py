@@ -27,6 +27,34 @@ def test_linear():
     np.testing.assert_allclose(T.linear(t(x), t(w.T)).numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("layout", ["2-D", "3-D", "3-D transposed view", "4-D",
+                                    "4-D permuted view"])
+def test_bf16_linear_adds_the_bias_before_its_one_rounding(layout):
+    """bf16 in, fp32 product and bias, one rounding, as the JAX linear: the
+    port's bits against JAX's, whatever the input's layout (CvT's q/k/v take
+    the tokens of a convolution output, a transposed view). The two fp32 sums
+    may differ in order, so the share of equal bits is held, beside the share
+    against the product rounded before the bias."""
+    x = rs.randn(2, 3, 40, 48).astype(np.float32)
+    w = (rs.randn(48, 36) / np.sqrt(48)).astype(np.float32)
+    b = rs.randn(36).astype(np.float32)
+    xt = t(x).bfloat16()
+    xt = {"2-D": xt[0, 0], "3-D": xt[0], "3-D transposed view": xt[0].transpose(-1, -2)[:, :48],
+          "4-D": xt, "4-D permuted view": xt.permute(1, 0, 2, 3)}[layout]
+    if layout == "3-D transposed view":  # [3, 40, 48] read as [3, 48, 40]: a 40-wide input
+        w = w[:40]
+    wt, bt = t(w.T).bfloat16(), t(b).bfloat16()
+    got = T.linear(xt, wt, bt)
+    bf = jnp.bfloat16
+    want = J.linear({"w": jnp.asarray(w).astype(bf), "b": jnp.asarray(b).astype(bf)},
+                    jnp.asarray(xt.float().numpy()).astype(bf))
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).bfloat16()
+    twice = (torch.nn.functional.linear(xt.float(), wt.float()).bfloat16().float()
+             + bt.float()).bfloat16()
+    same, same_twice = float((got == want).float().mean()), float((got == twice).float().mean())
+    assert same >= 0.99 and same_twice < 0.9, (same, same_twice)
+
+
 @pytest.mark.parametrize("eps", [1e-5, 1e-12])
 def test_layer_norm(eps):
     x = (rs.randn(4, 7, 32) * 3 + 1).astype(np.float32)

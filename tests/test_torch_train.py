@@ -516,7 +516,11 @@ def test_masks_for_each_stage():
 
 
 # ---------------------------------------------- card: kernel vs plain version
-SHAPES = [(6, 300, 52, 384), (120, 577, 145, 384)]  # ragged; CvT-21 stage 2 of 20 images
+# (BH, Lq, Lk, embedding width): ragged; CvT-21 stage 2 and stage 1 of 20
+# images; the edges of the 64-row tiles: Lk below one tile, Lk one tile and
+# one past, Lq of one row and one past a tile
+SHAPES = [(6, 300, 52, 384), (120, 577, 145, 384), (60, 2304, 576, 192), (4, 65, 17, 64),
+          (4, 1, 64, 64), (4, 128, 65, 64)]
 
 
 @pytest.mark.cuda
@@ -582,3 +586,36 @@ def test_flash_grad_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                    stats, stats, 0.125)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_bwd_dq(q, q, q, q.bfloat16(), stats, stats, 0.125)
+
+
+@pytest.mark.cuda
+def test_flash_grad_bf16_rejects_a_misaligned_dout_on_card(cuda_device):
+    """The bf16 backward reads dO by TMA: a base that is not 16-byte aligned
+    is refused, never run through the plain version."""
+    q = torch.zeros(2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
+    stats = torch.zeros(2, 8, device=cuda_device)
+    dout = torch.zeros(q.numel() + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(q.shape)
+    assert dout.is_contiguous() and dout.data_ptr() % 16 != 0
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        launches = fn.launches
+        with pytest.raises(ValueError, match="TMA"):
+            fn(q, q, q, dout, stats, stats, 0.125)
+        assert fn.launches == launches
+
+
+@pytest.mark.cuda
+def test_flash_grad_bf16_is_bit_equal_from_run_to_run(cuda_device):
+    """No atomics: every output element is summed by one block in a fixed
+    order, so two runs on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    bh, lq, lk = 60, 2304, 576
+    q, k, v, do = (torch.randn(bh, n, 64, generator=g, device=cuda_device).bfloat16()
+                   for n in (lq, lk, lk, lq))
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, 192 ** -0.5)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, 192 ** -0.5)
+    first = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    second = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
