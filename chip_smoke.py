@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a).
+  2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a);
+               the registers and spills of the split decode kernel's
+               instantiations from the build log (-Xptxas -v).
   3. kernels - each of the thirteen kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
@@ -16,11 +18,23 @@ Phases, each printing one JSON line:
                middle and the last column; times of the kernel, the plain
                version, one PyTorch library call computing the same function
                (timed only, never used by the port) and the least time the
-               card could take (bound). In bf16 the rounding points, which a
-               tolerance cannot see, are held by bit shares: decode_attention
-               must match its plain version more often than a version that
-               skips rounding the probs, the int8 kernel more often than
-               versions that round the probs before the V-scale fold or never.
+               card could take (bound); for the decode kernels also the
+               device time of the kernel alone and of the library call from
+               torch.profiler, in a last phase (kernels_device: a profiler
+               session slows every later launch, and with it the host-bound
+               decode steps). decode_attention and decode_attention_vpu split
+               each (row, head)'s keys over a thread-block cluster and never
+               read a masked key: each shape prints n_split and the share of
+               keys read, and setting the masked keys' K/V rows to NaN must
+               leave the output's bits as they were; the same checks at edge
+               shapes of the split (DECODE_EDGES: S below a tile, around
+               full blocks, every key of one block masked, the only unmasked
+               key in the last tile, the largest S). In bf16 the rounding
+               points, which a tolerance cannot see, are held by bit shares:
+               decode_attention must match its plain version more often than
+               a version that skips rounding the probs, the int8 kernel more
+               often than versions that round the probs before the V-scale
+               fold or never.
                For the int8 kernel also integer-valued K/V (<= 2e-3) and its
                distance from exact attention on the unquantised K/V (max <
                0.1, RMS < 0.02). For the multiply-reduce kernel also the share
@@ -85,6 +99,14 @@ Phases, each printing one JSON line:
                tokens that agree; one decode step with every layer through
                v1 against the same step through v2, from the caches of a
                prefill and 7 teacher-fed steps (same limits, 6 v1 launches).
+  6. train   - 8 bf16 teacher-forcing micro-steps of the multi model at full
+               width (one AdamW update), their launch counts and the
+               forward/backward split; then a micro-step against the plain
+               path, fp32 and bf16.
+  7. kernels_device - the device time of each decode-attention kernel and of
+               its library call at every main-path call shape (bf16), from
+               torch.profiler; last, because a profiler session slows every
+               later launch.
 Then the card's name and power limit, the kernels summary line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and the last line is not printed. The summary line has one row per
@@ -146,6 +168,54 @@ def time_ms(fns, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fns, reps: int = 20, warmup: int = 3):
+    """Mean device time of one call from torch.profiler: the self device
+    time of every kernel the calls launched, over ``reps`` calls, cycling
+    through ``fns``; "not measured" where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = list(fns)
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return total / reps if total > 0 else "not measured"
+
+
+def ptxas_report(log: str):
+    """Registers and spills of each instantiation of the split decode kernel
+    (csrc/decode_split.cuh), from the -Xptxas -v lines of the build log."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+        hit = name and re.search(r"decode_split_kernelI(f|13__nv_bfloat16)Li(\d)ELb(\d)E", name)
+        if not hit:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if spill or used:
+            if not out or out[-1]["mangled"] != name:
+                out.append({"kernel": "decode_attention_vpu" if hit.group(3) == "1"
+                            else "decode_attention",
+                            "dtype": "fp32" if hit.group(1) == "f" else "bf16",
+                            "max_m": int(hit.group(2)), "mangled": name})
+            if spill:
+                out[-1].update(spill_store_bytes=int(spill.group(1)),
+                               spill_load_bytes=int(spill.group(2)))
+            if used:
+                out[-1]["registers"] = int(used.group(1))
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -470,6 +540,30 @@ def decode_work(kernel, q, mask):
     return 2 * q.numel() * e + keys * h * per_key + mask.numel() * 4, 4.0 * keys * h * m * dh
 
 
+SPLIT = ("decode_attention", "decode_attention_vpu")  # the cluster-split kernels
+
+
+def masked_rows_unread(torch, run, q, k, v, mask):
+    """The split kernels' claim that no K or V row of a masked key is read
+    while its row has an unmasked key: those rows set to NaN, the output's
+    bits must not change (a read would spread the NaN)."""
+    poison = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
+    nan = float("nan")
+    dirty = run(q, k.masked_fill(poison, nan), v.masked_fill(poison, nan), mask, 0.125)
+    return bool(torch.equal(run(q, k, v, mask, 0.125), dirty))
+
+
+def split_facts(torch, da, q, mask):
+    """n_split and chunk of decode_schedule, and the share of (row, key)
+    pairs the split kernels read (a fully masked row reads all its V rows)."""
+    s = mask.shape[1]
+    n_split, chunk = da.decode_schedule(s, q.shape[-1])
+    read = mask != NEG
+    full = ~read.any(1, keepdim=True)
+    return {"n_split": n_split, "chunk": chunk,
+            "keys_read_share": float((read | full).float().mean())}
+
+
 def _softmax_scores(q, k, mask, scale):
     return ((q.float() @ k.float().transpose(-1, -2)) * scale + mask[:, None, None, :]).softmax(-1)
 
@@ -555,14 +649,11 @@ EXTRAS = {"decode_attention": extras_decode, "decode_attention_q8": extras_q8,
           "decode_attention_vpu": extras_vpu}
 
 
-def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
-    """One decode-attention call shape of a main path: the kernel against its
-    plain version, also with row 0 fully masked (the uniform softmax, finite),
-    the kernel's own extra checks, and the times of the kernel, the plain
-    version and the library call (SDPA; for the int8 kernel the dequantise
-    too, which a library user would pay)."""
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
-    run, plain = getattr(da, kernel), getattr(da, kernel + "_plain")
+def decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind):
+    """COPIES input sets of one decode-attention call shape (for the int8
+    kernel quantised, with the first set's unquantised K/V), its mask, and
+    the library call on a set (SDPA; for the int8 kernel the dequantise too,
+    which a library user would pay)."""
     mask = key_mask(torch, kind, b, s)
     bool_mask = (mask == 0)[:, None, None, :]
     sets, floats = [], None
@@ -575,6 +666,26 @@ def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
             floats = floats or (k, v)
         else:
             sets.append((q, k.to(dtype), v.to(dtype)))
+
+    def library(q, k, v, *rest):
+        if rest:  # int8 (q, kq, ks, vq, vs): dequantise first
+            kq, ks, vq, vs = k, v, *rest
+            k = kq.to(q.dtype) * ks.transpose(-1, -2).to(q.dtype)
+            v = vq.to(q.dtype) * vs.transpose(-1, -2).to(q.dtype)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bool_mask, scale=0.125)
+
+    return sets, floats, mask, library
+
+
+def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
+    """One decode-attention call shape of a main path: the kernel against its
+    plain version, also with row 0 fully masked (the uniform softmax, finite),
+    the kernel's own extra checks, and the times of the kernel, the plain
+    version and the library call (decode_inputs) by the host clock around
+    back-to-back calls; their device times come from decode_device_phase."""
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    run, plain = getattr(da, kernel), getattr(da, kernel + "_plain")
+    sets, floats, mask, library = decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind)
     args = sets[0]
     got = run(*args, mask, 0.125)
     want = plain(*args, mask, 0.125)
@@ -588,19 +699,117 @@ def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
     out = {"b": b, "m": m, "s": s, "mask": kind, "max_abs_err": _err(got, want),
            "fully_masked_row_err": err_dark,
            **EXTRAS[kernel](torch, da, dtype, args, floats, mask, got, want, g)}
-
-    def library(q, k, v, *rest):
-        if rest:  # int8 (q, kq, ks, vq, vs): dequantise first
-            kq, ks, vq, vs = k, v, *rest
-            k = kq.to(q.dtype) * ks.transpose(-1, -2).to(q.dtype)
-            v = vq.to(q.dtype) * vs.transpose(-1, -2).to(q.dtype)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bool_mask, scale=0.125)
-
+    if kernel in SPLIT:
+        out.update(split_facts(torch, da, args[0], mask),
+                   masked_rows_unread=masked_rows_unread(torch, run, *args, mask))
+        if not out["masked_rows_unread"]:
+            raise AssertionError(f"{kernel} {dtype} {(b, m, s, kind)}: a masked key's K/V row "
+                                 "was read")
     out["ms"] = time_ms([lambda a=a: run(*a, mask, 0.125) for a in sets])
     out["plain_ms"] = time_ms([lambda a=a: plain(*a, mask, 0.125) for a in sets], reps=5, warmup=1)
     out["library_ms"] = time_ms([lambda a=a: library(*a) for a in sets])
     out["bytes"], out["flops"] = decode_work(kernel, args[0], mask)
+    # what the kernel reads: the bound's bytes for the split kernels (masked
+    # keys skipped); every key's K/V for the int8 kernel and for the
+    # one-block-per-(row, head) kernels the split kernels replaced
+    e = args[0].element_size()
+    per_key = 2 * HEAD_DIM + 8 if kernel == "decode_attention_q8" else 2 * HEAD_DIM * e
+    every_key = 2 * args[0].numel() * e + b * s * HEADS * per_key + mask.numel() * 4
+    out["bytes_read"] = out["bytes"] if kernel in SPLIT else every_key
+    out["bytes_read_every_key"] = every_key
     return out
+
+
+# (label, B, M, S, mask kind) around decode_schedule's block boundaries, for
+# the split kernels beside the main-path shapes; "largest" is max_keys(4, 64)
+# for the dtype
+DECODE_EDGES = (
+    ("one key", 8, 4, 1, "open"), ("below one tile", 8, 1, 37, "random"),
+    ("2 full blocks of 256 keys - 1", 8, 4, 511, "random"),
+    ("2 full blocks of 256 keys", 8, 1, 512, "chunk"),
+    ("2 full blocks of 256 keys + 1", 8, 4, 513, "last"),
+    ("8 full blocks of 384 keys - 1", 8, 1, 3071, "random"),
+    ("8 full blocks of 384 keys", 8, 4, 3072, "chunk"),
+    ("8 full blocks of 384 keys + 1", 8, 1, 3073, "last"),
+    ("every key of one block masked", 8, 4, 2880, "chunk"),
+    ("only unmasked key in the last tile", 8, 1, 2880, "last"),
+    ("largest S", 1, 4, "largest", "chunk"),
+)
+
+
+def edge_mask(torch, da, kind, b, s, g):
+    """``open``; ``random``: a quarter of the keys masked; ``chunk``: random,
+    and every key of decode_schedule's second block masked in every row;
+    ``last``: random, and the last row's only unmasked key the last one."""
+    mask = torch.zeros(b, s, device="cuda")
+    if kind != "open":
+        mask[torch.rand(b, s, generator=g, device="cuda") < 0.25] = NEG
+    blocks = da.block_tiles(s, HEAD_DIM)
+    if kind == "chunk" and len(blocks) > 1:
+        for t in blocks[1]:
+            mask[:, t * 64:(t + 1) * 64] = NEG
+    elif kind == "last":
+        mask[-1] = NEG
+        mask[-1, -1] = 0.0
+    return mask
+
+
+def check_decode_edges(torch, da, dtype):
+    """The split kernels at DECODE_EDGES: against their plain versions
+    (1e-5 fp32, 1e-2 bf16), with row 0 fully masked, no masked key's K/V
+    row read, and for the vpu kernel each row alone equal to the same row
+    in the batch; each shape's n_split and share of keys read."""
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for label, b, m, s, kind in DECODE_EDGES:
+        s = da.max_keys(m, HEAD_DIM, torch.finfo(dtype).bits // 8) if s == "largest" else s
+        q, k, v = (torch.randn(b, HEADS, n, HEAD_DIM, generator=g, device="cuda").to(dtype)
+                   for n in (m, s, s))
+        mask = edge_mask(torch, da, kind, b, s, g)
+        dark = mask.clone()
+        dark[0] = NEG
+        for kernel in SPLIT:
+            run, plain = getattr(da, kernel), getattr(da, kernel + "_plain")
+            row = {"shape": label, "kernel": kernel, "b": b, "m": m, "s": s, "mask": kind,
+                   **split_facts(torch, da, q, mask)}
+            got = run(q, k, v, mask, 0.125)
+            row["max_abs_err"] = _err(got, plain(q, k, v, mask, 0.125))
+            got_dark = run(q, k, v, dark, 0.125)
+            row["fully_masked_row_err"] = _err(got_dark, plain(q, k, v, dark, 0.125))
+            row["masked_rows_unread"] = masked_rows_unread(torch, run, q, k, v, mask)
+            ok = (bool(torch.isfinite(got_dark.float()).all()) and row["masked_rows_unread"]
+                  and row["max_abs_err"] <= tol and row["fully_masked_row_err"] <= tol)
+            if kernel == "decode_attention_vpu":
+                alone = torch.cat([run(q[i:i + 1], k[i:i + 1], v[i:i + 1], mask[i:i + 1], 0.125)
+                                   for i in range(b)])
+                row["alone_equals_in_batch"] = bool(torch.equal(alone, got))
+                ok = ok and row["alone_equals_in_batch"]
+            rows.append(row)
+            if not ok:
+                raise AssertionError(f"{kernel} {dtype} at {label}: {row}")
+        del q, k, v
+    return rows
+
+
+def decode_device_phase(torch, da, F, kernels):
+    """The device time of each decode-attention kernel and of its library
+    call at every main-path call shape, bf16, from torch.profiler, into the
+    kernels phase's results (and so into the summary line). It runs after
+    every other phase: a profiler session leaves a cost on every later
+    launch, which would slow the host-bound decode steps timed after it."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for c, r in kernels["bf16"]["decode"].items():
+        sets, _, mask, library = decode_inputs(torch, da, F, g, torch.bfloat16, *c)
+        run = getattr(da, c[0])
+        r["device_ms"] = device_ms([lambda a=a: run(*a, mask, 0.125) for a in sets])
+        r["library_device_ms"] = device_ms([lambda a=a: library(*a) for a in sets])
+        emit({"phase": "kernels_device", "dtype": "bf16", "kernel": c[0], "b": c[1], "m": c[2],
+              "s": c[3], "mask": c[4], "device_ms": r["device_ms"],
+              "library_device_ms": r["library_device_ms"], "ms": r["ms"],
+              "library_ms": r["library_ms"],
+              "bound_ms": bound_ms(r["bytes"], r["flops"], "bf16")[0]})
+        del sets
 
 
 def reorder_work(cache, sel, index, beams) -> float:
@@ -975,6 +1184,7 @@ def kernel_phase(torch, F, fa, da, br, fd):
         with parity_mode():
             res = {"flash": {n: check_flash(torch, fa, F, dtype, n) for n in images},
                    "decode": {c: check_decode_call(torch, da, F, g, dtype, *c) for c in calls},
+                   "decode_edges": check_decode_edges(torch, da, dtype),
                    "reorder": {t: check_reorder(torch, br, dtype, t) for t in widths},
                    "fused": check_fused(torch, F, fd, dtype),
                    "flash_grad": check_flash_grad(torch, fa, F, dtype, name)}
@@ -991,6 +1201,8 @@ def kernel_phase(torch, F, fa, da, br, fd):
                 raise AssertionError(f"{kname} {name} {r}: fully masked row differs by > {tol}")
             if kname not in FLASH_GRAD and not r["max_abs_err"] <= tol:
                 raise AssertionError(f"{kname} {name} {r}: max abs err > {tol}")
+        emit({"phase": "kernels", "dtype": name, "check": "decode_split_edges",
+              "tolerance": tol, "rows": res["decode_edges"]})
         results[name] = res
     results["linear_bias_rounding"] = check_linear_rounding(torch, F)
     return results
@@ -1875,11 +2087,15 @@ def kernels_line(da, k, counts):
             work = " + ".join(f"{LAYERS} x [B={c[1]}, M={c[2]}, S={c[3]}, {c[4]} mask]"
                               for c in shapes)
         source, replaces = KERNELS[kernel]
-        out.append({"name": f"{kernel}[{', '.join(paths)}]", "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches,
-                    "max_abs_err": max(r["max_abs_err"] for r, _ in parts), "ms": total["ms"],
-                    "plain_ms": total["plain_ms"], "bound_ms": b, "bound_by": by,
-                    "library_ms": total["library_ms"], "work": work})
+        row = {"name": f"{kernel}[{', '.join(paths)}]", "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": max(r["max_abs_err"] for r, _ in parts), "ms": total["ms"],
+               "plain_ms": total["plain_ms"], "bound_ms": b, "bound_by": by,
+               "library_ms": total["library_ms"], "work": work}
+        for key in ("device_ms", "library_device_ms"):  # torch.profiler, decode kernels
+            if all(isinstance(r.get(key), float) for r, _ in parts):
+                row[key] = sum(n * r[key] for r, n in parts)
+        out.append(row)
     for kernel in FUSED:  # one decode step of the fused path: LAYERS calls, L2 cold
         r = bf["fused"][kernel]
         b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
@@ -1961,7 +2177,9 @@ def main() -> int:
           "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
     lib = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": os.path.relpath(lib, REPO)})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(lib, REPO),
+          "decode_split_ptxas": ptxas_report((lib.parent / "build.log").read_text())})
 
     kernels = kernel_phase(torch, F, fa, da, br, fd)
     tokenizer = os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json")
@@ -1977,6 +2195,7 @@ def main() -> int:
         train_parity_phase(torch, np, ckpts["multi"])
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    decode_device_phase(torch, da, F, kernels)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card)
     emit(kernels_line(da, kernels, counts))

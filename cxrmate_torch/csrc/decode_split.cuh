@@ -1,0 +1,572 @@
+// One decode-attention call split over the blocks of a thread-block cluster:
+// the kernel body that decode_attention.cu (any summation order, fma) and
+// decode_attention_vpu.cu (separate fp32 multiplies and adds in one fixed
+// order) instantiate. Each source's note states the contract, the bound and
+// its own order of operations.
+//
+// Grid and cluster. One cluster of n_split <= 8 blocks (the portable cluster
+// size) per (b, h), 128 threads a block, launched once per call with
+// cudaLaunchKernelEx and cudaLaunchAttributeClusterDimension. S is cut into
+// 64-key tiles, dealt to the blocks in turn: block `rank` owns the tiles
+// rank, rank + n_split, rank + 2 n_split, ..., which hold at most `chunk`
+// keys; its local key i is the key (rank + (i / 64) n_split) 64 + i % 64.
+// Dealt so, the unmasked keys of a row, which lie in a few contiguous ranges
+// (image slots, the written cache), spread evenly over the cluster's blocks,
+// and the blocks' work over the SMs. n_split and chunk come from the wrapper
+// (ops/decode_attention.py:decode_schedule), a function of (S, dh) alone.
+//
+// Per block:
+//   0. The mask entries of the block's keys, one bit per key: a key is skipped when its
+//      additive mask is exactly finfo(float32).min (the port's masked value).
+//      Its score is set to finfo.min without reading its K row. The tiles
+//      that hold an unskipped key are listed; no other tile is visited.
+//   1. The listed tiles' K rows, then their V rows, stream through a ring of
+//      kRing tiles in shared memory by cp.async (16 bytes a lane, L2 only);
+//      a lane copies exactly the pieces it later reads, so the ring needs no
+//      block barrier, and kRing tiles are in flight at every step. Scores of
+//      the unskipped keys go to shared memory, [m][chunk] fp32; then the
+//      local max of each query row.
+//   2. cluster.sync(); every block reads the n_split maxima through
+//      distributed shared memory (map_shared_rank) and forms the row max.
+//      The ring's next tiles, the first V tiles, are in flight meanwhile.
+//   3. e = exp(score - max), the local sum of e; cluster.sync(); every block
+//      adds the n_split sums in rank order, so all hold the same denominator.
+//   4. p = round_to_T(e / sum), as the contract asks (the normalised probs,
+//      rounded: an online softmax would round unnormalised partials); the
+//      partial context sum_s p[s] v[s] of its keys in fp32, skipped keys'
+//      V rows not read.
+//   5. The output's m x 64 elements are split over the ranks: each block
+//      writes its partial context of an element into the owning rank's
+//      shared memory (a remote store); cluster.sync(); each rank adds the
+//      n_split partials of its elements in rank order and writes them. No
+//      block reads another's memory after that barrier, so none waits for
+//      the others to finish.
+//
+// Why skipping is exact. A skipped key's score is finfo.min: the plain
+// version's q.k x scale + finfo.min rounds to finfo.min for |q.k x scale| <
+// 2^103, far above any score of finite bf16/fp32 activations, so its K row is
+// never needed. Where the row max is above finfo.min (the row has an
+// unmasked key), it is at least one ulp (2^104) above, so a skipped key's
+// exp(finfo.min - max) is exactly +0.0 in fp32: it adds nothing to the sum,
+// its p is +0.0 and p * v adds nothing to the context, whatever its V row
+// holds (finite, as the plain version needs it). Where the max is finfo.min
+// (a fully masked row), every skipped key has e = 1, the uniform softmax the
+// plain version gives, and every V row of the block's keys is read. The max that
+// tells the two apart is the cluster's, so every block decides alike.
+#pragma once
+
+#include <algorithm>
+#include <cfloat>
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cxr {
+namespace split {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kDh = 64;        // head dim, the only one the paths have
+constexpr int kTile = 64;      // keys per tile: the unit dealt to blocks and skipped
+constexpr int kMaxSplit = 8;   // the portable cluster size
+constexpr int kMaxM = 4;
+// dynamic shared memory a block may take: the H100's 227 KB less 1 KB for
+// the kernel's static shared memory
+constexpr size_t kMaxSmem = 232448 - 1024;
+constexpr float kSkip = -FLT_MAX;  // finfo(float32).min, the port's masked key
+
+constexpr int kRing = 2;       // K/V tiles in flight a block
+
+// The ring [kRing][kTile][kDh] of T (after the V pass, the [kWarps][m][kDh]
+// fp32 warp partials in its place), [m][chunk] scores, the ranks' partial
+// contexts of the block's own output elements (n_split x ceil(m x kDh /
+// n_split) <= m x kDh + kMaxSplit floats), one bit per key and the list of
+// tiles to read (ops/decode_attention.py:smem_bytes)
+inline size_t smem_bytes(int m, int chunk, size_t elem) {
+  return std::max(elem * kRing * kTile * kDh, sizeof(float) * kWarps * m * kDh) +
+         sizeof(float) * ((size_t)m * chunk + (size_t)m * kDh + kMaxSplit) +
+         sizeof(unsigned) * (chunk / 32) + sizeof(int) * (chunk / kTile);
+}
+
+// fp32 arithmetic: the vpu kernel's separate, never contracted multiplies and
+// adds (kExact), or decode_attention's fma.
+template <bool kExact> struct Arith;
+template <> struct Arith<true> {
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ __forceinline__ float mac(float acc, float a, float b) {
+    return __fadd_rn(acc, __fmul_rn(a, b));
+  }
+};
+template <> struct Arith<false> {
+  static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
+  static __device__ __forceinline__ float add(float a, float b) { return a + b; }
+  static __device__ __forceinline__ float sub(float a, float b) { return a - b; }
+  static __device__ __forceinline__ float div(float a, float b) { return a / b; }
+  static __device__ __forceinline__ float mac(float acc, float a, float b) {
+    return fmaf(a, b, acc);
+  }
+};
+
+// How a key row (64 values, one 16-byte load a lane) spreads over a warp.
+template <typename T> struct Rows {
+  static constexpr int kVec = 16 / sizeof(T);      // values a lane: 4 fp32, 8 bf16
+  static constexpr int kLpk = kDh / kVec;          // lanes a key row: 16, 8
+  static constexpr int kKpw = 32 / kLpk;           // key rows a warp load: 2, 4
+  static constexpr int kStep = kWarps * kKpw;      // key rows a block load: 8, 16
+  static constexpr int kLoads = kTile / kStep;     // loads a lane a tile: 8, 4
+};
+
+// The key of a block's local key index i (its tiles dealt every n_split).
+__device__ __forceinline__ int global_key(int i, int rank, int n_split) {
+  return (rank + (i / kTile) * n_split) * kTile + i % kTile;
+}
+
+__device__ __forceinline__ bool unskipped(const unsigned* bits, int i) {
+  return (bits[i >> 5] >> (i & 31)) & 1u;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage the block's tile t (the (b, h)'s tile gt) of K or V rows (base) into
+// a ring slot: load u of a lane copies 16 bytes of local key t * kTile + u *
+// kStep + row (row = warp * kKpw + sub) where it is taken, to the place the
+// same lane reads it back from. Always one commit group, empty or not, so
+// that every lane counts the same groups.
+template <typename T>
+__device__ __forceinline__ void stage_tile(uint4* slot, const uint4* base, const unsigned* bits,
+                                           int t, int gt, int row, int li, bool all, int len) {
+  using R = Rows<T>;
+#pragma unroll
+  for (int u = 0; u < R::kLoads; ++u) {
+    const int i = t * kTile + u * R::kStep + row;
+    if (all ? i < len : unskipped(bits, i))
+      cp_async16(slot + (u * R::kStep + row) * R::kLpk + li,
+                 base + ((size_t)gt * kTile + u * R::kStep + row) * R::kLpk + li);
+  }
+  cp_async_commit();
+}
+
+// The MM partial dots of a lane summed over the kLpk lanes of its key row by
+// a balanced tree over neighbouring lanes (xor 1, 2, 4, ...). For MM = 4 the
+// first two levels also scatter the rows (two shuffles, then one), so lane
+// li ends with the sum of row 2 (li & 1) + ((li >> 1) & 1) in acc[0]; the
+// same tree, the same bits, a third of the shuffles. -> the row it holds.
+template <typename A, int MM, int kLpk>
+__device__ __forceinline__ int reduce_rows(float (&acc)[MM], int li) {
+  int first = 1;
+  int held = 0;
+  if constexpr (MM == 4) {
+    const bool odd = li & 1, hi = li & 2;
+    const float s0 = odd ? acc[0] : acc[2], s1 = odd ? acc[1] : acc[3];
+    float k0 = odd ? acc[2] : acc[0], k1 = odd ? acc[3] : acc[1];
+    k0 = A::add(k0, __shfl_xor_sync(0xffffffffu, s0, 1));
+    k1 = A::add(k1, __shfl_xor_sync(0xffffffffu, s1, 1));
+    acc[0] = A::add(hi ? k1 : k0, __shfl_xor_sync(0xffffffffu, hi ? k0 : k1, 2));
+    held = (odd ? 2 : 0) + (hi ? 1 : 0);
+    first = 4;
+  } else {
+    static_assert(MM == 1, "the kernel is built for MM = 1 and MM = 4");
+  }
+#pragma unroll
+  for (int off = first; off < kLpk; off <<= 1)
+    acc[0] = A::add(acc[0], __shfl_xor_sync(0xffffffffu, acc[0], off));
+  return held;
+}
+
+// q . k over a lane's kVec values: runs of four consecutive values, each
+// ((p0 + p1) + p2) + p3, two runs (bf16) added to each other.
+template <typename A, int V>
+__device__ __forceinline__ float dot_lane(const float* qf, const float* kf) {
+  float run[V / 4];
+#pragma unroll
+  for (int j = 0; j < V / 4; ++j) {
+    float acc = A::mul(kf[4 * j], qf[4 * j]);
+#pragma unroll
+    for (int e = 1; e < 4; ++e) acc = A::mac(acc, kf[4 * j + e], qf[4 * j + e]);
+    run[j] = acc;
+  }
+  return V / 4 == 1 ? run[0] : A::add(run[0], run[1]);
+}
+
+// bf16: at most 72 registers, so that the 96 clusters of 8 blocks of a
+// cross call (8 studies x 12 heads) are resident at once (7 blocks an SM)
+template <typename T, int MM, bool kExact>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 7 : 3)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ mask, T* __restrict__ o, int heads, int m,
+                    int s_len, int chunk, float scale) {
+  using A = Arith<kExact>;
+  using R = Rows<T>;
+  constexpr int kSlot = kTile * R::kLpk;  // uint4 of one ring slot
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  // clusters in launch order take the rows fastest: the heads of one row
+  // (as much unmasked work as each other) spread over the card, not onto
+  // neighbouring SMs
+  const int rows = gridDim.x / n_split / heads;
+  const int c = blockIdx.x / n_split;
+  const int b = c % rows, bh = b * heads + c / rows;
+  // the block's tiles, its last one (perhaps a part tile) and its keys
+  const int tiles = ((s_len + kTile - 1) / kTile - rank + n_split - 1) / n_split;
+  const int last = rank + (tiles - 1) * n_split;
+  const int len = (tiles - 1) * kTile + min(kTile, s_len - last * kTile);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // [kRing][kSlot]
+  float* part = reinterpret_cast<float*>(smem_raw);  // [kWarps][m][kDh], once the ring is idle
+  // [m][chunk]: scores, then e, then probs
+  float* sc = reinterpret_cast<float*>(smem_raw + max(kRing * kSlot * 16, kWarps * m * kDh * 4));
+  // output elements [rank * owned, (rank + 1) * owned) are this block's; the
+  // partial context of its element e from rank rr lands in gather[rr * owned + e]
+  const int owned = (m * kDh + n_split - 1) / n_split;
+  float* gather = sc + (size_t)m * chunk;  // [n_split * owned]
+  unsigned* bits = reinterpret_cast<unsigned*>(gather + m * kDh + kMaxSplit);  // [chunk / 32]
+  int* listed = reinterpret_cast<int*>(bits + chunk / 32);          // [chunk / kTile]
+  __shared__ float red[MM * kWarps];
+  __shared__ float xmax[MM], xsum[MM];  // read by the cluster
+  __shared__ int n_listed;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / R::kLpk;  // key row within the warp's load
+  const int li = lane % R::kLpk;   // 16-byte vector within the key row
+  const int row = warp * R::kKpw + sub;
+  const float* mb = mask + (size_t)b * s_len;
+  const uint4* k4 = reinterpret_cast<const uint4*>(k + (size_t)bh * s_len * kDh);
+  const uint4* v4 = reinterpret_cast<const uint4*>(v + (size_t)bh * s_len * kDh);
+
+  float qf[MM][R::kVec];
+  const uint4* q4 = reinterpret_cast<const uint4*>(q + (size_t)bh * m * kDh);
+#pragma unroll
+  for (int r = 0; r < MM; ++r) {
+    if (r < m) {
+      cxr::unpack16<T>(__ldg(q4 + r * R::kLpk + li), qf[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < R::kVec; ++e) qf[r][e] = 0.f;
+    }
+  }
+  // 0: which keys are read (a thread's mask entries loaded together);
+  // skipped keys' scores are finfo.min
+  constexpr int kBatch = 4;
+  for (int base = 0; base < tiles * kTile; base += kBatch * kThreads) {
+    float mv[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = base + j * kThreads + tid;
+      mv[j] = i < len ? __ldg(mb + global_key(i, rank, n_split)) : kSkip;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = base + j * kThreads + tid;
+      if (i >= tiles * kTile) break;  // whole warps: 32 | kTile
+      const bool take = i < len && mv[j] != kSkip;
+      const unsigned word = __ballot_sync(0xffffffffu, take);
+      if (lane == 0) bits[i >> 5] = word;
+      if (!take && i < len)
+        for (int r = 0; r < m; ++r) sc[r * chunk + i] = kSkip;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // the tiles that hold an unskipped key, in order
+    int count = 0;
+    for (int t0 = 0; t0 < tiles; t0 += 32) {
+      const int t = t0 + lane;
+      const bool some = t < tiles && (bits[2 * t] | bits[2 * t + 1]);
+      const unsigned found = __ballot_sync(0xffffffffu, some);
+      if (some) listed[count + __popc(found & ((1u << lane) - 1u))] = t;
+      count += __popc(found);
+    }
+    if (lane == 0) n_listed = count;
+  }
+  __syncthreads();
+  const int nt = n_listed;
+
+  // 1: the ring's job j is K of listed tile j (j < nt), then V of listed
+  // tile j - nt; kRing jobs are in flight whenever one is read
+  auto stage = [&](int j) {
+    if (j < 2 * nt) {
+      const int t = listed[j < nt ? j : j - nt];
+      stage_tile<T>(ring + (j % kRing) * kSlot, j < nt ? k4 : v4, bits, t,
+                    rank + t * n_split, row, li, false, len);
+    } else {
+      cp_async_commit();
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kRing; ++j) stage(j);
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<kRing - 1>();
+    const uint4* slot = ring + (j % kRing) * kSlot;
+    const int t = listed[j];
+#pragma unroll
+    for (int u = 0; u < R::kLoads; ++u) {
+      const int i = t * kTile + u * R::kStep + row;
+      const bool take = unskipped(bits, i);  // else the lane's piece is stale, and unused
+      float kf[R::kVec];
+      cxr::unpack16<T>(slot[(u * R::kStep + row) * R::kLpk + li], kf);
+      float acc[MM];
+#pragma unroll
+      for (int r = 0; r < MM; ++r) acc[r] = dot_lane<A, R::kVec>(qf[r], kf);
+      const int r = reduce_rows<A, MM, R::kLpk>(acc, li);
+      if (li < MM && take && r < m)
+        sc[r * chunk + i] =
+            A::add(A::mul(acc[0], scale), __ldg(mb + global_key(i, rank, n_split)));
+    }
+    stage(j + kRing);
+  }
+  __syncthreads();
+
+  // the local max of each row (order-free)
+  {
+    float mx[MM];
+#pragma unroll
+    for (int r = 0; r < MM; ++r) mx[r] = -INFINITY;
+    for (int i = tid; i < len; i += kThreads)
+#pragma unroll
+      for (int r = 0; r < MM; ++r)
+        if (r < m) mx[r] = fmaxf(mx[r], sc[r * chunk + i]);
+#pragma unroll
+    for (int r = 0; r < MM; ++r) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+      if (lane == 0) red[r * kWarps + warp] = mx[r];
+    }
+    __syncthreads();
+    if (tid < m) {
+      float x = red[tid * kWarps];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) x = fmaxf(x, red[tid * kWarps + w]);
+      xmax[tid] = x;
+    }
+  }
+
+  // 2: the row max over the cluster (in every warp, lane rr reads rank rr's
+  // values: one remote round trip)
+  cluster.sync();
+  float gmax[MM];
+#pragma unroll
+  for (int r = 0; r < MM; ++r) gmax[r] = -INFINITY;
+  if (lane < n_split) {
+    const float* xm = cluster.map_shared_rank(xmax, lane);
+#pragma unroll
+    for (int r = 0; r < MM; ++r)
+      if (r < m) gmax[r] = xm[r];
+  }
+#pragma unroll
+  for (int r = 0; r < MM; ++r)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      gmax[r] = fmaxf(gmax[r], __shfl_xor_sync(0xffffffffu, gmax[r], off));
+  // a row whose max is finfo.min is fully masked: its skipped keys have e = 1
+  // and every V row is read (the other rows' skipped keys add p * v = 0)
+  bool all = false;
+#pragma unroll
+  for (int r = 0; r < MM; ++r)
+    if (r < m && !(gmax[r] > kSkip)) all = true;
+
+  // 3: e and its sum: thread streams i = tid, tid + 128, ..., the 32 lanes of
+  // a warp by a balanced tree over neighbours, the warps left to right
+  {
+    float ls[MM];
+#pragma unroll
+    for (int r = 0; r < MM; ++r) ls[r] = 0.f;
+    for (int i = tid; i < len; i += kThreads)
+#pragma unroll
+      for (int r = 0; r < MM; ++r)
+        if (r < m) {
+          const float e = expf(A::sub(sc[r * chunk + i], gmax[r]));
+          sc[r * chunk + i] = e;
+          ls[r] = A::add(ls[r], e);
+        }
+#pragma unroll
+    for (int r = 0; r < MM; ++r) {
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        ls[r] = A::add(ls[r], __shfl_xor_sync(0xffffffffu, ls[r], off));
+      if (lane == 0) red[r * kWarps + warp] = ls[r];
+    }
+    __syncthreads();
+    if (tid < m) {
+      float x = red[tid * kWarps];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) x = A::add(x, red[tid * kWarps + w]);
+      xsum[tid] = x;
+    }
+  }
+  cluster.sync();
+  // the denominators: the ranks' sums in rank order, the same in every block
+  float gsum[MM];
+#pragma unroll
+  for (int r = 0; r < MM; ++r) gsum[r] = 0.f;
+  if (lane < n_split) {
+    const float* xs = cluster.map_shared_rank(xsum, lane);
+#pragma unroll
+    for (int r = 0; r < MM; ++r)
+      if (r < m) gsum[r] = xs[r];
+  }
+#pragma unroll
+  for (int r = 0; r < MM; ++r) {
+    float x = __shfl_sync(0xffffffffu, gsum[r], 0);
+    for (int rr = 1; rr < n_split; ++rr) x = A::add(x, __shfl_sync(0xffffffffu, gsum[r], rr));
+    gsum[r] = x;
+  }
+
+  // 4: probs rounded to T, then the block's partial context
+  for (int i = tid; i < len; i += kThreads)
+#pragma unroll
+    for (int r = 0; r < MM; ++r)
+      if (r < m)
+        sc[r * chunk + i] = cxr::to_float(cxr::from_float<T>(A::div(sc[r * chunk + i], gsum[r])));
+  __syncthreads();
+
+  float cacc[MM][R::kVec];
+#pragma unroll
+  for (int r = 0; r < MM; ++r)
+#pragma unroll
+    for (int e = 0; e < R::kVec; ++e) cacc[r][e] = 0.f;
+  // V of the listed tiles, whose first jobs are already in flight; a fully
+  // masked row instead drains the ring and reads V of every tile
+  int first = nt, jobs = 2 * nt;
+  if (all) {
+    cp_async_wait<0>();
+    first = 0;
+    jobs = tiles;
+#pragma unroll
+    for (int j = 0; j < kRing; ++j) {
+      if (j < tiles) stage_tile<T>(ring + j * kSlot, v4, bits, j, rank + j * n_split, row, li,
+                                   true, len);
+      else cp_async_commit();
+    }
+  }
+  for (int j = first; j < jobs; ++j) {
+    cp_async_wait<kRing - 1>();
+    const uint4* slot = ring + (j % kRing) * kSlot;
+    const int t = all ? j : listed[j - nt];
+#pragma unroll
+    for (int u = 0; u < R::kLoads; ++u) {
+      const int i = t * kTile + u * R::kStep + row;
+      if (all ? i < len : unskipped(bits, i)) {
+        float vf[R::kVec];
+        cxr::unpack16<T>(slot[(u * R::kStep + row) * R::kLpk + li], vf);
+#pragma unroll
+        for (int r = 0; r < MM; ++r)
+          if (r < m) {
+            const float p = sc[r * chunk + i];
+#pragma unroll
+            for (int e = 0; e < R::kVec; ++e) cacc[r][e] = A::mac(cacc[r][e], p, vf[e]);
+          }
+      }
+    }
+    if (!all) {
+      stage(j + kRing);
+    } else if (j + kRing < tiles) {
+      stage_tile<T>(ring + ((j + kRing) % kRing) * kSlot, v4, bits, j + kRing,
+                    rank + (j + kRing) * n_split, row, li, true, len);
+    } else {
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: the partials take its place
+  // the warp's kKpw key-row streams by a balanced tree over neighbours, then
+  // the warps left to right
+#pragma unroll
+  for (int r = 0; r < MM; ++r)
+#pragma unroll
+    for (int e = 0; e < R::kVec; ++e)
+#pragma unroll
+      for (int off = R::kLpk; off < 32; off <<= 1)
+        cacc[r][e] = A::add(cacc[r][e], __shfl_xor_sync(0xffffffffu, cacc[r][e], off));
+  if (sub == 0) {
+#pragma unroll
+    for (int r = 0; r < MM; ++r)
+      if (r < m)
+#pragma unroll
+        for (int e = 0; e < R::kVec; ++e)
+          part[(warp * m + r) * kDh + li * R::kVec + e] = cacc[r][e];
+  }
+  __syncthreads();
+  // 5: the block's partial context, each element to the rank that owns it
+  for (int i = tid; i < m * kDh; i += kThreads) {
+    float x = part[i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) x = A::add(x, part[w * m * kDh + i]);
+    *cluster.map_shared_rank(gather + rank * owned + i % owned, i / owned) = x;
+  }
+  cluster.sync();
+  // the ranks' partials of the block's own elements, in rank order
+  T* ob = o + (size_t)bh * m * kDh;
+  for (int e = tid; e < owned && rank * owned + e < m * kDh; e += kThreads) {
+    float x = gather[e];
+    for (int rr = 1; rr < n_split; ++rr) x = A::add(x, gather[rr * owned + e]);
+    ob[rank * owned + e] = cxr::from_float<T>(x);
+  }
+}
+
+template <typename T, int MM, bool kExact>
+cudaError_t launch_mm(const void* q, const void* k, const void* v, const float* mask, void* o,
+                      int bh, int heads, int m, int s_len, int n_split, int chunk, float scale,
+                      size_t smem, cudaStream_t stream) {
+  auto fn = decode_split_kernel<T, MM, kExact>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split * bh);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fn, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      mask, static_cast<T*>(o), heads, m, s_len, chunk, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Checks the schedule it is given (the wrapper computes it) and launches.
+template <typename T, bool kExact>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
+                   int bh, int heads, int m, int s_len, int dh, int n_split, int chunk,
+                   float scale, cudaStream_t stream) {
+  const int tiles = (s_len + kTile - 1) / kTile;
+  if (dh != kDh || m < 1 || m > kMaxM || bh < 1 || heads < 1 || bh % heads != 0 ||
+      s_len < 1 || n_split < 1 || n_split > kMaxSplit || n_split > tiles ||
+      chunk != (tiles + n_split - 1) / n_split * kTile)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(m, chunk, sizeof(T));
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const float* mk = static_cast<const float*>(mask);
+  if (m == 1)
+    return launch_mm<T, 1, kExact>(q, k, v, mk, o, bh, heads, m, s_len, n_split, chunk, scale,
+                                   smem, stream);
+  return launch_mm<T, 4, kExact>(q, k, v, mk, o, bh, heads, m, s_len, n_split, chunk, scale,
+                                 smem, stream);
+}
+
+}  // namespace split
+}  // namespace cxr

@@ -29,9 +29,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libcxrmate_kernels.so"
+# -Xptxas -v: each kernel's registers, spills and shared memory go to build.log
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -139,7 +140,8 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(cond: bool, msg: str) -> None:
-    """Reject an argument a kernel does not take."""
+def require(cond: bool, msg) -> None:
+    """Reject an argument a kernel does not take. ``msg`` is the message or,
+    where building it costs time on every call, a function that builds it."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)

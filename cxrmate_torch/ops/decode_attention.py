@@ -15,9 +15,14 @@ routing spec that chooses between them.
     :func:`quantize_kv_rowwise`, the per-key scales folded into the [M, S]
     scores and probs (``csrc/decode_attention_q8.cu``).
 
-Each source's note says what bounds the kernel on the H100 and how its design
-meets that. On a CPU tensor a wrapper runs its ``*_plain`` version; on a CUDA
-tensor it launches the kernel or raises.
+The first two kernels split each (row, head)'s keys over a thread-block
+cluster of up to 8 blocks, in one launch (``csrc/decode_split.cuh``): the
+split is :func:`decode_schedule`'s, a function of (S, dh) alone, its 64-key
+tiles dealt to the blocks in turn, and keys whose mask is finfo(float32).min
+are never read. The int8 kernel runs one block per (row, head). Each
+source's note says what bounds the kernel on the H100 and how its design
+meets that. On a CPU tensor a wrapper runs its
+``*_plain`` version; on a CUDA tensor it launches the kernel or raises.
 
 :func:`resolve_decode_kernel` is the port's copy of the JAX package's routing
 grammar (``CXRMATE_DECODE_KERNEL``); ``models.bert.bert_step`` reads the
@@ -36,10 +41,20 @@ import torch
 from cxrmate_torch.ops import _build
 
 _C = {torch.float32: "cxr_decode_attention_f32", torch.bfloat16: "cxr_decode_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-_THREADS = 256
+# q, k, v, mask, out; bh, heads, m, s, dh, n_split, chunk; scale, stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _MAX_M = 4
+KEY_TILE = 64  # keys: the unit S is cut into and dealt to a cluster's blocks
+MAX_SPLIT = 8  # blocks of a cluster: the portable cluster size
+# keys a block aims at: each block pays three cluster barriers and a few
+# memory round trips whatever its length, so a short cache takes fewer,
+# longer blocks (PERF.md: the beam-4 self calls)
+TARGET_CHUNK = 256
+_SPLIT_WARPS = 4  # warps of a split kernel's block
+_SPLIT_RING = 2  # K/V tiles a split block has in flight (its shared-memory ring)
+# dynamic shared memory of a split block: the limit less 1 KB of static
+_SPLIT_SMEM_LIMIT = _SMEM_LIMIT - 1024
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,35 +67,100 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
-def smem_bytes(m: int, s: int, dh: int) -> int:
-    """Shared memory of one block: q, the [M, S] scores and the per-warp
-    partial contexts, all fp32."""
-    return 4 * (m * dh + m * s + (_THREADS // 32) * m * dh)
+def decode_schedule(s: int, dh: int) -> Tuple[int, int]:
+    """How :func:`decode_attention` and :func:`decode_attention_vpu` split S
+    keys: -> (n_split, chunk). S is cut into KEY_TILE-key tiles, dealt to the
+    n_split blocks of a (row, head)'s cluster in turn (:func:`block_tiles`):
+    as many blocks as keys need at about TARGET_CHUNK a block, at most
+    MAX_SPLIT; chunk is the most keys a block holds, in whole tiles. It
+    depends on (S, dh) alone, never on B, M or the card, so that the vpu
+    kernel's summation order, and with it a row's bits, does not depend on
+    the batch."""
+    if dh != 64 or s < 1:
+        raise ValueError(f"decode_schedule: needs dh = 64 and S >= 1, got dh={dh}, S={s}")
+    tiles = -(-s // KEY_TILE)
+    n_split = min(MAX_SPLIT, -(-s // TARGET_CHUNK))
+    return n_split, -(-tiles // n_split) * KEY_TILE
+
+
+def block_tiles(s: int, dh: int):
+    """The tiles each block of :func:`decode_schedule` owns: block r the tiles
+    r, r + n_split, r + 2 n_split, ... (tile t the keys [t * KEY_TILE, (t +
+    1) * KEY_TILE) within S). Dealt in turn, a row's unmasked keys, which lie
+    in a few contiguous ranges, spread evenly over the blocks."""
+    n_split, _ = decode_schedule(s, dh)
+    return [range(r, -(-s // KEY_TILE), n_split) for r in range(n_split)]
+
+
+def smem_bytes(m: int, s: int, dh: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of the split kernels for K/V of
+    ``itemsize`` bytes: the ring of K/V tiles in flight (later the per-warp
+    [M, dh] fp32 partial contexts), the chunk's [M, chunk] fp32 scores, the
+    ranks' partials of the block's output elements, one mask bit per key and
+    the list of tiles to read (``csrc/decode_split.cuh:smem_bytes``)."""
+    _, chunk = decode_schedule(s, dh)
+    ring = max(itemsize * _SPLIT_RING * KEY_TILE * dh, 4 * _SPLIT_WARPS * m * dh)
+    return (ring + 4 * (m * chunk + m * dh + MAX_SPLIT) + 4 * (chunk // 32)
+            + 4 * (chunk // KEY_TILE))
+
+
+def max_keys(m: int, dh: int, itemsize: int) -> int:
+    """The largest S the split kernels take with M query rows and K/V of
+    ``itemsize`` bytes: MAX_SPLIT chunks of the longest chunk whose block
+    fits in shared memory."""
+    per = 1
+    while smem_bytes(m, MAX_SPLIT * (per + 1) * KEY_TILE, dh, itemsize) <= _SPLIT_SMEM_LIMIT:
+        per += 1
+    return MAX_SPLIT * per * KEY_TILE
 
 
 def _check_qkv(name: str, q, k, v, additive_mask, kv_dtype) -> Tuple[int, int, int, int, int]:
     """Reject what the three kernels do not take; -> (b, h, m, s, dh)."""
     req = _build.require
     req(q.is_cuda and all(t.device == q.device for t in (k, v, additive_mask)),
-        f"{name}: q, k, v and the mask must be on one CUDA device")
-    req(q.dtype in _C, f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+        lambda: f"{name}: q, k, v and the mask must be on one CUDA device")
+    req(q.dtype in _C, lambda: f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     req(k.dtype == kv_dtype and v.dtype == kv_dtype,
-        f"{name}: k and v must have dtype {kv_dtype}, got {k.dtype}, {v.dtype}")
-    req(additive_mask.dtype == torch.float32, f"{name}: the mask must be float32")
+        lambda: f"{name}: k and v must have dtype {kv_dtype}, got {k.dtype}, {v.dtype}")
+    req(additive_mask.dtype == torch.float32, lambda: f"{name}: the mask must be float32")
     req(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
         and k.shape[:2] == q.shape[:2] and k.shape[3] == q.shape[3],
-        f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+        lambda: f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, m, dh = q.shape
     s = k.shape[2]
     req(tuple(additive_mask.shape) == (b, s),
-        f"{name}: mask shape {tuple(additive_mask.shape)} != {(b, s)}")
-    req(dh == 64, f"{name}: needs head dim 64, got {dh}")
-    req(1 <= m <= _MAX_M and s >= 1, f"{name}: needs 1 <= M <= {_MAX_M}, S >= 1")
-    req(smem_bytes(m, s, dh) <= _SMEM_LIMIT,
-        f"{name}: M={m} x S={s} scores exceed one block's shared memory")
+        lambda: f"{name}: mask shape {tuple(additive_mask.shape)} != {(b, s)}")
+    req(dh == 64, lambda: f"{name}: needs head dim 64, got {dh}")
+    req(1 <= m <= _MAX_M and s >= 1, lambda: f"{name}: needs 1 <= M <= {_MAX_M}, S >= 1")
     req(all(t.is_contiguous() for t in (q, k, v, additive_mask)),
-        f"{name}: q, k, v and the mask must be contiguous")
+        lambda: f"{name}: q, k, v and the mask must be contiguous")
+    req(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+        lambda: f"{name}: q, k and v must be 16-byte aligned (16-byte vector loads)")
     return b, h, m, s, dh
+
+
+def _launch_split(name: str, entries, q, k, v, additive_mask,
+                  scale) -> Tuple[torch.Tensor, bool]:
+    """Check and launch one of the two split kernels (``entries``: its C
+    entry per dtype); -> (the output, whether the kernel was launched: not
+    for zero rows)."""
+    b, h, m, s, dh = _check_qkv(name, q, k, v, additive_mask, q.dtype)
+    e = q.element_size()
+    _build.require(smem_bytes(m, s, dh, e) <= _SPLIT_SMEM_LIMIT,
+                   lambda: f"{name}: S={s} exceeds the {max_keys(m, dh, e)} keys a cluster "
+                   f"of {MAX_SPLIT} blocks holds at M={m} in {q.dtype}")
+    out = torch.empty_like(q)
+    if b * h == 0:
+        return out, False
+    n_split, chunk = decode_schedule(s, dh)
+    entry = entries[q.dtype]
+    fn = _build.kernel(entry, _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), additive_mask.data_ptr(),
+                 out.data_ptr(), b * h, h, m, s, dh, n_split, chunk, float(scale),
+                 _build.stream_of(q))
+    _build.check(err, entry)
+    return out, True
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,17 +169,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key mask -> ctx [B, H, M, dh]. M is 1 (greedy) or the beam count."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, additive_mask, scale)
-    b, h, m, s, dh = _check_qkv("decode_attention", q, k, v, additive_mask, q.dtype)
-    out = torch.empty_like(q)
-    if b * h == 0:
-        return out
-    name = _C[q.dtype]
-    fn = _build.kernel(name, _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), additive_mask.data_ptr(),
-                 out.data_ptr(), b * h, h, m, s, dh, float(scale), _build.stream_of(q))
-    _build.check(err, name)
-    decode_attention.launches += 1
+    out, launched = _launch_split("decode_attention", _C, q, k, v, additive_mask, scale)
+    decode_attention.launches += launched
     return out
 
 
@@ -135,17 +206,9 @@ def decode_attention_vpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the batch it is in, on M or on the launch."""
     if q.device.type == "cpu":
         return decode_attention_vpu_plain(q, k, v, additive_mask, scale)
-    b, h, m, s, dh = _check_qkv("decode_attention_vpu", q, k, v, additive_mask, q.dtype)
-    out = torch.empty_like(q)
-    if b * h == 0:
-        return out
-    name = _C_VPU[q.dtype]
-    fn = _build.kernel(name, _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), additive_mask.data_ptr(),
-                 out.data_ptr(), b * h, h, m, s, dh, float(scale), _build.stream_of(q))
-    _build.check(err, name)
-    decode_attention_vpu.launches += 1
+    out, launched = _launch_split("decode_attention_vpu", _C_VPU, q, k, v, additive_mask,
+                                  scale)
+    decode_attention_vpu.launches += launched
     return out
 
 
@@ -156,6 +219,13 @@ decode_attention_vpu.launches = 0
 _C_Q8 = {torch.float32: "cxr_decode_attention_q8_f32",
          torch.bfloat16: "cxr_decode_attention_q8_bf16"}
 _ARGTYPES_Q8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_Q8_THREADS = 256
+
+
+def _q8_smem_bytes(m: int, s: int, dh: int) -> int:
+    """Shared memory of one block of the int8 kernel: q, the [M, S] scores
+    and the per-warp partial contexts, all fp32."""
+    return 4 * (m * dh + m * s + (_Q8_THREADS // 32) * m * dh)
 
 
 def quantize_kv_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,6 +269,8 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, kscale: torch.Tensor,
         return decode_attention_q8_plain(q, kq, kscale, vq, vscale, additive_mask, scale)
     b, h, m, s, dh = _check_qkv("decode_attention_q8", q, kq, vq, additive_mask, torch.int8)
     req = _build.require
+    req(_q8_smem_bytes(m, s, dh) <= _SMEM_LIMIT,
+        lambda: f"decode_attention_q8: M={m} x S={s} scores exceed one block's shared memory")
     for sc in (kscale, vscale):
         req(sc.device == q.device and sc.dtype == torch.float32 and sc.is_contiguous()
             and tuple(sc.shape) == (b, h, 1, s),
@@ -254,8 +326,10 @@ def resolve_decode_kernel(spec: Optional[str] = None) -> str:
           numerics: serving only).
 
     ``:G`` is a TPU grid blocking (rows per grid cell): the grammar validates
-    it and it has no effect on the card, where every kernel runs one block per
-    (row, head)."""
+    it and it has no effect on the card, where the blocking is the kernel's
+    own: a cluster of :func:`decode_schedule`'s blocks per (row, head) for
+    :func:`decode_attention` and :func:`decode_attention_vpu`, one block per
+    (row, head) for :func:`decode_attention_q8`."""
     if spec is None:
         spec = os.environ.get("CXRMATE_DECODE_KERNEL", "")
     if spec in ("", "0"):

@@ -14,6 +14,7 @@ tests/conftest.py configures JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 """
 
+import inspect
 import types
 
 import numpy as np
@@ -55,6 +56,26 @@ def _decode_inputs(seed, b, h, m, s, dh):
     mask = np.where(rs.rand(b, s) > 0.25, 0.0, NEG).astype(np.float32)
     mask[-1] = NEG  # a fully masked row: uniform softmax, no NaN
     return q, k, v, mask
+
+
+def _masked_like_the_paths(seed, b, s, kind):
+    """A [b, s] mask for the split kernels' edge cases: ``random`` (a quarter
+    of the keys masked), ``chunk`` (random, and every key of the second block
+    of decode_schedule masked in every row: it reads nothing while its row
+    has unmasked keys elsewhere) or ``last`` (random, and the last row's only
+    unmasked key is the last key, in the last tile). Row 0 is fully masked,
+    as in _decode_inputs."""
+    rs = np.random.RandomState(seed)
+    mask = np.where(rs.rand(b, s) > 0.25, 0.0, NEG).astype(np.float32)
+    blocks = da.block_tiles(s, 64)
+    if kind == "chunk" and len(blocks) > 1:
+        for t in blocks[1]:
+            mask[:, t * 64:(t + 1) * 64] = NEG
+    elif kind == "last":
+        mask[-1] = NEG
+        mask[-1, -1] = 0.0
+    mask[0] = NEG
+    return mask
 
 
 def _reorder_inputs(seed, groups, beams, h, t_len, dh):
@@ -110,6 +131,94 @@ def test_decode_vpu_plain_matches_jax_kernel(jx, m):
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
     assert da.decode_attention_vpu.launches == 0  # the CPU runs the plain version
+
+
+def test_decode_schedule_depends_only_on_s_and_dh():
+    """The split's schedule takes (S, dh) and nothing else: no batch, no M,
+    no card; the same answer every call."""
+    assert list(inspect.signature(da.decode_schedule).parameters) == ["s", "dh"]
+    assert da.decode_schedule(2880, 64) == da.decode_schedule(2880, 64) == (8, 384)
+    assert da.decode_schedule(256, 64) == (1, 256)
+    assert da.decode_schedule(511, 64) == (2, 256)
+    assert list(da.block_tiles(576, 64)) == [range(0, 9, 3), range(1, 9, 3), range(2, 9, 3)]
+    with pytest.raises(ValueError):
+        da.decode_schedule(0, 64)
+    with pytest.raises(ValueError):
+        da.decode_schedule(256, 128)
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 1024), (1024, 3200), (3200, 20000)])
+def test_decode_schedule_tiles_the_keys(lo, hi):
+    """The blocks' key-tiles cover [0, S) without gap or overlap, each block
+    holds at least one tile and at most ``chunk`` keys, and a cluster has at
+    most MAX_SPLIT blocks."""
+    for s in range(lo, hi):
+        n_split, chunk = da.decode_schedule(s, 64)
+        assert 1 <= n_split <= da.MAX_SPLIT and chunk % da.KEY_TILE == 0
+        blocks = da.block_tiles(s, 64)
+        assert len(blocks) == n_split and all(1 <= len(b) <= chunk // da.KEY_TILE
+                                              for b in blocks)
+        assert sorted(t for b in blocks for t in b) == list(range(-(-s // da.KEY_TILE)))
+
+
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_decode_max_keys_is_the_shared_memory_limit(m, itemsize):
+    """max_keys is the largest S whose block fits in shared memory, for the
+    full cluster; one key more does not fit."""
+    s = da.max_keys(m, 64, itemsize)
+    assert da.decode_schedule(s, 64)[0] == da.MAX_SPLIT
+    assert (da.smem_bytes(m, s, 64, itemsize) <= da._SPLIT_SMEM_LIMIT
+            < da.smem_bytes(m, s + 1, 64, itemsize))
+    assert s > 2880 * 25  # far beyond one block's 232 KB of [M, S] scores
+
+
+def _split_emulation(q, k, v, mask, scale):
+    """The split kernels' algorithm in plain torch (fp32 scores): per block
+    of decode_schedule (its tiles dealt in turn), scores of the keys whose
+    mask is not finfo.min only (the others get finfo.min and their K and V
+    are never touched), the cluster's max, the blocks' sums of e in rank
+    order, probs rounded to the input dtype, partial contexts over the read
+    keys, added in rank order. A fully masked row reads every V row."""
+    b, h, m, dh = q.shape
+    s = k.shape[2]
+    blocks = [torch.cat([torch.arange(t * 64, min(t * 64 + 64, s)) for t in tiles])
+              for tiles in da.block_tiles(s, dh)]
+    read = mask != NEG  # [b, s]
+    scores = torch.full((b, h, m, s), NEG)
+    for bi in range(b):
+        keys = read[bi].nonzero()[:, 0]
+        kk = k[bi][:, keys].float()  # only the read keys' rows
+        scores[bi][..., keys] = (q[bi].float() @ kk.transpose(-1, -2)) * scale + mask[bi, keys]
+    gmax = torch.stack([scores[..., keys].amax(-1) for keys in blocks]).amax(0)
+    e = torch.exp(scores - gmax[..., None])
+    total = sum(e[..., keys].sum(-1) for keys in blocks)
+    p = (e / total[..., None]).to(q.dtype).float()
+    full = ~read.any(1)  # fully masked rows read every V row
+    ctx = torch.zeros(b, h, m, dh)
+    for bi in range(b):
+        keys = torch.arange(s) if full[bi] else read[bi].nonzero()[:, 0]
+        for own in blocks:
+            kc = own[torch.isin(own, keys)]
+            ctx[bi] += p[bi][..., kc] @ v[bi][:, kc].float()
+    return ctx.to(q.dtype)
+
+
+@pytest.mark.parametrize("m,s,kind", [(4, 37, "random"), (1, 511, "random"), (4, 512, "chunk"),
+                                      (1, 513, "last"), (4, 2880, "chunk"), (1, 3073, "last")])
+def test_split_without_masked_keys_matches_plain(m, s, kind):
+    """Skipping the masked keys and splitting S is exact: the emulated split
+    on K/V whose masked rows are NaN (never read) equals the plain version
+    on clean K/V within 1e-5 in fp32, the fully masked row (uniform) too."""
+    q, k, v, _ = _decode_inputs(12, 3, 2, m, s, 64)
+    mask = _masked_like_the_paths(13, 3, s, kind)
+    q, k, v, mask = t(q), t(k), t(v), t(mask)
+    poisoned = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
+    got = _split_emulation(q, k.masked_fill(poisoned, float("nan")),
+                           v.masked_fill(poisoned, float("nan")), mask, 0.125)
+    want = da.decode_attention_plain(q, k, v, mask, 0.125)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
 
 
 def test_quantize_kv_rowwise_bit_equal_to_jax(jx):
@@ -227,34 +336,89 @@ def test_flash_entries_give_bit_equal_out_on_card(cuda_device, dtype):
     torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
 
 
+# the main paths' widths, then decode_schedule's edges: S below one tile,
+# one key below, at and above full blocks (511-513: 2 blocks of 256 keys, then
+# 3 of 192; 3071-3073: 8 of 384, then of 448), every key of one block masked
+# while its row has unmasked keys elsewhere, and a row whose only unmasked key
+# is in the last tile
+SPLIT_SHAPES = [(1, 2880, "random"), (4, 2880, "random"), (1, 256, "random"),
+                (1, 511, "random"), (4, 1, "random"), (1, 37, "random"), (4, 511, "chunk"),
+                (1, 512, "random"), (4, 513, "last"), (1, 3071, "chunk"), (4, 3072, "random"),
+                (1, 3073, "last"), (4, 2880, "chunk")]
+
+
+def _split_inputs(seed, m, s, kind, device, dtype):
+    q, k, v, mask = _decode_inputs(seed, 3, 12, m, s, 64)
+    if kind != "random":
+        mask = _masked_like_the_paths(seed + 1, 3, s, kind)
+    return (*(t(a).to(device, dtype) for a in (q, k, v)), t(mask).to(device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("m,s", [(1, 2880), (4, 2880), (1, 256)])
-def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s):
-    q, k, v, mask = _decode_inputs(4, 3, 12, m, s, 64)
-    q, k, v = (t(a).to(cuda_device, dtype) for a in (q, k, v))
-    mask = t(mask).to(cuda_device)
+@pytest.mark.parametrize("m,s,kind", SPLIT_SHAPES)
+def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s, kind):
+    q, k, v, mask = _split_inputs(4, m, s, kind, cuda_device, dtype)
     with parity_mode():
         got = da.decode_attention(q, k, v, mask, 0.125)
         want = da.decode_attention_plain(q, k, v, mask, 0.125)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("m,s", [(1, 2880), (4, 2880), (1, 511)])
-def test_decode_vpu_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s):
-    q, k, v, mask = _decode_inputs(10, 3, 12, m, s, 64)
-    q, k, v = (t(a).to(cuda_device, dtype) for a in (q, k, v))
-    mask = t(mask).to(cuda_device)
+@pytest.mark.parametrize("m,s,kind", SPLIT_SHAPES)
+def test_decode_vpu_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s, kind):
+    q, k, v, mask = _split_inputs(10, m, s, kind, cuda_device, dtype)
     got = da.decode_attention_vpu(q, k, v, mask, 0.125)
     want = da.decode_attention_vpu_plain(q, k, v, mask, 0.125)
     torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    # a row's bits do not depend on the batch it is in
-    alone = da.decode_attention_vpu(q[1:2], k[1:2], v[1:2], mask[1:2], 0.125)
-    assert torch.equal(alone, got[1:2])
+    # a row's bits do not depend on the batch it is in: each row alone
+    for i in range(q.shape[0]):
+        alone = da.decode_attention_vpu(q[i:i + 1], k[i:i + 1], v[i:i + 1], mask[i:i + 1],
+                                        0.125)
+        assert torch.equal(alone, got[i:i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_vpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,s,kind", [(4, 2880, "chunk"), (1, 513, "last"), (4, 37, "random")])
+def test_decode_kernels_never_read_masked_keys_on_card(cuda_device, kernel, dtype, m, s, kind):
+    """K and V rows of masked keys set to NaN in the rows that have an
+    unmasked key: the output's bits do not change (a read would spread the
+    NaN). The fully masked row 0 reads every V row, which stays clean."""
+    q, k, v, mask = _split_inputs(14, m, s, kind, cuda_device, dtype)
+    run = getattr(da, kernel)
+    clean = run(q, k, v, mask, 0.125)
+    poisoned = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
+    dirty = run(q, k.masked_fill(poisoned, float("nan")), v.masked_fill(poisoned, float("nan")),
+                mask, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, dirty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_vpu"])
+def test_decode_kernels_take_the_largest_s_on_card(cuda_device, kernel):
+    """The largest S the cluster's shared memory holds at M = 4 runs and
+    agrees with the plain version (bf16, 1e-2); one key more raises."""
+    s = da.max_keys(4, 64, 2)
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    q, k, v = (torch.randn(1, 12, n, 64, generator=g, device=cuda_device).to(torch.bfloat16)
+               for n in (4, s, s))
+    mask = t(_masked_like_the_paths(16, 2, s, "chunk")[1:]).to(cuda_device)
+    got = getattr(da, kernel)(q, k, v, mask, 0.125)
+    want = getattr(da, kernel + "_plain")(q, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    k1 = torch.zeros(1, 12, s + 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceeds"):
+        getattr(da, kernel)(q, k1, k1, torch.zeros(1, s + 1, device=cuda_device), 0.125)
 
 
 @pytest.mark.cuda
