@@ -7,7 +7,9 @@ Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a);
                the registers and spills of the split decode kernel's
-               instantiations from the build log (-Xptxas -v).
+               instantiations (decode_attention, decode_attention_vpu,
+               decode_attention_q8) and of fused_out_ln_ffn from the build
+               log (-Xptxas -v).
   3. kernels - each of the thirteen kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
@@ -22,14 +24,17 @@ Phases, each printing one JSON line:
                device time of the kernel alone and of the library call from
                torch.profiler, in a last phase (kernels_device: a profiler
                session slows every later launch, and with it the host-bound
-               decode steps). decode_attention and decode_attention_vpu split
-               each (row, head)'s keys over a thread-block cluster and never
-               read a masked key: each shape prints n_split and the share of
-               keys read, and setting the masked keys' K/V rows to NaN must
-               leave the output's bits as they were; the same checks at edge
-               shapes of the split (DECODE_EDGES: S below a tile, around
+               decode steps). decode_attention, decode_attention_vpu and
+               decode_attention_q8 split each (row, head)'s keys over a
+               thread-block cluster and never read a masked key: each shape
+               prints n_split, the share of keys read and the bytes read
+               against every key's, and setting the masked keys' K/V rows to
+               NaN (for the int8 kernel: the rows random, both scales NaN)
+               must leave the output's bits as they were; the same checks at
+               edge shapes of the split (DECODE_EDGES: S below a tile, around
                full blocks, every key of one block masked, the only unmasked
-               key in the last tile, the largest S). In bf16 the rounding
+               key in the last tile, the largest S, the int8 kernel's own
+               for it). In bf16 the rounding
                points, which a tolerance cannot see, are held by bit shares:
                decode_attention must match its plain version more often than
                a version that skips rounding the probs, the int8 kernel more
@@ -45,8 +50,10 @@ Phases, each printing one JSON line:
                256, S = 2,880 with 15 of 40 image slots masked, the step at
                columns 1, 128 and 255), also with a fully masked row, the new
                K/V column written where it belongs and the rest of the cache
-               bit-exact; their times are taken one launch at a time with the
-               L2 cache flushed before each, as a decode step finds it.
+               bit-exact, the FFN kernel also at 11 studies with each row's
+               bits the same alone, among 8 and among 11; their times are
+               taken one launch at a time with the L2 cache flushed before
+               each, as a decode step finds it.
                The three kernels of flash_attention_grad (the forward with
                log-sum-exp rows, dq, dk/dv) at the CvT-21@384 stage shapes
                of a training micro-step of 20 images, fp32 and bf16, within
@@ -104,9 +111,10 @@ Phases, each printing one JSON line:
                forward/backward split; then a micro-step against the plain
                path, fp32 and bf16.
   7. kernels_device - the device time of each decode-attention kernel and of
-               its library call at every main-path call shape (bf16), from
-               torch.profiler; last, because a profiler session slows every
-               later launch.
+               its library call at every main-path call shape, and of the
+               beam reorder and its library calls at every main-path cache
+               width (bf16), from torch.profiler; last, because a profiler
+               session slows every later launch.
 Then the card's name and power limit, the kernels summary line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and the last line is not printed. The summary line has one row per
@@ -191,7 +199,9 @@ def device_ms(fns, reps: int = 20, warmup: int = 3):
 
 def ptxas_report(log: str):
     """Registers and spills of each instantiation of the split decode kernel
-    (csrc/decode_split.cuh), from the -Xptxas -v lines of the build log."""
+    (csrc/decode_split.cuh: decode_attention, decode_attention_vpu and
+    decode_attention_q8) and of fused_out_ln_ffn's kernel, from the -Xptxas
+    -v lines of the build log."""
     import re
 
     out, name = [], None
@@ -199,17 +209,25 @@ def ptxas_report(log: str):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-        hit = name and re.search(r"decode_split_kernelI(f|13__nv_bfloat16)Li(\d)ELb(\d)E", name)
-        if not hit:
+        split = name and re.search(
+            r"decode_split_kernelI(f|13__nv_bfloat16)(a|f|S\d*_)Li(\d)ELb(\d)E", name)
+        ffn = name and re.search(r"out_ln_ffn_kernelI(f|13__nv_bfloat16)E", name)
+        if not (split or ffn):
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         used = re.search(r"Used (\d+) registers", line)
         if spill or used:
             if not out or out[-1]["mangled"] != name:
-                out.append({"kernel": "decode_attention_vpu" if hit.group(3) == "1"
-                            else "decode_attention",
-                            "dtype": "fp32" if hit.group(1) == "f" else "bf16",
-                            "max_m": int(hit.group(2)), "mangled": name})
+                if ffn:
+                    row = {"kernel": "fused_out_ln_ffn",
+                           "dtype": "fp32" if ffn.group(1) == "f" else "bf16"}
+                else:
+                    row = {"kernel": "decode_attention_q8" if split.group(2) == "a" else
+                           "decode_attention_vpu" if split.group(4) == "1" else
+                           "decode_attention",
+                           "dtype": "fp32" if split.group(1) == "f" else "bf16",
+                           "max_m": int(split.group(3))}
+                out.append({**row, "mangled": name})
             if spill:
                 out[-1].update(spill_store_bytes=int(spill.group(1)),
                                spill_load_bytes=int(spill.group(2)))
@@ -540,17 +558,29 @@ def decode_work(kernel, q, mask):
     return 2 * q.numel() * e + keys * h * per_key + mask.numel() * 4, 4.0 * keys * h * m * dh
 
 
-SPLIT = ("decode_attention", "decode_attention_vpu")  # the cluster-split kernels
+# the cluster-split kernels (decode_split.cuh's body)
+SPLIT = ("decode_attention", "decode_attention_vpu", "decode_attention_q8")
 
 
-def masked_rows_unread(torch, run, q, k, v, mask):
+def masked_rows_unread(torch, run, args, mask):
     """The split kernels' claim that no K or V row of a masked key is read
-    while its row has an unmasked key: those rows set to NaN, the output's
-    bits must not change (a read would spread the NaN)."""
+    while its row has an unmasked key: those rows set to NaN (for the int8
+    kernel, args (q, kq, ks, vq, vs): the int8 rows random and both scales
+    NaN), the output's bits must not change (a read would spread the NaN)."""
+    q, kv = args[0], args[1:]
     poison = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
     nan = float("nan")
-    dirty = run(q, k.masked_fill(poison, nan), v.masked_fill(poison, nan), mask, 0.125)
-    return bool(torch.equal(run(q, k, v, mask, 0.125), dirty))
+    if len(kv) == 2:
+        dirty = tuple(x.masked_fill(poison, nan) for x in kv)
+    else:
+        kq, ks, vq, vs = kv
+        g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        keys = poison[..., 0][:, :, None, :].expand(ks.shape)
+        noise = [torch.randint(-127, 128, kq.shape, generator=g, device="cuda", dtype=torch.int8)
+                 for _ in range(2)]
+        dirty = (torch.where(poison, noise[0], kq), ks.masked_fill(keys, nan),
+                 torch.where(poison, noise[1], vq), vs.masked_fill(keys, nan))
+    return bool(torch.equal(run(q, *kv, mask, 0.125), run(q, *dirty, mask, 0.125)))
 
 
 def split_facts(torch, da, q, mask):
@@ -699,30 +729,29 @@ def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
     out = {"b": b, "m": m, "s": s, "mask": kind, "max_abs_err": _err(got, want),
            "fully_masked_row_err": err_dark,
            **EXTRAS[kernel](torch, da, dtype, args, floats, mask, got, want, g)}
-    if kernel in SPLIT:
-        out.update(split_facts(torch, da, args[0], mask),
-                   masked_rows_unread=masked_rows_unread(torch, run, *args, mask))
-        if not out["masked_rows_unread"]:
-            raise AssertionError(f"{kernel} {dtype} {(b, m, s, kind)}: a masked key's K/V row "
-                                 "was read")
+    out.update(split_facts(torch, da, args[0], mask),
+               masked_rows_unread=masked_rows_unread(torch, run, args, mask))
+    if not out["masked_rows_unread"]:
+        raise AssertionError(f"{kernel} {dtype} {(b, m, s, kind)}: a masked key's K/V row or "
+                             "scale was read")
     out["ms"] = time_ms([lambda a=a: run(*a, mask, 0.125) for a in sets])
     out["plain_ms"] = time_ms([lambda a=a: plain(*a, mask, 0.125) for a in sets], reps=5, warmup=1)
     out["library_ms"] = time_ms([lambda a=a: library(*a) for a in sets])
     out["bytes"], out["flops"] = decode_work(kernel, args[0], mask)
-    # what the kernel reads: the bound's bytes for the split kernels (masked
-    # keys skipped); every key's K/V for the int8 kernel and for the
-    # one-block-per-(row, head) kernels the split kernels replaced
+    # what the kernel reads: the bound's bytes (masked keys skipped), against
+    # every key's K/V (and scales), which the one-block-per-(row, head)
+    # kernels the cluster kernels replaced read
     e = args[0].element_size()
     per_key = 2 * HEAD_DIM + 8 if kernel == "decode_attention_q8" else 2 * HEAD_DIM * e
     every_key = 2 * args[0].numel() * e + b * s * HEADS * per_key + mask.numel() * 4
-    out["bytes_read"] = out["bytes"] if kernel in SPLIT else every_key
+    out["bytes_read"] = out["bytes"]
     out["bytes_read_every_key"] = every_key
     return out
 
 
 # (label, B, M, S, mask kind) around decode_schedule's block boundaries, for
-# the split kernels beside the main-path shapes; "largest" is max_keys(4, 64)
-# for the dtype
+# the cluster kernels beside the main-path shapes; "largest" is max_keys(4,
+# 64) for the dtype of the K/V (int8 for the q8 kernel)
 DECODE_EDGES = (
     ("one key", 8, 4, 1, "open"), ("below one tile", 8, 1, 37, "random"),
     ("2 full blocks of 256 keys - 1", 8, 4, 511, "random"),
@@ -755,50 +784,73 @@ def edge_mask(torch, da, kind, b, s, g):
 
 
 def check_decode_edges(torch, da, dtype):
-    """The split kernels at DECODE_EDGES: against their plain versions
+    """The cluster kernels at DECODE_EDGES: against their plain versions
     (1e-5 fp32, 1e-2 bf16), with row 0 fully masked, no masked key's K/V
-    row read, and for the vpu kernel each row alone equal to the same row
-    in the batch; each shape's n_split and share of keys read."""
+    row (or scale) read, and for the vpu kernel each row alone equal to the
+    same row in the batch; each shape's n_split and share of keys read. The
+    int8 kernel runs on the same K/V quantised, and its "largest S" is its
+    own."""
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows = []
-    for label, b, m, s, kind in DECODE_EDGES:
-        s = da.max_keys(m, HEAD_DIM, torch.finfo(dtype).bits // 8) if s == "largest" else s
-        q, k, v = (torch.randn(b, HEADS, n, HEAD_DIM, generator=g, device="cuda").to(dtype)
-                   for n in (m, s, s))
-        mask = edge_mask(torch, da, kind, b, s, g)
-        dark = mask.clone()
-        dark[0] = NEG
+    for label, b, m, s_edge, kind in DECODE_EDGES:
         for kernel in SPLIT:
+            q8 = kernel == "decode_attention_q8"
+            s = s_edge
+            if s == "largest":
+                s = da.max_keys(m, HEAD_DIM, 1 if q8 else torch.finfo(dtype).bits // 8)
+            g.manual_seed(SEED + 11 + s)  # the same q, K, V and mask for the kernels of a shape
+            q, k, v = (torch.randn(b, HEADS, n, HEAD_DIM, generator=g, device="cuda")
+                       for n in (m, s, s))
+            mask = edge_mask(torch, da, kind, b, s, g)
+            kv = (*da.quantize_kv_rowwise(k), *da.quantize_kv_rowwise(v)) if q8 else \
+                (k.to(dtype), v.to(dtype))
+            args = (q.to(dtype), *kv)
+            del k, v
+            dark = mask.clone()
+            dark[0] = NEG
             run, plain = getattr(da, kernel), getattr(da, kernel + "_plain")
             row = {"shape": label, "kernel": kernel, "b": b, "m": m, "s": s, "mask": kind,
-                   **split_facts(torch, da, q, mask)}
-            got = run(q, k, v, mask, 0.125)
-            row["max_abs_err"] = _err(got, plain(q, k, v, mask, 0.125))
-            got_dark = run(q, k, v, dark, 0.125)
-            row["fully_masked_row_err"] = _err(got_dark, plain(q, k, v, dark, 0.125))
-            row["masked_rows_unread"] = masked_rows_unread(torch, run, q, k, v, mask)
+                   **split_facts(torch, da, args[0], mask)}
+            got = run(*args, mask, 0.125)
+            row["max_abs_err"] = _err(got, plain(*args, mask, 0.125))
+            got_dark = run(*args, dark, 0.125)
+            row["fully_masked_row_err"] = _err(got_dark, plain(*args, dark, 0.125))
+            row["masked_rows_unread"] = masked_rows_unread(torch, run, args, mask)
             ok = (bool(torch.isfinite(got_dark.float()).all()) and row["masked_rows_unread"]
                   and row["max_abs_err"] <= tol and row["fully_masked_row_err"] <= tol)
             if kernel == "decode_attention_vpu":
-                alone = torch.cat([run(q[i:i + 1], k[i:i + 1], v[i:i + 1], mask[i:i + 1], 0.125)
+                alone = torch.cat([run(*(a[i:i + 1] for a in args), mask[i:i + 1], 0.125)
                                    for i in range(b)])
                 row["alone_equals_in_batch"] = bool(torch.equal(alone, got))
                 ok = ok and row["alone_equals_in_batch"]
             rows.append(row)
             if not ok:
                 raise AssertionError(f"{kernel} {dtype} at {label}: {row}")
-        del q, k, v
+            del q, args, kv
     return rows
 
 
-def decode_device_phase(torch, da, F, kernels):
+def decode_device_phase(torch, da, br, F, kernels):
     """The device time of each decode-attention kernel and of its library
-    call at every main-path call shape, bf16, from torch.profiler, into the
-    kernels phase's results (and so into the summary line). It runs after
-    every other phase: a profiler session leaves a cost on every later
+    call at every main-path call shape, and of the beam reorder and its
+    library calls at every main-path cache width, bf16, from torch.profiler,
+    into the kernels phase's results (and so into the summary line). It runs
+    after every other phase: a profiler session leaves a cost on every later
     launch, which would slow the host-bound decode steps timed after it."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for t_len, r in kernels["bf16"]["reorder"].items():
+        inputs, sel, library = reorder_inputs(torch, torch.bfloat16, t_len, g)
+        sets = [inputs() for _ in range(COPIES)]
+        r["device_ms"] = device_ms([lambda a=a: br.beam_reorder_write(*a, sel, 100, 4)
+                                    for a in sets])
+        r["library_device_ms"] = device_ms([lambda a=a: library(*a) for a in sets])
+        emit({"phase": "kernels_device", "dtype": "bf16", "kernel": "beam_reorder_write",
+              "t": t_len, "device_ms": r["device_ms"],
+              "library_device_ms": r["library_device_ms"], "ms": r["ms"],
+              "library_ms": r["library_ms"],
+              "bound_ms": bound_ms(r["bytes"], r["flops"], "bf16")[0]})
+        del sets
     for c, r in kernels["bf16"]["decode"].items():
         sets, _, mask, library = decode_inputs(torch, da, F, g, torch.bfloat16, *c)
         run = getattr(da, c[0])
@@ -828,12 +880,11 @@ def reorder_work(cache, sel, index, beams) -> float:
     return 2 * per_cache + sel.numel() * 4
 
 
-def check_reorder(torch, br, dtype, t_len):
-    """One in-place reorder of the [32, 12, t_len, 64] self K/V cache of
-    STUDIES studies x 4 beams with the step's column written: bit-exact
-    against the plain version at a middle, the first and the last column and
-    without a write; timed at column 100."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+def reorder_inputs(torch, dtype, t_len, g):
+    """A function making one input set (K/V caches of STUDIES studies x 4
+    beams and the new column) of a reorder at width t_len, the beam
+    selection (with repeated sources), and the library call on a set
+    (index_select + index_copy_ at column 100)."""
     r, beams = STUDIES * 4, 4
 
     def inputs():
@@ -845,6 +896,25 @@ def check_reorder(torch, br, dtype, t_len):
 
     sel = torch.randint(0, beams, (r,), generator=g, device="cuda", dtype=torch.int32)
     sel[:beams] = torch.tensor([1, 1, 0, 1], dtype=torch.int32)  # repeated sources
+    src = torch.arange(r, device="cuda") // beams * beams + sel.long()
+    col = torch.tensor([100], device="cuda")
+
+    def library(ck, cv, nk, nv):
+        for cache, new in ((ck, nk), (cv, nv)):
+            out = cache.index_select(0, src)
+            out.index_copy_(2, col, new.index_select(0, src)[:, :, None])
+
+    return inputs, sel, library
+
+
+def check_reorder(torch, br, dtype, t_len):
+    """One in-place reorder of the [32, 12, t_len, 64] self K/V cache of
+    STUDIES studies x 4 beams with the step's column written: bit-exact
+    against the plain version at a middle, the first and the last column and
+    without a write; timed at column 100."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    beams = 4
+    inputs, sel, library = reorder_inputs(torch, dtype, t_len, g)
     exact = True
     for index in (100, 0, t_len - 1, -1):
         ck, cv, nk, nv = inputs()
@@ -853,14 +923,6 @@ def check_reorder(torch, br, dtype, t_len):
         br.beam_reorder_write_plain(a, b, nk, nv, sel, index, beams)
         exact &= torch.equal(ck, a) and torch.equal(cv, b)
     sets = [inputs() for _ in range(COPIES)]
-    src = torch.arange(r, device="cuda") // beams * beams + sel.long()
-    col = torch.tensor([100], device="cuda")
-
-    def library(ck, cv, nk, nv):  # index_select + index_copy_
-        for cache, new in ((ck, nk), (cv, nv)):
-            out = cache.index_select(0, src)
-            out.index_copy_(2, col, new.index_select(0, src)[:, :, None])
-
     return {"t": t_len, "exact": exact, "max_abs_err": 0.0 if exact else float("inf"),
             "ms": time_ms([lambda a=a: br.beam_reorder_write(*a, sel, 100, beams) for a in sets]),
             "plain_ms": time_ms([lambda a=a: br.beam_reorder_write_plain(*a, sel, 100, beams)
@@ -1116,9 +1178,24 @@ def check_fused(torch, F, fd, dtype):
                 raise AssertionError(f"fused_cross_attn {dtype}: fully masked row not finite")
         cross["max_abs_err"] = max(cross["max_abs_err"], err)
 
-    res["fused_out_ln_ffn"]["max_abs_err"] = _err(
-        fd.fused_out_ln_ffn(x.hidden, x.res, *x.out_ln_ffn, 1e-12),
-        fd.fused_out_ln_ffn_plain(x.hidden, x.res, *x.out_ln_ffn, 1e-12))
+    # the FFN kernel at B = 8 and at B = 11 (a second, ragged chunk of rows);
+    # its split-K sums run in a fixed order, so each row's bits are the same
+    # alone, in the B = 8 call and in the B = 11 call
+    ffn = res["fused_out_ln_ffn"]
+    more = [(torch.randn(3, d, generator=g, device="cuda")).to(dtype) for _ in range(2)]
+    h11, r11 = torch.cat([x.hidden, more[0]]), torch.cat([x.res, more[1]])
+    got11 = fd.fused_out_ln_ffn(h11, r11, *x.out_ln_ffn, 1e-12)
+    ffn["b8_max_abs_err"] = _err(fd.fused_out_ln_ffn(x.hidden, x.res, *x.out_ln_ffn, 1e-12),
+                                 fd.fused_out_ln_ffn_plain(x.hidden, x.res, *x.out_ln_ffn, 1e-12))
+    ffn["b11_max_abs_err"] = _err(got11, fd.fused_out_ln_ffn_plain(h11, r11, *x.out_ln_ffn, 1e-12))
+    ffn["max_abs_err"] = max(ffn["b8_max_abs_err"], ffn["b11_max_abs_err"])
+    alone = torch.cat([fd.fused_out_ln_ffn(h11[i:i + 1], r11[i:i + 1], *x.out_ln_ffn, 1e-12)
+                       for i in range(h11.shape[0])])
+    ffn["rows_equal_alone_b8_b11"] = bool(
+        torch.equal(fd.fused_out_ln_ffn(x.hidden, x.res, *x.out_ln_ffn, 1e-12), got11[:b])
+        and torch.equal(alone, got11))
+    if not ffn["rows_equal_alone_b8_b11"]:
+        raise AssertionError(f"fused_out_ln_ffn {dtype}: a row's bits depend on its batch")
 
     # the same stages in PyTorch library calls (timed only)
     qh = x.hidden.view(b, HEADS, 1, HEAD_DIM)
@@ -2092,7 +2169,7 @@ def kernels_line(da, k, counts):
                "max_abs_err": max(r["max_abs_err"] for r, _ in parts), "ms": total["ms"],
                "plain_ms": total["plain_ms"], "bound_ms": b, "bound_by": by,
                "library_ms": total["library_ms"], "work": work}
-        for key in ("device_ms", "library_device_ms"):  # torch.profiler, decode kernels
+        for key in ("device_ms", "library_device_ms"):  # torch.profiler: decode, reorder
             if all(isinstance(r.get(key), float) for r, _ in parts):
                 row[key] = sum(n * r[key] for r, n in parts)
         out.append(row)
@@ -2195,7 +2272,7 @@ def main() -> int:
         train_parity_phase(torch, np, ckpts["multi"])
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
-    decode_device_phase(torch, da, F, kernels)
+    decode_device_phase(torch, da, br, F, kernels)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card)
     emit(kernels_line(da, kernels, counts))

@@ -52,15 +52,16 @@ extern "C" int cxr_decode_attention_f32(const void* q, const void* k, const void
                                         const void* mask, void* o, int bh, int heads, int m,
                                         int s_len, int dh, int n_split, int chunk, float scale,
                                         void* stream) {
-  return cxr::split::launch<float, false>(q, k, v, mask, o, bh, heads, m, s_len, dh, n_split,
-                                          chunk, scale, static_cast<cudaStream_t>(stream));
+  return cxr::split::launch<float, float, false>(
+      q, k, v, nullptr, nullptr, mask, o, bh, heads, m, s_len, dh, n_split, chunk, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cxr_decode_attention_bf16(const void* q, const void* k, const void* v,
                                          const void* mask, void* o, int bh, int heads, int m,
                                          int s_len, int dh, int n_split, int chunk, float scale,
                                          void* stream) {
-  return cxr::split::launch<__nv_bfloat16, false>(q, k, v, mask, o, bh, heads, m, s_len, dh,
-                                                  n_split, chunk, scale,
-                                                  static_cast<cudaStream_t>(stream));
+  return cxr::split::launch<__nv_bfloat16, __nv_bfloat16, false>(
+      q, k, v, nullptr, nullptr, mask, o, bh, heads, m, s_len, dh, n_split, chunk, scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -14,222 +14,44 @@
 // and int8 -> fp32 is exact. A fully masked row (mask = finfo(f32).min, not
 // -inf) gives the uniform softmax.
 //
-// Bound on the H100: bytes. The cross-attention step streams 2 * H * S * dh
-// int8 values and 2 * H * S fp32 scales per study per layer: 68 bytes per key
-// and head for K, against 128 in bf16 (53%).
+// Bound on the H100: bytes. A call must read q, the mask, and of each key
+// that is not masked its two int8 rows and two fp32 scales (136 bytes a key
+// and head, against 256 in bf16), and write the output. The multi and
+// longitudinal cross call (8 studies, S = 2,880, 15 of 40 image slots
+// masked) needs 23.5 MB, 7.0 us at 3.35 TB/s.
 //
-// Design: decode_attention.cu's three passes, one block of 256 threads per
-// (b, h). An int8 key row is 64 bytes: four lanes read it with one 16-byte
-// load each, so a warp load covers eight rows and the block 64; four loads
-// per lane are in flight. Pass 1 converts in registers, accumulates q . kq in
-// fp32 and writes the M x S scores to shared memory; pass 2 takes the exact
-// (not online) softmax, needed because pv is rounded after the V scale is
-// folded into the finished probs; pass 3 streams vq once for all M rows and
-// reduces the per-warp partial contexts through shared memory.
-#include "common.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;           // key-row loads in flight per lane
-constexpr int kDh = 64;              // head dim = bytes of one int8 key row
-constexpr int kVpr = 16;             // int8 values per 16-byte vector
-constexpr int kLpk = kDh / kVpr;     // 4 lanes per key row
-constexpr int kKpw = 32 / kLpk;      // 8 key rows per warp load
-constexpr int kStep = kWarps * kKpw; // 64 key rows per block load
-
-// Unpack one 16-byte vector of int8 into 16 floats (exact).
-__device__ __forceinline__ void unpack_i8(const uint4& v, float* f) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[4 * i + j] = static_cast<float>(static_cast<signed char>((w[i] >> (8 * j)) & 0xffu));
-}
-
-template <typename T, int MM>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_q8_kernel(const T* __restrict__ q, const signed char* __restrict__ kq,
-                      const float* __restrict__ ks, const signed char* __restrict__ vq,
-                      const float* __restrict__ vs, const float* __restrict__ mask,
-                      T* __restrict__ o, int heads, int m, int s_len, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;              // [m][kDh]
-  float* sc = qs + m * kDh;      // [m][s_len] scores, then pv
-  float* part = sc + m * s_len;  // [kWarps][m][kDh] partial contexts
-  __shared__ float red[kWarps];
-
-  const int bh = blockIdx.x, b = bh / heads;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int sub = lane / kLpk;  // key row within the warp's load
-  const int li = lane % kLpk;   // 16-byte vector within the key row
-  const T* qb = q + (size_t)bh * m * kDh;
-  const uint4* k4 = reinterpret_cast<const uint4*>(kq + (size_t)bh * s_len * kDh);
-  const uint4* v4 = reinterpret_cast<const uint4*>(vq + (size_t)bh * s_len * kDh);
-  const float* ksb = ks + (size_t)bh * s_len;  // scales are [B, H, 1, S]
-  const float* vsb = vs + (size_t)bh * s_len;
-  const float* mb = mask + (size_t)b * s_len;
-
-  for (int i = tid; i < m * kDh; i += kThreads) qs[i] = cxr::to_float(qb[i]);
-  __syncthreads();
-
-  // pass 1: scores
-  {
-    float qf[MM][kVpr];
-#pragma unroll
-    for (int r = 0; r < MM; ++r)
-#pragma unroll
-      for (int e = 0; e < kVpr; ++e) qf[r][e] = r < m ? qs[r * kDh + li * kVpr + e] : 0.f;
-    for (int s0 = warp * kKpw; s0 < s_len; s0 += kStep * kUnroll) {
-      uint4 buf[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + u * kStep + sub;
-        buf[u] = s < s_len ? __ldg(k4 + (size_t)s * kLpk + li) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int s = s0 + u * kStep + sub;
-        float kf[kVpr];
-        unpack_i8(buf[u], kf);
-        float acc[MM];
-#pragma unroll
-        for (int r = 0; r < MM; ++r) {
-          acc[r] = 0.f;
-#pragma unroll
-          for (int e = 0; e < kVpr; ++e) acc[r] = fmaf(qf[r][e], kf[e], acc[r]);
-#pragma unroll
-          for (int off = kLpk / 2; off > 0; off >>= 1)
-            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-        }
-        if (li == 0 && s < s_len) {
-          const float kscale = ksb[s], mk = mb[s];
-#pragma unroll
-          for (int r = 0; r < MM; ++r)
-            if (r < m) sc[r * s_len + s] = (acc[r] * kscale) * scale + mk;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // pass 2: exact softmax per row (fp32, not rounded); pv = probs x vs,
-  // rounded to T
-  for (int r = 0; r < m; ++r) {
-    float* row = sc + r * s_len;
-    float mx = -INFINITY;
-    for (int i = tid; i < s_len; i += kThreads) mx = fmaxf(mx, row[i]);
-    mx = cxr::block_max<kWarps>(mx, red);
-    float sum = 0.f;
-    for (int i = tid; i < s_len; i += kThreads) {
-      const float e = expf(row[i] - mx);
-      row[i] = e;
-      sum += e;
-    }
-    sum = cxr::block_sum<kWarps>(sum, red);
-    for (int i = tid; i < s_len; i += kThreads)
-      row[i] = cxr::to_float(cxr::from_float<T>((row[i] / sum) * vsb[i]));
-  }
-  __syncthreads();
-
-  // pass 3: context = pv . vq
-  float cacc[MM][kVpr];
-#pragma unroll
-  for (int r = 0; r < MM; ++r)
-#pragma unroll
-    for (int e = 0; e < kVpr; ++e) cacc[r][e] = 0.f;
-  for (int s0 = warp * kKpw; s0 < s_len; s0 += kStep * kUnroll) {
-    uint4 buf[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * kStep + sub;
-      buf[u] = s < s_len ? __ldg(v4 + (size_t)s * kLpk + li) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * kStep + sub;
-      if (s < s_len) {
-        float vf[kVpr];
-        unpack_i8(buf[u], vf);
-#pragma unroll
-        for (int r = 0; r < MM; ++r) {
-          const float p = r < m ? sc[r * s_len + s] : 0.f;
-#pragma unroll
-          for (int e = 0; e < kVpr; ++e) cacc[r][e] = fmaf(p, vf[e], cacc[r][e]);
-        }
-      }
-    }
-  }
-  // reduce over the warp's key rows (lanes with the same li), then over warps
-#pragma unroll
-  for (int r = 0; r < MM; ++r)
-#pragma unroll
-    for (int e = 0; e < kVpr; ++e)
-#pragma unroll
-      for (int off = kLpk; off < 32; off <<= 1)
-        cacc[r][e] += __shfl_xor_sync(0xffffffffu, cacc[r][e], off);
-  if (sub == 0) {
-#pragma unroll
-    for (int r = 0; r < MM; ++r)
-      if (r < m)
-#pragma unroll
-        for (int e = 0; e < kVpr; ++e) part[(warp * m + r) * kDh + li * kVpr + e] = cacc[r][e];
-  }
-  __syncthreads();
-  T* ob = o + (size_t)bh * m * kDh;
-  for (int i = tid; i < m * kDh; i += kThreads) {
-    float x = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) x += part[w * m * kDh + i];
-    ob[i] = cxr::from_float<T>(x);
-  }
-}
-
-template <typename T, int MM>
-cudaError_t launch_mm(const void* q, const void* kq, const void* ks, const void* vq,
-                      const void* vs, const void* mask, void* o, int bh, int heads, int m,
-                      int s_len, float scale, size_t smem, cudaStream_t stream) {
-  auto fn = decode_attn_q8_kernel<T, MM>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  fn<<<bh, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const signed char*>(kq),
-      static_cast<const float*>(ks), static_cast<const signed char*>(vq),
-      static_cast<const float*>(vs), static_cast<const float*>(mask), static_cast<T*>(o),
-      heads, m, s_len, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-                   const void* mask, void* o, int bh, int heads, int m, int s_len, int dh,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)m * dh + (size_t)m * s_len + (size_t)kWarps * m * dh);
-  if (dh != kDh || m < 1 || m > 4) return cudaErrorInvalidValue;
-  if (m == 1)
-    return launch_mm<T, 1>(q, kq, ks, vq, vs, mask, o, bh, heads, m, s_len, scale, smem, stream);
-  return launch_mm<T, 4>(q, kq, ks, vq, vs, mask, o, bh, heads, m, s_len, scale, smem, stream);
-}
-
-}  // namespace
+// Design: decode_attention.cu's, from the same body (decode_split.cuh) with
+// KV = signed char. One launch per call: a thread-block cluster of n_split
+// <= 8 blocks of 128 threads per (b, h) (ops/decode_attention.py:
+// decode_schedule, a function of (S, dh) alone; 768 blocks at the cross
+// shapes, 7 an SM), S's 64-key tiles dealt to the blocks in turn. A key whose
+// mask is exactly finfo.min reads neither its int8 rows nor its scales; a
+// tile with no unmasked key is not visited (a study's empty image slots).
+// An int8 key row is 64 bytes, eight lanes of 8 bytes (cp.async of 8 bytes
+// into a per-lane ring of two tiles), converted to fp32 in registers. The
+// K scale multiplies the dot where the score is formed; the V scale is
+// loaded beside it into shared memory and multiplies the normalised prob
+// before its one rounding. The exact softmax's row max and denominator are
+// exchanged through distributed shared memory (the denominators added in
+// rank order), and the partial contexts pushed to their owning ranks. The
+// sums use fma in any order (the JAX kernel has no fixed-order contract).
+// Why skipping a masked key is exact: decode_split.cuh.
+#include "decode_split.cuh"
 
 extern "C" int cxr_decode_attention_q8_f32(const void* q, const void* kq, const void* ks,
                                            const void* vq, const void* vs, const void* mask,
                                            void* o, int bh, int heads, int m, int s_len, int dh,
-                                           float scale, void* stream) {
-  return launch<float>(q, kq, ks, vq, vs, mask, o, bh, heads, m, s_len, dh, scale,
-                       static_cast<cudaStream_t>(stream));
+                                           int n_split, int chunk, float scale, void* stream) {
+  return cxr::split::launch<float, signed char, false>(
+      q, kq, vq, ks, vs, mask, o, bh, heads, m, s_len, dh, n_split, chunk, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cxr_decode_attention_q8_bf16(const void* q, const void* kq, const void* ks,
                                             const void* vq, const void* vs, const void* mask,
                                             void* o, int bh, int heads, int m, int s_len, int dh,
-                                            float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, kq, ks, vq, vs, mask, o, bh, heads, m, s_len, dh, scale,
-                               static_cast<cudaStream_t>(stream));
+                                            int n_split, int chunk, float scale, void* stream) {
+  return cxr::split::launch<__nv_bfloat16, signed char, false>(
+      q, kq, vq, ks, vs, mask, o, bh, heads, m, s_len, dh, n_split, chunk, scale,
+      static_cast<cudaStream_t>(stream));
 }

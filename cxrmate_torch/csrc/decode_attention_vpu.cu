@@ -54,17 +54,18 @@
 
 extern "C" int cxr_decode_attention_vpu_f32(const void* q, const void* k, const void* v,
                                             const void* mask, void* o, int bh, int heads, int m,
-                                            int s_len, int dh, int n_split, int chunk,
-                                            float scale, void* stream) {
-  return cxr::split::launch<float, true>(q, k, v, mask, o, bh, heads, m, s_len, dh, n_split,
-                                         chunk, scale, static_cast<cudaStream_t>(stream));
+                                            int s_len, int dh, int n_split, int chunk, float scale,
+                                            void* stream) {
+  return cxr::split::launch<float, float, true>(
+      q, k, v, nullptr, nullptr, mask, o, bh, heads, m, s_len, dh, n_split, chunk, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cxr_decode_attention_vpu_bf16(const void* q, const void* k, const void* v,
                                              const void* mask, void* o, int bh, int heads, int m,
-                                             int s_len, int dh, int n_split, int chunk,
-                                             float scale, void* stream) {
-  return cxr::split::launch<__nv_bfloat16, true>(q, k, v, mask, o, bh, heads, m, s_len, dh,
-                                                 n_split, chunk, scale,
-                                                 static_cast<cudaStream_t>(stream));
+                                             int s_len, int dh, int n_split, int chunk, float scale,
+                                             void* stream) {
+  return cxr::split::launch<__nv_bfloat16, __nv_bfloat16, true>(
+      q, k, v, nullptr, nullptr, mask, o, bh, heads, m, s_len, dh, n_split, chunk, scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 // One decode-attention call split over the blocks of a thread-block cluster:
-// the kernel body that decode_attention.cu (any summation order, fma) and
+// the kernel body that decode_attention.cu (any summation order, fma),
 // decode_attention_vpu.cu (separate fp32 multiplies and adds in one fixed
-// order) instantiate. Each source's note states the contract, the bound and
-// its own order of operations.
+// order) and decode_attention_q8.cu (int8 K/V with per-key fp32 scales, fma)
+// instantiate. Each source's note states the contract, the bound and its own
+// order of operations.
 //
 // Grid and cluster. One cluster of n_split <= 8 blocks (the portable cluster
 // size) per (b, h), 128 threads a block, launched once per call with
@@ -22,8 +23,10 @@
 //      that hold an unskipped key are listed; no other tile is visited.
 //   1. The listed tiles' K rows, then their V rows, stream through a ring of
 //      kRing tiles in shared memory by cp.async (16 bytes a lane, L2 only);
-//      a lane copies exactly the pieces it later reads, so the ring needs no
-//      block barrier, and kRing tiles are in flight at every step. Scores of
+//      a warp copies exactly the rows it later reads (for fp32 and bf16 a
+//      lane its own pieces; an int8 row is copied by 4 lanes and read by 8,
+//      with a warp barrier between), so the ring needs no block barrier, and
+//      kRing tiles are in flight at every step. Scores of
 //      the unskipped keys go to shared memory, [m][chunk] fp32; then the
 //      local max of each query row.
 //   2. cluster.sync(); every block reads the n_split maxima through
@@ -35,6 +38,12 @@
 //      rounded: an online softmax would round unnormalised partials); the
 //      partial context sum_s p[s] v[s] of its keys in fp32, skipped keys'
 //      V rows not read.
+// int8 K/V (KV = signed char): the K scale of a read key multiplies its dot
+// before `scale` and the mask, ((q . kq) ks) scale + mask; its V scale, loaded
+// with the score and kept in shared memory, multiplies the normalised prob
+// before its one rounding, p = round_to_T((e / sum) vs); the int8 values are
+// converted exactly and never scaled. A skipped key reads neither its rows nor
+// its two scales.
 //   5. The output's m x 64 elements are split over the ranks: each block
 //      writes its partial context of an element into the owning rank's
 //      shared memory (a remote store); cluster.sync(); each rank adds the
@@ -52,12 +61,15 @@
 // holds (finite, as the plain version needs it). Where the max is finfo.min
 // (a fully masked row), every skipped key has e = 1, the uniform softmax the
 // plain version gives, and every V row of the block's keys is read. The max that
-// tells the two apart is the cluster's, so every block decides alike.
+// tells the two apart is the cluster's, so every block decides alike. For int8
+// K/V the same holds: the K scale multiplies a finite dot before the mask is
+// added, and a skipped key's p is never formed, so neither scale is needed.
 #pragma once
 
 #include <algorithm>
 #include <cfloat>
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -79,15 +91,17 @@ constexpr float kSkip = -FLT_MAX;  // finfo(float32).min, the port's masked key
 
 constexpr int kRing = 2;       // K/V tiles in flight a block
 
-// The ring [kRing][kTile][kDh] of T (after the V pass, the [kWarps][m][kDh]
-// fp32 warp partials in its place), [m][chunk] scores, the ranks' partial
-// contexts of the block's own output elements (n_split x ceil(m x kDh /
-// n_split) <= m x kDh + kMaxSplit floats), one bit per key and the list of
-// tiles to read (ops/decode_attention.py:smem_bytes)
+// The ring [kRing][kTile][kDh] of K/V values of `elem` bytes (after the V
+// pass, the [kWarps][m][kDh] fp32 warp partials in its place), [m][chunk]
+// scores, the ranks' partial contexts of the block's own output elements
+// (n_split x ceil(m x kDh / n_split) <= m x kDh + kMaxSplit floats), one bit
+// per key, the list of tiles to read and, for int8 K/V (elem 1), the V scales
+// of the chunk's keys (ops/decode_attention.py:smem_bytes)
 inline size_t smem_bytes(int m, int chunk, size_t elem) {
   return std::max(elem * kRing * kTile * kDh, sizeof(float) * kWarps * m * kDh) +
          sizeof(float) * ((size_t)m * chunk + (size_t)m * kDh + kMaxSplit) +
-         sizeof(unsigned) * (chunk / 32) + sizeof(int) * (chunk / kTile);
+         sizeof(unsigned) * (chunk / 32) + sizeof(int) * (chunk / kTile) +
+         (elem == 1 ? sizeof(float) * chunk : 0);
 }
 
 // fp32 arithmetic: the vpu kernel's separate, never contracted multiplies and
@@ -112,14 +126,59 @@ template <> struct Arith<false> {
   }
 };
 
-// How a key row (64 values, one 16-byte load a lane) spreads over a warp.
-template <typename T> struct Rows {
-  static constexpr int kVec = 16 / sizeof(T);      // values a lane: 4 fp32, 8 bf16
-  static constexpr int kLpk = kDh / kVec;          // lanes a key row: 16, 8
-  static constexpr int kKpw = 32 / kLpk;           // key rows a warp load: 2, 4
-  static constexpr int kStep = kWarps * kKpw;      // key rows a block load: 8, 16
-  static constexpr int kLoads = kTile / kStep;     // loads a lane a tile: 8, 4
+// How a key row of 64 K/V values spreads over a warp. A lane reads one
+// 16-byte piece of fp32 or bf16, and one 8-byte piece of int8, so that it
+// holds 8 values of each query row as in bf16 (16 values would keep 64 fp32
+// q values live through the K pass at M = 4, above the 72 registers that fit
+// 7 blocks an SM). Rows are copied 16 bytes a lane: an int8 row by 4 lanes,
+// two copies a lane a tile instead of four. A warp copies and reads the same
+// rows of a tile: read step u of a warp reads the rows of its copy u / kPer.
+template <typename KV> struct Rows {
+  static constexpr int kBytes = sizeof(KV) == 1 ? 8 : 16;  // bytes a lane reads
+  using Piece = typename std::conditional<sizeof(KV) == 1, uint2, uint4>::type;
+  static constexpr int kVec = kBytes / sizeof(KV);  // values a lane: 4 fp32, 8 bf16, 8 int8
+  static constexpr int kLpk = kDh / kVec;           // lanes a key row: 16, 8, 8
+  static constexpr int kKpw = 32 / kLpk;            // key rows a warp read: 2, 4, 4
+  static constexpr int kStep = kWarps * kKpw;       // key rows a block read: 8, 16, 16
+  static constexpr int kLoads = kTile / kStep;      // reads a lane a tile: 8, 4, 4
+  static constexpr int kCopyLpk = kDh * (int)sizeof(KV) / 16;  // lanes copying a row: 16, 8, 4
+  static constexpr int kCopyKpw = 32 / kCopyLpk;    // key rows a warp copy: 2, 4, 8
+  static constexpr int kCopies = kTile / (kWarps * kCopyKpw);  // copies a lane a tile: 8, 4, 2
+  static constexpr int kPer = kCopyKpw / kKpw;      // reads a copy: 1, 1, 2
+  // A lane's tile row at copy c is c * kWarps * kCopyKpw + (warp * kCopyKpw +
+  // its copy sub-row), at read step u read_step(u) + (warp * kCopyKpw + its
+  // read sub-row): for fp32 and bf16 u * kStep + (warp * kKpw + sub).
+  __host__ __device__ static constexpr int read_step(int u) {
+    return (u / kPer) * kWarps * kCopyKpw + (u % kPer) * kKpw;
+  }
 };
+
+// A lane's piece of a K/V row as fp32 (int8 -> fp32 is exact: the byte,
+// biased by 128, as the low mantissa bits of 2^23, less 2^23 + 128).
+__device__ __forceinline__ void unpack_kv(const uint4& v, float* f, float) {
+  cxr::unpack16<float>(v, f);
+}
+__device__ __forceinline__ void unpack_kv(const uint4& v, float* f, __nv_bfloat16) {
+  cxr::unpack16<__nv_bfloat16>(v, f);
+}
+__device__ __forceinline__ void unpack_kv(const uint2& v, float* f, signed char) {
+  const unsigned w[2] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + j)) - 8388736.f;
+}
+
+// The V query values of row r a lane li holds: q's values li * V .. li * V +
+// V - 1, as 16-byte loads of T.
+template <typename T, int V>
+__device__ __forceinline__ void load_q(const T* q, int r, int li, float* qf) {
+  constexpr int kPer = 16 / sizeof(T);
+  const uint4* q4 = reinterpret_cast<const uint4*>(q + r * kDh + li * V);
+#pragma unroll
+  for (int j = 0; j < V / kPer; ++j) cxr::unpack16<T>(__ldg(q4 + j), qf + j * kPer);
+}
 
 // The key of a block's local key index i (its tiles dealt every n_split).
 __device__ __forceinline__ int global_key(int i, int rank, int n_split) {
@@ -143,20 +202,21 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage the block's tile t (the (b, h)'s tile gt) of K or V rows (base) into
-// a ring slot: load u of a lane copies 16 bytes of local key t * kTile + u *
-// kStep + row (row = warp * kKpw + sub) where it is taken, to the place the
-// same lane reads it back from. Always one commit group, empty or not, so
-// that every lane counts the same groups.
-template <typename T>
+// a ring slot: copy c of a lane (row = warp * kCopyKpw + its copy sub-row,
+// cl its 16-byte piece of the key row) copies its piece of tile row c *
+// kWarps * kCopyKpw + row where it is taken, to the place its warp reads it
+// back from. Always one commit group, empty or not, so that every lane counts
+// the same groups.
+template <typename KV>
 __device__ __forceinline__ void stage_tile(uint4* slot, const uint4* base, const unsigned* bits,
-                                           int t, int gt, int row, int li, bool all, int len) {
-  using R = Rows<T>;
+                                           int t, int gt, int row, int cl, bool all, int len) {
+  using R = Rows<KV>;
 #pragma unroll
-  for (int u = 0; u < R::kLoads; ++u) {
-    const int i = t * kTile + u * R::kStep + row;
+  for (int c = 0; c < R::kCopies; ++c) {
+    const int i = t * kTile + c * kWarps * R::kCopyKpw + row;
     if (all ? i < len : unskipped(bits, i))
-      cp_async16(slot + (u * R::kStep + row) * R::kLpk + li,
-                 base + ((size_t)gt * kTile + u * R::kStep + row) * R::kLpk + li);
+      cp_async16(slot + (c * kWarps * R::kCopyKpw + row) * R::kCopyLpk + cl,
+                 base + ((size_t)gt * kTile + c * kWarps * R::kCopyKpw + row) * R::kCopyLpk + cl);
   }
   cp_async_commit();
 }
@@ -203,16 +263,21 @@ __device__ __forceinline__ float dot_lane(const float* qf, const float* kf) {
   return V / 4 == 1 ? run[0] : A::add(run[0], run[1]);
 }
 
-// bf16: at most 72 registers, so that the 96 clusters of 8 blocks of a
-// cross call (8 studies x 12 heads) are resident at once (7 blocks an SM)
-template <typename T, int MM, bool kExact>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 7 : 3)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+// q and the output are T; K and V are KV: T itself, or signed char with the
+// fp32 scales ks and vs ([B, H, 1, S]; null otherwise). bf16 and int8 K/V: at
+// most 72 registers, so that the 96 clusters of 8 blocks of a cross call (8
+// studies x 12 heads) are resident at once (7 blocks an SM)
+template <typename T, typename KV, int MM, bool kExact>
+__global__ void __launch_bounds__(kThreads, sizeof(KV) <= 2 ? 7 : 3)
+decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
+                    const float* __restrict__ ks, const float* __restrict__ vs,
                     const float* __restrict__ mask, T* __restrict__ o, int heads, int m,
                     int s_len, int chunk, float scale) {
   using A = Arith<kExact>;
-  using R = Rows<T>;
-  constexpr int kSlot = kTile * R::kLpk;  // uint4 of one ring slot
+  using R = Rows<KV>;
+  using P = typename R::Piece;
+  constexpr bool kQ8 = std::is_same<KV, signed char>::value;
+  constexpr int kSlot = kTile * R::kCopyLpk;  // 16-byte copies of one ring slot
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -238,24 +303,27 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* gather = sc + (size_t)m * chunk;  // [n_split * owned]
   unsigned* bits = reinterpret_cast<unsigned*>(gather + m * kDh + kMaxSplit);  // [chunk / 32]
   int* listed = reinterpret_cast<int*>(bits + chunk / 32);          // [chunk / kTile]
+  float* vsc = reinterpret_cast<float*>(listed + chunk / kTile);   // [chunk], int8 K/V only
   __shared__ float red[MM * kWarps];
   __shared__ float xmax[MM], xsum[MM];  // read by the cluster
   __shared__ int n_listed;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int sub = lane / R::kLpk;  // key row within the warp's load
-  const int li = lane % R::kLpk;   // 16-byte vector within the key row
-  const int row = warp * R::kKpw + sub;
+  const int sub = lane / R::kLpk;  // key row within the warp's read
+  const int li = lane % R::kLpk;   // the lane's piece of the key row
+  const int row = warp * R::kCopyKpw + sub;  // + read_step(u): the lane's key row at step u
+  const int crow = warp * R::kCopyKpw + lane / R::kCopyLpk, cl = lane % R::kCopyLpk;  // copies
   const float* mb = mask + (size_t)b * s_len;
   const uint4* k4 = reinterpret_cast<const uint4*>(k + (size_t)bh * s_len * kDh);
   const uint4* v4 = reinterpret_cast<const uint4*>(v + (size_t)bh * s_len * kDh);
+  const float* ksb = kQ8 ? ks + (size_t)bh * s_len : nullptr;  // the scales are [B, H, 1, S]
+  const float* vsb = kQ8 ? vs + (size_t)bh * s_len : nullptr;
 
   float qf[MM][R::kVec];
-  const uint4* q4 = reinterpret_cast<const uint4*>(q + (size_t)bh * m * kDh);
 #pragma unroll
   for (int r = 0; r < MM; ++r) {
     if (r < m) {
-      cxr::unpack16<T>(__ldg(q4 + r * R::kLpk + li), qf[r]);
+      load_q<T, R::kVec>(q + (size_t)bh * m * kDh, r, li, qf[r]);
     } else {
 #pragma unroll
       for (int e = 0; e < R::kVec; ++e) qf[r][e] = 0.f;
@@ -302,8 +370,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   auto stage = [&](int j) {
     if (j < 2 * nt) {
       const int t = listed[j < nt ? j : j - nt];
-      stage_tile<T>(ring + (j % kRing) * kSlot, j < nt ? k4 : v4, bits, t,
-                    rank + t * n_split, row, li, false, len);
+      stage_tile<KV>(ring + (j % kRing) * kSlot, j < nt ? k4 : v4, bits, t,
+                     rank + t * n_split, crow, cl, false, len);
     } else {
       cp_async_commit();
     }
@@ -312,22 +380,31 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int j = 0; j < kRing; ++j) stage(j);
   for (int j = 0; j < nt; ++j) {
     cp_async_wait<kRing - 1>();
-    const uint4* slot = ring + (j % kRing) * kSlot;
+    if (R::kPer > 1) __syncwarp();  // the warp's other lanes copied some of the pieces
+    const P* slot = reinterpret_cast<const P*>(ring + (j % kRing) * kSlot);
     const int t = listed[j];
 #pragma unroll
     for (int u = 0; u < R::kLoads; ++u) {
-      const int i = t * kTile + u * R::kStep + row;
+      const int i = t * kTile + R::read_step(u) + row;
       const bool take = unskipped(bits, i);  // else the lane's piece is stale, and unused
       float kf[R::kVec];
-      cxr::unpack16<T>(slot[(u * R::kStep + row) * R::kLpk + li], kf);
+      unpack_kv(slot[(R::read_step(u) + row) * R::kLpk + li], kf, KV());
       float acc[MM];
 #pragma unroll
       for (int r = 0; r < MM; ++r) acc[r] = dot_lane<A, R::kVec>(qf[r], kf);
       const int r = reduce_rows<A, MM, R::kLpk>(acc, li);
-      if (li < MM && take && r < m)
-        sc[r * chunk + i] =
-            A::add(A::mul(acc[0], scale), __ldg(mb + global_key(i, rank, n_split)));
+      if (li < MM && take && r < m) {
+        const int gk = global_key(i, rank, n_split);
+        if constexpr (kQ8) {
+          sc[r * chunk + i] =
+              A::add(A::mul(A::mul(acc[0], __ldg(ksb + gk)), scale), __ldg(mb + gk));
+          if (li == 0) vsc[i] = __ldg(vsb + gk);
+        } else {
+          sc[r * chunk + i] = A::add(A::mul(acc[0], scale), __ldg(mb + gk));
+        }
+      }
     }
+    if (R::kPer > 1) __syncwarp();  // the slot is read before it is copied into again
     stage(j + kRing);
   }
   __syncthreads();
@@ -428,12 +505,25 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     gsum[r] = x;
   }
 
-  // 4: probs rounded to T, then the block's partial context
-  for (int i = tid; i < len; i += kThreads)
+  // 4: probs rounded to T (int8 K/V: times the key's V scale, then rounded;
+  // only for the keys whose V rows are read), then the block's partial context
+  for (int i = tid; i < len; i += kThreads) {
+    if constexpr (kQ8) {
+      if (!all && !unskipped(bits, i)) continue;
+      const float w = all ? __ldg(vsb + global_key(i, rank, n_split)) : vsc[i];
 #pragma unroll
-    for (int r = 0; r < MM; ++r)
-      if (r < m)
-        sc[r * chunk + i] = cxr::to_float(cxr::from_float<T>(A::div(sc[r * chunk + i], gsum[r])));
+      for (int r = 0; r < MM; ++r)
+        if (r < m)
+          sc[r * chunk + i] =
+              cxr::to_float(cxr::from_float<T>(A::mul(A::div(sc[r * chunk + i], gsum[r]), w)));
+    } else {
+#pragma unroll
+      for (int r = 0; r < MM; ++r)
+        if (r < m)
+          sc[r * chunk + i] =
+              cxr::to_float(cxr::from_float<T>(A::div(sc[r * chunk + i], gsum[r])));
+    }
+  }
   __syncthreads();
 
   float cacc[MM][R::kVec];
@@ -450,21 +540,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     jobs = tiles;
 #pragma unroll
     for (int j = 0; j < kRing; ++j) {
-      if (j < tiles) stage_tile<T>(ring + j * kSlot, v4, bits, j, rank + j * n_split, row, li,
-                                   true, len);
+      if (j < tiles) stage_tile<KV>(ring + j * kSlot, v4, bits, j, rank + j * n_split, crow, cl,
+                                    true, len);
       else cp_async_commit();
     }
   }
   for (int j = first; j < jobs; ++j) {
     cp_async_wait<kRing - 1>();
-    const uint4* slot = ring + (j % kRing) * kSlot;
+    if (R::kPer > 1) __syncwarp();
+    const P* slot = reinterpret_cast<const P*>(ring + (j % kRing) * kSlot);
     const int t = all ? j : listed[j - nt];
 #pragma unroll
     for (int u = 0; u < R::kLoads; ++u) {
-      const int i = t * kTile + u * R::kStep + row;
+      const int i = t * kTile + R::read_step(u) + row;
       if (all ? i < len : unskipped(bits, i)) {
         float vf[R::kVec];
-        cxr::unpack16<T>(slot[(u * R::kStep + row) * R::kLpk + li], vf);
+        unpack_kv(slot[(R::read_step(u) + row) * R::kLpk + li], vf, KV());
 #pragma unroll
         for (int r = 0; r < MM; ++r)
           if (r < m) {
@@ -474,11 +565,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           }
       }
     }
+    if (R::kPer > 1) __syncwarp();
     if (!all) {
       stage(j + kRing);
     } else if (j + kRing < tiles) {
-      stage_tile<T>(ring + ((j + kRing) % kRing) * kSlot, v4, bits, j + kRing,
-                    rank + (j + kRing) * n_split, row, li, true, len);
+      stage_tile<KV>(ring + ((j + kRing) % kRing) * kSlot, v4, bits, j + kRing,
+                     rank + (j + kRing) * n_split, crow, cl, true, len);
     } else {
       cp_async_commit();
     }
@@ -520,11 +612,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, int MM, bool kExact>
-cudaError_t launch_mm(const void* q, const void* k, const void* v, const float* mask, void* o,
-                      int bh, int heads, int m, int s_len, int n_split, int chunk, float scale,
-                      size_t smem, cudaStream_t stream) {
-  auto fn = decode_split_kernel<T, MM, kExact>;
+template <typename T, typename KV, int MM, bool kExact>
+cudaError_t launch_mm(const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const float* mask, void* o, int bh, int heads, int m,
+                      int s_len, int n_split, int chunk, float scale, size_t smem,
+                      cudaStream_t stream) {
+  auto fn = decode_split_kernel<T, KV, MM, kExact>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -543,29 +636,34 @@ cudaError_t launch_mm(const void* q, const void* k, const void* v, const float* 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fn, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<T*>(o), heads, m, s_len, chunk, scale);
+      &cfg, fn, static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      ks, vs, mask, static_cast<T*>(o), heads, m, s_len, chunk, scale);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Checks the schedule it is given (the wrapper computes it) and launches.
-template <typename T, bool kExact>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   int bh, int heads, int m, int s_len, int dh, int n_split, int chunk,
-                   float scale, cudaStream_t stream) {
+// Checks the schedule it is given (the wrapper computes it) and launches. q
+// and o are T, k and v KV; ks and vs the int8 K/V's scales (KV = signed
+// char), else null.
+template <typename T, typename KV, bool kExact>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                   const void* mask, void* o, int bh, int heads, int m, int s_len, int dh,
+                   int n_split, int chunk, float scale, cudaStream_t stream) {
   const int tiles = (s_len + kTile - 1) / kTile;
   if (dh != kDh || m < 1 || m > kMaxM || bh < 1 || heads < 1 || bh % heads != 0 ||
       s_len < 1 || n_split < 1 || n_split > kMaxSplit || n_split > tiles ||
-      chunk != (tiles + n_split - 1) / n_split * kTile)
+      chunk != (tiles + n_split - 1) / n_split * kTile ||
+      (sizeof(KV) == 1) != (ks != nullptr && vs != nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(m, chunk, sizeof(T));
+  const size_t smem = smem_bytes(m, chunk, sizeof(KV));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const float* mk = static_cast<const float*>(mask);
+  const float* kf = static_cast<const float*>(ks);
+  const float* vf = static_cast<const float*>(vs);
   if (m == 1)
-    return launch_mm<T, 1, kExact>(q, k, v, mk, o, bh, heads, m, s_len, n_split, chunk, scale,
-                                   smem, stream);
-  return launch_mm<T, 4, kExact>(q, k, v, mk, o, bh, heads, m, s_len, n_split, chunk, scale,
-                                 smem, stream);
+    return launch_mm<T, KV, 1, kExact>(q, k, v, kf, vf, mk, o, bh, heads, m, s_len, n_split,
+                                       chunk, scale, smem, stream);
+  return launch_mm<T, KV, 4, kExact>(q, k, v, kf, vf, mk, o, bh, heads, m, s_len, n_split, chunk,
+                                     scale, smem, stream);
 }
 
 }  // namespace split

@@ -11,18 +11,38 @@
 // dtype.
 //
 // Bound on the H100: bytes: Wo [D, D], W1 [F, D] and W2 [D, F] (10.6 MB in
-// bf16 at D = 768, F = 3,072) for 2 B (D^2 + 2 D F) flops at B = 8.
+// bf16 at D = 768, F = 3,072, 3.2 us at 3.35 TB/s) for 2 B (D^2 + 2 D F)
+// flops at B = 8.
 //
 // Design: two LayerNorms sit between three products, and each needs a whole
-// row of the product before it. One cooperative launch, one block per SM,
-// four stages with a grid-wide sync between them: dense pass over Wo -> y1
-// (fp32 scratch); every block normalises y1 into its own shared memory (h,
-// kept for the residual) and the grid shares the F outputs of W1, GELU in
-// the epilogue -> z (scratch); every block loads z (96 KB at F = 3,072) and
-// the grid shares the D outputs of W2 -> y2 (scratch); block 0 normalises y2
-// into `out`. Every weight is read from device memory once for up to 8 rows;
-// three syncs cost a few microseconds each. More than 8 studies run in
-// chunks of 8.
+// row of the product before it. One cooperative launch, one block of 16 warps
+// per SM, a grid-wide sync between the stages. Each product is a split-K pass
+// over every warp of the grid: a unit is one output's K-slice of 32 16-byte
+// weight vectors (512 bytes), one vector a lane, multiplied with the lane's
+// input values of up to 8 rows from shared memory and summed over the warp;
+// a warp takes a contiguous run of units and has the weights of up to kBatch
+// of them in flight. The number of K-slices is a function of the input width
+// and the dtype alone, and an output's slices are added in slice order, so a
+// row's bits depend neither on the card, the grid nor the batch. At launch every block
+// asks L2 for its 1 / G share of Wo's rows (cp.async.bulk.prefetch.L2), in
+// flight while cctx is loaded; W1 and W2 are not prefetched: a pass reads
+// its 4.7 MB at the memory rate well inside its own time (the x reads from
+// shared memory bound it), and a 9.4 MB prefetch stream at launch measured
+// slower, stretching the latency-bound LayerNorms and syncs it overlapped
+// (PERF.md). A LayerNorm's vectors are asked into L1 before the grid sync
+// that precedes it, so that it waits only for the rows.
+//   Wo: the block's outputs [D b / G, D (b + 1) / G), their slices' partials
+//     reduced through shared memory -> y1 (fp32 scratch); grid sync; every
+//     block normalises y1 into its own shared memory (h, the FFN's input
+//     and residual);
+//   W1: the block's outputs [F b / G, F (b + 1) / G) likewise, GELU in the
+//     epilogue -> z (scratch); grid sync;
+//   W2: the units (slice k, output o), slice by slice, cut into G equal
+//     runs, one a block: a block loads only its slices' columns of z, and
+//     writes each unit's partial to scratch; grid sync;
+//   the last LayerNorm, one row a block: its slices' partials added in
+//     slice order, + b2 + h, normalised into `out`.
+// More than 8 studies run in chunks of 8, which find the weights in L2.
 #include "fused_decode.cuh"
 
 namespace {
@@ -33,6 +53,136 @@ using namespace cxr::fused;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSliceVecs = 32;   // 16-byte weight vectors of a K-slice: one a lane
+constexpr int kBatch = 3;        // units whose weights a warp has in flight
+constexpr size_t kPiece = 16384; // bytes of one L2 prefetch
+
+// K-slices of a pass with n_in inputs of T (ops/fused_decode.py:ffn_slices)
+template <typename T> __device__ __forceinline__ int slices(int n_in) {
+  return (n_in / (16 / (int)sizeof(T)) + kSliceVecs - 1) / kSliceVecs;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"((unsigned)bytes)
+               : "memory");
+}
+
+// Bring the n values of T at p into this SM's L1, a 128-byte line a thread:
+// the LayerNorms' vectors, asked for before the grid sync that precedes them.
+template <typename T>
+__device__ __forceinline__ void prefetch_l1(const T* p, int n) {
+  const char* c = reinterpret_cast<const char*>(p);
+  for (int at = threadIdx.x * 128; at < n * (int)sizeof(T); at += kThreads * 128)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(c + at));
+}
+
+// Ask L2 for [p, p + bytes), in pieces spread over the block's threads.
+__device__ __forceinline__ void prefetch_range(const void* p, size_t bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (size_t at = threadIdx.x * kPiece; at < bytes; at += kThreads * kPiece)
+    prefetch_l2(c + at, bytes - at < kPiece ? bytes - at : kPiece);
+}
+
+// The units [ub, ue) of a pass over w ([n_out, n_in], T) and the input rows
+// in xs (dense-pass layout, kRows rows of n_in): unit u is K-slice u / n_o of
+// output o_lo + u % n_o. The block's warps take contiguous runs of units, as
+// even as can be (warp w [ub + (ue - ub) w / 16, ub + (ue - ub) (w + 1) / 16));
+// a warp loads the weights of up to kBatch units at once, lane j the slice's
+// vector j, multiplies them with the rows' values from shared memory in fp32
+// (each row's products in a fixed order, four rows at a time) and adds the
+// lanes by warp_sum_rows; sink(u, o, k, row, partial) at lane 4 row, for
+// row < rows.
+template <typename T, typename Sink>
+__device__ __forceinline__ void split_pass(const float* xs, int n_in, const T* __restrict__ w,
+                                           int o_lo, int n_o, int ub, int ue, int rows,
+                                           Sink sink) {
+  constexpr int VPR = 16 / sizeof(T);
+  constexpr int HALF = kRows / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = n_in / VPR;
+  const int first = ub + (ue - ub) * warp / kWarps, last = ub + (ue - ub) * (warp + 1) / kWarps;
+  const uint4* w4 = reinterpret_cast<const uint4*>(w);
+  for (int u0 = first; u0 < last; u0 += kBatch) {
+    uint4 wv[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int u = u0 + i, k = u / n_o, j = k * kSliceVecs + lane;
+      wv[i] = u < last && j < nvec ? __ldg(w4 + (size_t)(o_lo + u - k * n_o) * nvec + j)
+                                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int u = u0 + i;
+      if (u >= last) break;
+      const int k = u / n_o, j = k * kSliceVecs + lane;
+      float wf[VPR];
+      unpack16<T>(wv[i], wf);
+      float acc[kRows];
+#pragma unroll
+      for (int b0 = 0; b0 < kRows; b0 += HALF) {
+        float xf[HALF][VPR];
+#pragma unroll
+        for (int b = 0; b < HALF; ++b) {
+          if (j < nvec) {
+            load_x<T>(xs + (b0 + b) * n_in, j, n_in, xf[b]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VPR; ++e) xf[b][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < HALF; ++b) {
+          acc[b0 + b] = xf[b][0] * wf[0];
+#pragma unroll
+          for (int e = 1; e < VPR; ++e) acc[b0 + b] = fmaf(xf[b][e], wf[e], acc[b0 + b]);
+        }
+      }
+      const float y = warp_sum_rows(acc, lane);
+      if ((lane & 3) == 0 && (lane >> 2) < rows) sink(u, o_lo + u - k * n_o, k, lane >> 2, y);
+    }
+  }
+}
+
+// The block's outputs [lo, hi) of a pass, in rounds of at most `cap`: their
+// units' partials into part ([slice][output][kRows]), then each (output,
+// row) the sum of its slices' partials in slice order, to epi(o, row, y,
+// pre(o, row)); a thread's first pre() is loaded before the pass.
+template <typename T, typename Pre, typename Epi>
+__device__ __forceinline__ void block_outputs(const float* xs, int n_in, const T* __restrict__ w,
+                                              int lo, int hi, int rows, float* part, int cap,
+                                              Pre pre, Epi epi) {
+  const int ks = slices<T>(n_in);
+  for (int o0 = lo; o0 < hi; o0 += cap) {
+    const int n_o = min(cap, hi - o0);
+    const int p0 = threadIdx.x, i0 = p0 / rows;
+    const float2 add0 = p0 < n_o * rows ? pre(o0 + i0, p0 - i0 * rows) : make_float2(0.f, 0.f);
+    split_pass<T>(xs, n_in, w, o0, n_o, 0, ks * n_o, rows,
+                  [&](int u, int, int, int row, float y) { part[u * kRows + row] = y; });
+    __syncthreads();
+    for (int p = p0; p < n_o * rows; p += kThreads) {
+      const int i = p / rows, row = p - i * rows;
+      float y = part[i * kRows + row];
+      for (int k = 1; k < ks; ++k) y += part[(k * n_o + i) * kRows + row];
+      epi(o0 + i, row, y, p == p0 ? add0 : pre(o0 + i, row));
+    }
+    __syncthreads();
+  }
+}
+
+// Columns [c0, c1) (multiples of 4) of rows [0, rows) of a [rows, n] fp32
+// array another block wrote during this launch -> xs (dense-pass layout);
+// the same columns of rows [rows, kRows) are zeroed.
+template <typename T>
+__device__ __forceinline__ void load_scratch_cols(const float* src, int rows, int n, int c0,
+                                                  int c1, float* xs) {
+  const int nq = (c1 - c0) / 4;
+  for (int i = threadIdx.x; i < kRows * nq; i += kThreads) {
+    const int r = i / nq, c = c0 + 4 * (i - r * nq);
+    const float4 v = r < rows ? __ldcg(reinterpret_cast<const float4*>(src + (size_t)r * n + c))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(xs + r * n + xs_pos<T>(c, n)) = v;
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -42,52 +192,99 @@ out_ln_ffn_kernel(const T* __restrict__ cctx, const T* __restrict__ res,
                   const T* __restrict__ w1, const T* __restrict__ b1,
                   const T* __restrict__ w2, const T* __restrict__ b2,
                   const T* __restrict__ gamma3, const T* __restrict__ beta3,
-                  T* __restrict__ out, float* y1, float* z, float* y2, int batch, int d_model,
+                  T* __restrict__ out, float* y1, float* z, float* p2, int batch, int d_model,
                   int d_ff, float eps) {
+  constexpr int VPR = 16 / sizeof(T);
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);  // [kRows][D]: h, the FFN's input and residual
   float* xs = hs + kRows * d_model;             // [kRows][max(D, F)]: a pass's input rows
   cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5;
-  const int gwarp = blockIdx.x * kWarps + warp, gwarps = gridDim.x * kWarps;
+  const int g = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
+  const int lo_o = (int)((long)d_model * blk / g), hi_o = (int)((long)d_model * (blk + 1) / g);
+  const int lo_1 = (int)((long)d_ff * blk / g), hi_1 = (int)((long)d_ff * (blk + 1) / g);
+  const int ks2 = slices<T>(d_ff), n2 = ks2 * d_model, slice = kSliceVecs * VPR;
+  const int lo_2 = (int)((long)n2 * blk / g), hi_2 = (int)((long)n2 * (blk + 1) / g);
+  const int f_wide = d_ff > d_model ? d_ff : d_model;
 
+  // Wo to L2 at launch, each block a 1 / G share of its rows, in flight while
+  // cctx is loaded
+  prefetch_range(wo + (size_t)lo_o * d_model, sizeof(T) * (size_t)(hi_o - lo_o) * d_model);
   for (int b0 = 0; b0 < batch; b0 += kRows) {
     const int rows = min(kRows, batch - b0);
     const size_t off = (size_t)b0 * d_model, off_ff = (size_t)b0 * d_ff;
     load_rows<T>(cctx + off, rows, d_model, xs);
     __syncthreads();
-    dense_pass<T>(
-        xs, d_model, wo, d_model, rows, gwarp, gwarps,
+    // Wo: the partials in hs, free until the LayerNorm
+    block_outputs<T>(
+        xs, d_model, wo, lo_o, hi_o, rows, hs, d_model / slices<T>(d_model),
         [&](int o, int b) {
           return make_float2(to_float(bo[o]), to_float(res[off + (size_t)b * d_model + o]));
         },
-        [&](int o, int b, float v, float2 a) {
-          y1[off + (size_t)b * d_model + o] = (v + a.x) + a.y;
+        [&](int o, int b, float y, float2 a) {
+          y1[off + (size_t)b * d_model + o] = (y + a.x) + a.y;
         });
+    prefetch_l1(gamma2, d_model);
+    prefetch_l1(beta2, d_model);
     grid.sync();
     layer_norm_rows<T, kWarps>(y1 + off, rows, d_model, gamma2, beta2, eps, hs, nullptr);
     __syncthreads();
-    dense_pass<T>(
-        hs, d_model, w1, d_ff, rows, gwarp, gwarps,
-        [&](int o, int b) { return make_float2(to_float(b1[o]), 0.f); },
-        [&](int o, int b, float v, float2 add) {
-          const float a = v + add.x;
+    // W1: the partials in xs, free until z is loaded
+    block_outputs<T>(
+        hs, d_model, w1, lo_1, hi_1, rows, xs, f_wide / slices<T>(d_model),
+        [&](int o, int) { return make_float2(to_float(b1[o]), 0.f); },
+        [&](int o, int b, float y, float2 add) {
+          const float a = y + add.x;
           z[off_ff + (size_t)b * d_ff + o] = a * (0.5f * (1.0f + erff(a * 0.70710678118654752f)));
         });
     grid.sync();
-    load_scratch_rows<T>(z + off_ff, rows, d_ff, xs);
-    __syncthreads();
-    dense_pass<T>(
-        xs, d_ff, w2, d_model, rows, gwarp, gwarps,
-        [&](int o, int b) {
-          return make_float2(to_float(b2[o]), hs[b * d_model + xs_pos<T>(o, d_model)]);
-        },
-        [&](int o, int b, float v, float2 a) {
-          y2[off + (size_t)b * d_model + o] = (v + a.x) + a.y;
-        });
+    // W2: only the columns of z the block's slices read
+    if (lo_2 < hi_2) {
+      const int k0 = lo_2 / d_model, k1 = (hi_2 - 1) / d_model;
+      load_scratch_cols<T>(z + off_ff, rows, d_ff, k0 * slice, min(d_ff, (k1 + 1) * slice), xs);
+      __syncthreads();
+      split_pass<T>(xs, d_ff, w2, 0, d_model, lo_2, hi_2, rows,
+                    [&](int, int o, int k, int b, float y) {
+                      p2[((size_t)k * kRows + b) * d_model + o] = y;
+                    });
+    }
+    if (blk < rows) {
+      prefetch_l1(b2, d_model);
+      prefetch_l1(gamma3, d_model);
+      prefetch_l1(beta3, d_model);
+    }
     grid.sync();
-    if (blockIdx.x == 0)
-      layer_norm_rows<T, kWarps>(y2 + off, rows, d_model, gamma3, beta3, eps, xs, out + off);
+    // the last LayerNorm, one row a block: y2 = (sum of the slices' partials
+    // + b2) + h, the row in xs[0, D), the block's warp sums after it
+    float* red = xs + d_model;
+    for (int r = blk; r < rows; r += g) {
+      float s = 0.f;
+      for (int o = tid; o < d_model; o += kThreads) {
+        float y = 0.f;
+        for (int k0 = 0; k0 < ks2; k0 += 8) {  // eight partials in flight, added in order
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            v[k] = k0 + k < ks2 ? __ldcg(p2 + ((size_t)(k0 + k) * kRows + r) * d_model + o) : 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (k0 + k < ks2) y += v[k];
+        }
+        y = (y + to_float(b2[o])) + hs[r * d_model + xs_pos<T>(o, d_model)];
+        xs[o] = y;
+        s += y;
+      }
+      const float mean = block_sum<kWarps>(s, red) / (float)d_model;
+      float q = 0.f;
+      for (int o = tid; o < d_model; o += kThreads) {
+        const float d = xs[o] - mean;
+        q += d * d;
+      }
+      const float rstd = 1.0f / sqrtf(block_sum<kWarps>(q, red) / (float)d_model + eps);
+      T* orow = out + off + (size_t)r * d_model;
+      for (int o = tid; o < d_model; o += kThreads)
+        orow[o] = from_float<T>((xs[o] - mean) * rstd * to_float(gamma3[o]) +
+                                to_float(beta3[o]));
+    }
     __syncthreads();
   }
 }
@@ -122,12 +319,12 @@ cudaError_t launch(const void* cctx, const void* res, const void* wo, const void
   const T* a_g3 = static_cast<const T*>(gamma3);
   const T* a_be3 = static_cast<const T*>(beta3);
   T* a_out = static_cast<T*>(out);
-  // scratch: y1 [batch, D], y2 [batch, D], z [batch, F]
+  // scratch: y1 [batch, D], z [batch, F], W2's partials [slices(F)][kRows][D]
   float* a_y1 = static_cast<float*>(scratch);
-  float* a_y2 = a_y1 + (size_t)batch * d_model;
-  float* a_z = a_y2 + (size_t)batch * d_model;
+  float* a_z = a_y1 + (size_t)batch * d_model;
+  float* a_p2 = a_z + (size_t)batch * d_ff;
   void* args[] = {&a_cctx, &a_res, &a_wo, &a_bo, &a_g2, &a_be2, &a_w1, &a_b1, &a_w2, &a_b2,
-                  &a_g3, &a_be3, &a_out, &a_y1, &a_z, &a_y2, &batch, &d_model, &d_ff, &eps};
+                  &a_g3, &a_be3, &a_out, &a_y1, &a_z, &a_p2, &batch, &d_model, &d_ff, &eps};
   return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, smem, stream);
 }
 
@@ -135,7 +332,7 @@ cudaError_t launch(const void* cctx, const void* res, const void* wo, const void
 
 // Shapes: cctx, res, out [batch, D]; wo [D, D], w1 [F, D], w2 [D, F]
 // ([out, in]); bo, b2 and the LayerNorm vectors [D]; b1 [F]; scratch fp32
-// [batch, 2D + F].
+// [batch (D + F) + slices(F) 8 D], slices(n) = ceil(n / (16 / sizeof(T)) / 32).
 extern "C" int cxr_fused_out_ln_ffn_f32(const void* cctx, const void* res, const void* wo,
                                         const void* bo, const void* gamma2, const void* beta2,
                                         const void* w1, const void* b1, const void* w2,

@@ -15,13 +15,13 @@ routing spec that chooses between them.
     :func:`quantize_kv_rowwise`, the per-key scales folded into the [M, S]
     scores and probs (``csrc/decode_attention_q8.cu``).
 
-The first two kernels split each (row, head)'s keys over a thread-block
-cluster of up to 8 blocks, in one launch (``csrc/decode_split.cuh``): the
-split is :func:`decode_schedule`'s, a function of (S, dh) alone, its 64-key
-tiles dealt to the blocks in turn, and keys whose mask is finfo(float32).min
-are never read. The int8 kernel runs one block per (row, head). Each
-source's note says what bounds the kernel on the H100 and how its design
-meets that. On a CPU tensor a wrapper runs its
+The three kernels are one body (``csrc/decode_split.cuh``): each (row,
+head)'s keys are split over a thread-block cluster of up to 8 blocks, in one
+launch; the split is :func:`decode_schedule`'s, a function of (S, dh) alone,
+its 64-key tiles dealt to the blocks in turn, and keys whose mask is
+finfo(float32).min are never read (for the int8 kernel neither their rows
+nor their scales). Each source's note says what bounds the kernel on the
+H100 and how its design meets that. On a CPU tensor a wrapper runs its
 ``*_plain`` version; on a CUDA tensor it launches the kernel or raises.
 
 :func:`resolve_decode_kernel` is the port's copy of the JAX package's routing
@@ -68,9 +68,9 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_schedule(s: int, dh: int) -> Tuple[int, int]:
-    """How :func:`decode_attention` and :func:`decode_attention_vpu` split S
-    keys: -> (n_split, chunk). S is cut into KEY_TILE-key tiles, dealt to the
-    n_split blocks of a (row, head)'s cluster in turn (:func:`block_tiles`):
+    """How the three kernels split S keys: -> (n_split, chunk). S is cut
+    into KEY_TILE-key tiles, dealt to the n_split blocks of a (row, head)'s
+    cluster in turn (:func:`block_tiles`):
     as many blocks as keys need at about TARGET_CHUNK a block, at most
     MAX_SPLIT; chunk is the most keys a block holds, in whole tiles. It
     depends on (S, dh) alone, never on B, M or the card, so that the vpu
@@ -94,20 +94,21 @@ def block_tiles(s: int, dh: int):
 
 def smem_bytes(m: int, s: int, dh: int, itemsize: int) -> int:
     """Dynamic shared memory of one block of the split kernels for K/V of
-    ``itemsize`` bytes: the ring of K/V tiles in flight (later the per-warp
-    [M, dh] fp32 partial contexts), the chunk's [M, chunk] fp32 scores, the
-    ranks' partials of the block's output elements, one mask bit per key and
-    the list of tiles to read (``csrc/decode_split.cuh:smem_bytes``)."""
+    ``itemsize`` bytes (1: int8): the ring of K/V tiles in flight (later the
+    per-warp [M, dh] fp32 partial contexts), the chunk's [M, chunk] fp32
+    scores, the ranks' partials of the block's output elements, one mask bit
+    per key, the list of tiles to read and, for int8, the chunk's fp32 V
+    scales (``csrc/decode_split.cuh:smem_bytes``)."""
     _, chunk = decode_schedule(s, dh)
     ring = max(itemsize * _SPLIT_RING * KEY_TILE * dh, 4 * _SPLIT_WARPS * m * dh)
     return (ring + 4 * (m * chunk + m * dh + MAX_SPLIT) + 4 * (chunk // 32)
-            + 4 * (chunk // KEY_TILE))
+            + 4 * (chunk // KEY_TILE) + (4 * chunk if itemsize == 1 else 0))
 
 
 def max_keys(m: int, dh: int, itemsize: int) -> int:
     """The largest S the split kernels take with M query rows and K/V of
-    ``itemsize`` bytes: MAX_SPLIT chunks of the longest chunk whose block
-    fits in shared memory."""
+    ``itemsize`` bytes (1: int8): MAX_SPLIT chunks of the longest chunk whose
+    block fits in shared memory."""
     per = 1
     while smem_bytes(m, MAX_SPLIT * (per + 1) * KEY_TILE, dh, itemsize) <= _SPLIT_SMEM_LIMIT:
         per += 1
@@ -139,26 +140,40 @@ def _check_qkv(name: str, q, k, v, additive_mask, kv_dtype) -> Tuple[int, int, i
     return b, h, m, s, dh
 
 
-def _launch_split(name: str, entries, q, k, v, additive_mask,
-                  scale) -> Tuple[torch.Tensor, bool]:
-    """Check and launch one of the two split kernels (``entries``: its C
-    entry per dtype); -> (the output, whether the kernel was launched: not
-    for zero rows)."""
-    b, h, m, s, dh = _check_qkv(name, q, k, v, additive_mask, q.dtype)
-    e = q.element_size()
-    _build.require(smem_bytes(m, s, dh, e) <= _SPLIT_SMEM_LIMIT,
-                   lambda: f"{name}: S={s} exceeds the {max_keys(m, dh, e)} keys a cluster "
-                   f"of {MAX_SPLIT} blocks holds at M={m} in {q.dtype}")
+def _launch_split(name: str, entries, q, k, v, additive_mask, scale,
+                  scales=None) -> Tuple[torch.Tensor, bool]:
+    """Check and launch one of the three split kernels (``entries``: its C
+    entry per dtype; ``scales``: the int8 kernel's (kscale, vscale), whose K/V
+    are int8); -> (the output, whether the kernel was launched: not for zero
+    rows)."""
+    req = _build.require
+    b, h, m, s, dh = _check_qkv(name, q, k, v, additive_mask,
+                                q.dtype if scales is None else torch.int8)
+    if scales is not None:
+        for sc in scales:
+            req(sc.device == q.device and sc.dtype == torch.float32 and sc.is_contiguous()
+                and tuple(sc.shape) == (b, h, 1, s),
+                lambda: f"{name}: scales must be contiguous float32 {(b, h, 1, s)} on q's "
+                f"device, got {sc.dtype} {tuple(sc.shape)}")
+    e = k.element_size()
+    req(smem_bytes(m, s, dh, e) <= _SPLIT_SMEM_LIMIT,
+        lambda: f"{name}: S={s} exceeds the {max_keys(m, dh, e)} keys a cluster of "
+        f"{MAX_SPLIT} blocks holds at M={m} with {k.dtype} K/V")
     out = torch.empty_like(q)
     if b * h == 0:
         return out, False
     n_split, chunk = decode_schedule(s, dh)
     entry = entries[q.dtype]
-    fn = _build.kernel(entry, _ARGTYPES)
+    if scales is None:
+        fn = _build.kernel(entry, _ARGTYPES)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    else:
+        fn = _build.kernel(entry, _ARGTYPES_Q8)
+        ptrs = (q.data_ptr(), k.data_ptr(), scales[0].data_ptr(), v.data_ptr(),
+                scales[1].data_ptr())
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), additive_mask.data_ptr(),
-                 out.data_ptr(), b * h, h, m, s, dh, n_split, chunk, float(scale),
-                 _build.stream_of(q))
+        err = fn(*ptrs, additive_mask.data_ptr(), out.data_ptr(), b * h, h, m, s, dh, n_split,
+                 chunk, float(scale), _build.stream_of(q))
     _build.check(err, entry)
     return out, True
 
@@ -218,14 +233,8 @@ decode_attention_vpu.launches = 0
 # ------------------------------------------------------------ int8 K/V (q8)
 _C_Q8 = {torch.float32: "cxr_decode_attention_q8_f32",
          torch.bfloat16: "cxr_decode_attention_q8_bf16"}
-_ARGTYPES_Q8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-_Q8_THREADS = 256
-
-
-def _q8_smem_bytes(m: int, s: int, dh: int) -> int:
-    """Shared memory of one block of the int8 kernel: q, the [M, S] scores
-    and the per-warp partial contexts, all fp32."""
-    return 4 * (m * dh + m * s + (_Q8_THREADS // 32) * m * dh)
+# q, kq, ks, vq, vs, mask, out; bh, heads, m, s, dh, n_split, chunk; scale, stream
+_ARGTYPES_Q8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def quantize_kv_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -267,26 +276,9 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, kscale: torch.Tensor,
     additive key mask -> ctx [B, H, M, dh] in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_q8_plain(q, kq, kscale, vq, vscale, additive_mask, scale)
-    b, h, m, s, dh = _check_qkv("decode_attention_q8", q, kq, vq, additive_mask, torch.int8)
-    req = _build.require
-    req(_q8_smem_bytes(m, s, dh) <= _SMEM_LIMIT,
-        lambda: f"decode_attention_q8: M={m} x S={s} scores exceed one block's shared memory")
-    for sc in (kscale, vscale):
-        req(sc.device == q.device and sc.dtype == torch.float32 and sc.is_contiguous()
-            and tuple(sc.shape) == (b, h, 1, s),
-            f"decode_attention_q8: scales must be contiguous float32 {(b, h, 1, s)} on q's "
-            f"device, got {sc.dtype} {tuple(sc.shape)}")
-    out = torch.empty_like(q)
-    if b * h == 0:
-        return out
-    name = _C_Q8[q.dtype]
-    fn = _build.kernel(name, _ARGTYPES_Q8)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), kq.data_ptr(), kscale.data_ptr(), vq.data_ptr(),
-                 vscale.data_ptr(), additive_mask.data_ptr(), out.data_ptr(),
-                 b * h, h, m, s, dh, float(scale), _build.stream_of(q))
-    _build.check(err, name)
-    decode_attention_q8.launches += 1
+    out, launched = _launch_split("decode_attention_q8", _C_Q8, q, kq, vq, additive_mask, scale,
+                                  (kscale, vscale))
+    decode_attention_q8.launches += launched
     return out
 
 
@@ -326,10 +318,8 @@ def resolve_decode_kernel(spec: Optional[str] = None) -> str:
           numerics: serving only).
 
     ``:G`` is a TPU grid blocking (rows per grid cell): the grammar validates
-    it and it has no effect on the card, where the blocking is the kernel's
-    own: a cluster of :func:`decode_schedule`'s blocks per (row, head) for
-    :func:`decode_attention` and :func:`decode_attention_vpu`, one block per
-    (row, head) for :func:`decode_attention_q8`."""
+    it and it has no effect on the card, where the blocking is the kernels'
+    own: a cluster of :func:`decode_schedule`'s blocks per (row, head)."""
     if spec is None:
         spec = os.environ.get("CXRMATE_DECODE_KERNEL", "")
     if spec in ("", "0"):

@@ -94,6 +94,53 @@ def _smem_out_ln_ffn(d_model: int, d_ff: int) -> int:
     return 4 * _ROWS * (d_model + max(d_model, d_ff))
 
 
+_SLICE_VECS = 32  # 16-byte weight vectors of a K-slice of fused_out_ln_ffn's passes
+_FFN_WARPS = 16   # warps of a fused_out_ln_ffn block
+
+
+def ffn_slices(n_in: int, itemsize: int) -> int:
+    """K-slices of a split-K pass of :func:`fused_out_ln_ffn` over ``n_in``
+    inputs of ``itemsize`` bytes: each weight row cut into slices of
+    _SLICE_VECS 16-byte vectors (one a lane), a function of the width and dtype alone
+    (``csrc/fused_out_ln_ffn.cu:slices``)."""
+    return -(-(n_in * itemsize // 16) // _SLICE_VECS)
+
+
+def _warp_runs(ub: int, ue: int):
+    """(warp, unit) of the units [ub, ue) of a block: contiguous runs as even
+    as can be, one a warp (``split_pass``)."""
+    n = ue - ub
+    for w in range(_FFN_WARPS):
+        for u in range(ub + n * w // _FFN_WARPS, ub + n * (w + 1) // _FFN_WARPS):
+            yield w, u
+
+
+def ffn_units(d_model: int, d_ff: int, itemsize: int, grid: int) -> dict:
+    """The ownership map of :func:`fused_out_ln_ffn`'s three split-K passes
+    on a grid of ``grid`` blocks, as the kernel computes it: {"wo" | "w1" |
+    "w2": [(block, warp, output, slice), ...]}. Wo and W1: block b owns the
+    outputs [n b / grid, n (b + 1) / grid), taken in rounds of as many
+    outputs as its shared-memory partials hold (hs for Wo, xs for W1), each
+    round's units slice by slice; W2: the units (slice k, output o), slice by
+    slice, cut into ``grid`` equal runs, one a block."""
+    units = {}
+    for name, n_out, n_in, part in (("wo", d_model, d_model, d_model),
+                                    ("w1", d_ff, d_model, max(d_model, d_ff))):
+        ks = ffn_slices(n_in, itemsize)
+        cap = part // ks  # the partials hold _ROWS floats a unit
+        out = []
+        for b in range(grid):
+            lo, hi = n_out * b // grid, n_out * (b + 1) // grid
+            for o0 in range(lo, hi, cap):
+                n_o = min(cap, hi - o0)
+                out += [(b, w, o0 + u % n_o, u // n_o) for w, u in _warp_runs(0, ks * n_o)]
+        units[name] = out
+    n2 = ffn_slices(d_ff, itemsize) * d_model
+    units["w2"] = [(b, w, u % d_model, u // d_model) for b in range(grid)
+                   for w, u in _warp_runs(n2 * b // grid, n2 * (b + 1) // grid)]
+    return units
+
+
 _STEP_WARPS = 16  # warps per block of the v1 kernel, attention stages included
 
 
@@ -397,7 +444,9 @@ def fused_out_ln_ffn(cctx: torch.Tensor, res: torch.Tensor, wo: torch.Tensor, bo
     out = torch.empty_like(cctx)
     if b == 0:
         return out
-    scratch = torch.empty(b, 2 * d + f, dtype=torch.float32, device=dev)
+    # y1 [B, D], z [B, F], W2's partials [slices][8][D]
+    scratch = torch.empty(b * (d + f) + ffn_slices(f, cctx.element_size()) * _ROWS * d,
+                          dtype=torch.float32, device=dev)
     _launch(f"cxr_fused_out_ln_ffn_{_SUFFIX[cctx.dtype]}", _ARGS_FFN, dev, *ptrs, out.data_ptr(),
             scratch.data_ptr(), b, d, f, float(eps))
     fused_out_ln_ffn.launches += 1

@@ -6,7 +6,8 @@ Builds a copy of ``csrc/decode_split.cuh`` in which thread 0 of every block
 stamps the device clock (``%globaltimer``) after each phase, with a small
 runner program, by ``nvcc`` into ``cxrmate_torch/_build/trace/``, and runs it in bf16
 at the decode-attention shapes of ``chip_smoke.py``'s main paths, with the
-same masks (``chip_smoke.key_mask``). One JSON line per shape: the time of a
+same masks (``chip_smoke.key_mask``): the three kernels on the body
+(``decode_attention_q8`` with int8 K/V and fp32 scales). One JSON line per shape: the time of a
 launch (CUDA events over back-to-back launches), the span of the traced
 launch, blocks resident per SM and clusters at once (the occupancy API), the
 median, 90th percentile and largest time of each phase over the blocks, and
@@ -26,7 +27,7 @@ from pathlib import Path
 PHASES = ("mask+list", "K", "max+sync1", "sum+sync2", "p+V", "push+sync3", "out")
 # stamp p goes right after its anchor, each of which occurs once in the source
 _ANCHORS = (
-    "  constexpr int kSlot = kTile * R::kLpk;  // uint4 of one ring slot\n",
+    "  constexpr int kSlot = kTile * R::kCopyLpk;  // 16-byte copies of one ring slot\n",
     "  const int nt = n_listed;\n",
     "    stage(j + kRing);\n  }\n  __syncthreads();\n",
     "  // values: one remote round trip)\n  cluster.sync();\n",
@@ -52,30 +53,41 @@ using namespace cxr::split;
 #define CK(x) do { cudaError_t e_ = (x); if (e_ != cudaSuccess) { \
   fprintf(stderr, "%s at line %d\n", cudaGetErrorString(e_), __LINE__); return 1; } } while (0)
 
-template <int MM, bool kExact>
+template <typename KV> KV kv_value(size_t i);
+template <> __nv_bfloat16 kv_value<__nv_bfloat16>(size_t i) {
+  return __float2bfloat16((float)(i * 104729 % 1000) / 1000.f - 0.5f);
+}
+template <> signed char kv_value<signed char>(size_t i) { return (signed char)((int)(i * 104729 % 255) - 127); }
+
+template <typename KV, int MM, bool kExact>
 int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) {
   const int H = 12, tiles_all = (S + kTile - 1) / kTile, blocks = n * B * H;
   const size_t nq = (size_t)B * H * M * kDh, nk = (size_t)B * H * S * kDh;
-  std::vector<__nv_bfloat16> hq(nq), hk(nk);
+  constexpr bool q8 = sizeof(KV) == 1;
+  std::vector<__nv_bfloat16> hq(nq);
+  std::vector<KV> hk(nk);
+  std::vector<float> hs((size_t)B * H * S, 0.01f);
   for (size_t i = 0; i < nq; ++i) hq[i] = __float2bfloat16((float)(i * 7919 % 1000) / 1000.f - 0.5f);
-  for (size_t i = 0; i < nk; ++i) hk[i] = __float2bfloat16((float)(i * 104729 % 1000) / 1000.f - 0.5f);
+  for (size_t i = 0; i < nk; ++i) hk[i] = kv_value<KV>(i);
   std::vector<float> hm((size_t)B * S);
   FILE* f = fopen(mask_path, "rb");
   if (!f || fread(hm.data(), 4, hm.size(), f) != hm.size()) { fprintf(stderr, "mask %s\n", mask_path); return 1; }
   fclose(f);
-  __nv_bfloat16 *q, *k, *v, *o;
-  float* mk;
+  __nv_bfloat16 *q, *o;
+  KV *k, *v;
+  float *mk, *sc;
   unsigned long long* tr;
-  CK(cudaMalloc(&q, nq * 2)); CK(cudaMalloc(&k, nk * 2)); CK(cudaMalloc(&v, nk * 2));
-  CK(cudaMalloc(&o, nq * 2)); CK(cudaMalloc(&mk, hm.size() * 4));
+  CK(cudaMalloc(&q, nq * 2)); CK(cudaMalloc(&k, nk * sizeof(KV))); CK(cudaMalloc(&v, nk * sizeof(KV)));
+  CK(cudaMalloc(&o, nq * 2)); CK(cudaMalloc(&mk, hm.size() * 4)); CK(cudaMalloc(&sc, hs.size() * 4));
   CK(cudaMalloc(&tr, (size_t)blocks * 9 * 8));
   CK(cudaMemcpyToSymbol(g_trace, &tr, sizeof(tr)));
   CK(cudaMemcpy(q, hq.data(), nq * 2, cudaMemcpyHostToDevice));
-  CK(cudaMemcpy(k, hk.data(), nk * 2, cudaMemcpyHostToDevice));
-  CK(cudaMemcpy(v, hk.data(), nk * 2, cudaMemcpyHostToDevice));
+  CK(cudaMemcpy(k, hk.data(), nk * sizeof(KV), cudaMemcpyHostToDevice));
+  CK(cudaMemcpy(v, hk.data(), nk * sizeof(KV), cudaMemcpyHostToDevice));
   CK(cudaMemcpy(mk, hm.data(), hm.size() * 4, cudaMemcpyHostToDevice));
-  const size_t smem = smem_bytes(M, chunk, 2);
-  auto fn = decode_split_kernel<__nv_bfloat16, MM, kExact>;
+  CK(cudaMemcpy(sc, hs.data(), hs.size() * 4, cudaMemcpyHostToDevice));
+  const size_t smem = smem_bytes(M, chunk, sizeof(KV));
+  auto fn = decode_split_kernel<__nv_bfloat16, KV, MM, kExact>;
   int per_sm = 0, clusters = 0;
   CK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem));
   cudaLaunchAttribute attr[1];
@@ -85,8 +97,8 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
   cfg.gridDim = dim3(blocks); cfg.blockDim = dim3(kThreads); cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr; cfg.numAttrs = 1;
   CK(cudaOccupancyMaxActiveClusters(&clusters, (void*)fn, &cfg));
-  auto once = [&]() { return launch<__nv_bfloat16, kExact>(q, k, v, mk, o, B * H, H, M, S, kDh, n,
-                                                           chunk, 0.125f, 0); };
+  auto once = [&]() { return launch<__nv_bfloat16, KV, kExact>(
+      q, k, v, q8 ? sc : nullptr, q8 ? sc : nullptr, mk, o, B * H, H, M, S, kDh, n, chunk, 0.125f, 0); };
   for (int i = 0; i < 3; ++i) CK(once());
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0); cudaEventCreate(&e1);
@@ -101,10 +113,9 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
   CK(cudaMemcpy(t.data(), tr, t.size() * 8, cudaMemcpyDeviceToHost));
   unsigned long long t0 = ~0ull, t1 = 0;
   for (int b = 0; b < blocks; ++b) { t0 = std::min(t0, t[b * 9]); t1 = std::max(t1, t[b * 9 + 7]); }
-  printf("{\"b\": %d, \"m\": %d, \"s\": %d, \"vpu\": %d, \"n_split\": %d, \"chunk\": %d, \"blocks\": %d, "
+  printf("{\"b\": %d, \"m\": %d, \"s\": %d, \"n_split\": %d, \"chunk\": %d, \"blocks\": %d, "
          "\"blocks_per_sm\": %d, \"clusters_at_once\": %d, \"us_per_launch\": %.3f, \"traced_span_us\": %.3f, "
-         "\"phases_us\": {", B, M, S, (int)kExact, n, chunk, blocks, per_sm, clusters, ms * 1e3 / reps,
-         (t1 - t0) / 1e3);
+         "\"phases_us\": {", B, M, S, n, chunk, blocks, per_sm, clusters, ms * 1e3 / reps, (t1 - t0) / 1e3);
   const char* names[7] = {"mask+list", "K", "max+sync1", "sum+sync2", "p+V", "push+sync3", "out"};
   for (int p = 0; p < 7; ++p) {
     std::vector<double> d;
@@ -131,18 +142,22 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
   for (int i = 0; i < 1024; ++i)
     if (sm_blocks[i]) { lo = std::min(lo, sm_tiles[i]); hi = std::max(hi, sm_tiles[i]); sum += sm_tiles[i]; used++; }
   printf("}, \"sms_used\": %d, \"sm_unmasked_tiles\": [%d, %.2f, %d]}\n", used, lo, sum / used, hi);
-  cudaFree(q); cudaFree(k); cudaFree(v); cudaFree(o); cudaFree(mk); cudaFree(tr);
+  cudaFree(q); cudaFree(k); cudaFree(v); cudaFree(o); cudaFree(mk); cudaFree(sc); cudaFree(tr);
   return 0;
 }
 
 int main(int argc, char** argv) {
-  // argv: groups of B M S n_split chunk vpu mask_path
+  // argv: groups of B M S n_split chunk kind mask_path (kind 0: decode_attention, 1: vpu, 2: q8)
   for (int a = 1; a + 6 < argc; a += 7) {
     const int B = atoi(argv[a]), M = atoi(argv[a + 1]), S = atoi(argv[a + 2]);
-    const int n = atoi(argv[a + 3]), chunk = atoi(argv[a + 4]), vpu = atoi(argv[a + 5]);
+    const int n = atoi(argv[a + 3]), chunk = atoi(argv[a + 4]), kind = atoi(argv[a + 5]);
     const char* mp = argv[a + 6];
-    int rc = M == 1 ? (vpu ? run<1, true>(B, M, S, n, chunk, mp, 30) : run<1, false>(B, M, S, n, chunk, mp, 30))
-                    : (vpu ? run<4, true>(B, M, S, n, chunk, mp, 30) : run<4, false>(B, M, S, n, chunk, mp, 30));
+    using bf = __nv_bfloat16;
+    using i8 = signed char;
+    int rc = kind == 2 ? (M == 1 ? run<i8, 1, false>(B, M, S, n, chunk, mp, 30)
+                                 : run<i8, 4, false>(B, M, S, n, chunk, mp, 30))
+           : M == 1 ? (kind ? run<bf, 1, true>(B, M, S, n, chunk, mp, 30) : run<bf, 1, false>(B, M, S, n, chunk, mp, 30))
+                    : (kind ? run<bf, 4, true>(B, M, S, n, chunk, mp, 30) : run<bf, 4, false>(B, M, S, n, chunk, mp, 30));
     if (rc) return rc;
     fflush(stdout);
   }
@@ -182,14 +197,13 @@ def main() -> int:
     (out / "runner.cu").write_text(_RUNNER)
     subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS[:4], "-I", str(_build.CSRC), "-o",
                     str(out / "runner"), str(out / "runner.cu")], check=True)
-    calls = sorted({c for p in cs.main_path_calls(da).values() for c in p["decode"]
-                    if c[0] in cs.SPLIT})
+    calls = sorted({c for p in cs.main_path_calls(da).values() for c in p["decode"]})
     args = []
     for i, (kernel, b, m, s, kind) in enumerate(calls):
         path = out / f"mask{i}.bin"
         cs.key_mask(torch, kind, b, s).cpu().numpy().astype(np.float32).tofile(path)
         n_split, chunk = da.decode_schedule(s, 64)
-        args += [b, m, s, n_split, chunk, int(kernel == "decode_attention_vpu"), path]
+        args += [b, m, s, n_split, chunk, cs.SPLIT.index(kernel), path]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     res = subprocess.run([str(out / "runner"), *map(str, args)], capture_output=True, text=True)

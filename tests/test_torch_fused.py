@@ -388,11 +388,41 @@ def test_supports_and_prepare(step_setup):
     assert not fd.supports(wide, k64, cross(s_max + 4), version=1)
     with pytest.raises(ValueError, match="no LoRA"):
         fd.prepare_fused_params(step_setup["longitudinal"], 4)
+    # the FFN kernel's split-K passes keep its shared memory: 8 x (D + max(D, F)) fp32
+    for d, f in ((768, 3072), (32, 64), (1024, 1024), (2048, 5184), (2048, 5200), (4096, 2048)):
+        assert fd._smem_out_ln_ffn(d, f) == 4 * 8 * (d + max(d, f))
     prep = fd.prepare_fused_params(step_setup["multi"], 4)
     assert len(prep) == 2 and tuple(prep[0]["wqkv"].shape) == (96, 32)
     q = plain.attention.self.query
     assert torch.equal(prep[0]["wqkv"][:32], q.weight) and torch.equal(prep[0]["bqkv"][:32], q.bias)
     assert len(prep[0]["out_ln_q"]) == 6 and len(prep[0]["out_ln_ffn"]) == 10
+
+
+@pytest.mark.parametrize("d,f,grid", [(768, 3072, 132), (768, 3072, 114), (32, 64, 132),
+                                      (32, 64, 114)])
+def test_ffn_ownership_map_covers_every_unit_once(d, f, grid):
+    """fused_out_ln_ffn's split-K passes: on a grid of 132 or 114 blocks (the
+    H100 SXM's and PCIe's SMs), at the decoder's widths and the tiny
+    config's, in fp32 and bf16, every (output, K-slice) of Wo, W1 and W2 is
+    owned by exactly one (block, warp), each of a block's warps has a unit
+    where the block has 16, W2's units are cut evenly over the blocks, and
+    the slices are a function of the input width and dtype alone."""
+
+    def per_block(owned, n):
+        return [[u for u in owned if u[0] == blk] for blk in range(n)]
+
+    for itemsize in (2, 4):
+        units = fd.ffn_units(d, f, itemsize, grid)
+        for name, n_out, n_in in (("wo", d, d), ("w1", f, d), ("w2", d, f)):
+            ks = fd.ffn_slices(n_in, itemsize)
+            assert ks == -(-n_in * itemsize // 512)
+            got = sorted((o, k) for _, _, o, k in units[name])
+            assert got == [(o, k) for o in range(n_out) for k in range(ks)], name
+            for blk in range(grid):  # a block's warps all work where it has 16 units
+                mine = [w for b, w, _, _ in units[name] if b == blk]
+                assert len(set(mine)) == min(16, len(mine)), (name, blk)
+            if name == "w2":  # one even run a block
+                assert max(map(len, per_block(units[name], grid))) <= -(-len(got) // grid)
 
 
 # ---------------------------------------------- (e) card: kernel vs plain version
@@ -455,15 +485,21 @@ def test_qkv_attn_kernel_matches_plain_on_card(cuda_device, dtype, tol, index):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b", [8, 11])  # 11: a second, ragged chunk of rows
 def test_dense_kernels_match_plain_on_card(cuda_device, dtype, tol, b):
+    """Within tol of the plain versions; the FFN kernel's rows are bit-equal
+    alone, in a batch of 8 and in a batch of 11 (split-K in a fixed order)."""
     x = card_operands(cuda_device, dtype, b=b)
     with parity_mode():
         got = fd.fused_out_ln_q(x.hidden, x.res, *x.out_ln_q, 1e-12)
         want = fd.fused_out_ln_q_plain(x.hidden, x.res, *x.out_ln_q, 1e-12)
         got_ffn = fd.fused_out_ln_ffn(x.hidden, x.res, *x.out_ln_ffn, 1e-12)
         want_ffn = fd.fused_out_ln_ffn_plain(x.hidden, x.res, *x.out_ln_ffn, 1e-12)
+    first8 = fd.fused_out_ln_ffn(x.hidden[:8], x.res[:8], *x.out_ln_ffn, 1e-12)
+    alone = torch.cat([fd.fused_out_ln_ffn(x.hidden[i:i + 1], x.res[i:i + 1], *x.out_ln_ffn,
+                                           1e-12) for i in range(b)])
     torch.cuda.synchronize()
     for a, w in ((got[0], want[0]), (got[1], want[1]), (got_ffn, want_ffn)):
         torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
+    assert torch.equal(first8, got_ffn[:8]) and torch.equal(alone, got_ffn)
 
 
 @pytest.mark.cuda

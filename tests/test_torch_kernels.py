@@ -162,7 +162,7 @@ def test_decode_schedule_tiles_the_keys(lo, hi):
 
 
 @pytest.mark.parametrize("m", [1, 4])
-@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("itemsize", [2, 4, 1])  # 1: the int8 kernel
 def test_decode_max_keys_is_the_shared_memory_limit(m, itemsize):
     """max_keys is the largest S whose block fits in shared memory, for the
     full cluster; one key more does not fit."""
@@ -173,50 +173,76 @@ def test_decode_max_keys_is_the_shared_memory_limit(m, itemsize):
     assert s > 2880 * 25  # far beyond one block's 232 KB of [M, S] scores
 
 
-def _split_emulation(q, k, v, mask, scale):
+def _split_emulation(q, k, v, mask, scale, scales=None):
     """The split kernels' algorithm in plain torch (fp32 scores): per block
     of decode_schedule (its tiles dealt in turn), scores of the keys whose
     mask is not finfo.min only (the others get finfo.min and their K and V
     are never touched), the cluster's max, the blocks' sums of e in rank
     order, probs rounded to the input dtype, partial contexts over the read
-    keys, added in rank order. A fully masked row reads every V row."""
+    keys, added in rank order. A fully masked row reads every V row. With
+    ``scales`` (the int8 kernel's (ks, vs), k and v int8): a read key's dot
+    times its K scale before scale and the mask, its prob times its V scale
+    before the rounding; a skipped key's scales are never touched."""
     b, h, m, dh = q.shape
     s = k.shape[2]
     blocks = [torch.cat([torch.arange(t * 64, min(t * 64 + 64, s)) for t in tiles])
               for tiles in da.block_tiles(s, dh)]
     read = mask != NEG  # [b, s]
+    full = ~read.any(1)  # fully masked rows read every V row
     scores = torch.full((b, h, m, s), NEG)
     for bi in range(b):
         keys = read[bi].nonzero()[:, 0]
-        kk = k[bi][:, keys].float()  # only the read keys' rows
-        scores[bi][..., keys] = (q[bi].float() @ kk.transpose(-1, -2)) * scale + mask[bi, keys]
+        dots = q[bi].float() @ k[bi][:, keys].float().transpose(-1, -2)  # only the read keys
+        if scales is not None:
+            dots = dots * scales[0][bi][..., keys]
+        scores[bi][..., keys] = dots * scale + mask[bi, keys]
     gmax = torch.stack([scores[..., keys].amax(-1) for keys in blocks]).amax(0)
     e = torch.exp(scores - gmax[..., None])
     total = sum(e[..., keys].sum(-1) for keys in blocks)
-    p = (e / total[..., None]).to(q.dtype).float()
-    full = ~read.any(1)  # fully masked rows read every V row
+    p = e / total[..., None]
     ctx = torch.zeros(b, h, m, dh)
     for bi in range(b):
         keys = torch.arange(s) if full[bi] else read[bi].nonzero()[:, 0]
+        pk = p[bi][..., keys]
+        if scales is not None:
+            pk = pk * scales[1][bi][..., keys]
+        pk = pk.to(q.dtype).float()
         for own in blocks:
-            kc = own[torch.isin(own, keys)]
-            ctx[bi] += p[bi][..., kc] @ v[bi][:, kc].float()
+            at = torch.isin(keys, own)
+            ctx[bi] += pk[..., at] @ v[bi][:, keys[at]].float()
     return ctx.to(q.dtype)
 
 
-@pytest.mark.parametrize("m,s,kind", [(4, 37, "random"), (1, 511, "random"), (4, 512, "chunk"),
-                                      (1, 513, "last"), (4, 2880, "chunk"), (1, 3073, "last")])
-def test_split_without_masked_keys_matches_plain(m, s, kind):
+@pytest.mark.parametrize("m,s,kind,kv", [
+    pytest.param(*c, "float", id="-".join(map(str, c))) for c in
+    [(4, 37, "random"), (1, 511, "random"), (4, 512, "chunk"), (1, 513, "last"),
+     (4, 2880, "chunk"), (1, 3073, "last")]] + [
+    pytest.param(*c, "int8", id="q8-" + "-".join(map(str, c))) for c in
+    [(4, 37, "random"), (1, 513, "last"), (4, 2880, "chunk")]])
+def test_split_without_masked_keys_matches_plain(m, s, kind, kv):
     """Skipping the masked keys and splitting S is exact: the emulated split
     on K/V whose masked rows are NaN (never read) equals the plain version
-    on clean K/V within 1e-5 in fp32, the fully masked row (uniform) too."""
+    on clean K/V within 1e-5 in fp32, the fully masked row (uniform) too.
+    For int8 K/V (the q8 kernel): the masked keys' int8 rows random and
+    their K and V scales NaN, against decode_attention_q8_plain."""
     q, k, v, _ = _decode_inputs(12, 3, 2, m, s, 64)
     mask = _masked_like_the_paths(13, 3, s, kind)
     q, k, v, mask = t(q), t(k), t(v), t(mask)
     poisoned = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
-    got = _split_emulation(q, k.masked_fill(poisoned, float("nan")),
-                           v.masked_fill(poisoned, float("nan")), mask, 0.125)
-    want = da.decode_attention_plain(q, k, v, mask, 0.125)
+    if kv == "float":
+        got = _split_emulation(q, k.masked_fill(poisoned, float("nan")),
+                               v.masked_fill(poisoned, float("nan")), mask, 0.125)
+        want = da.decode_attention_plain(q, k, v, mask, 0.125)
+    else:
+        (kq, ks), (vq, vs) = da.quantize_kv_rowwise(k), da.quantize_kv_rowwise(v)
+        noise = torch.from_numpy(np.random.RandomState(14).randint(-127, 128, (2,) + kq.shape)
+                                 .astype(np.int8))
+        keys = poisoned[..., 0][:, :, None, :].expand(ks.shape)
+        got = _split_emulation(q, torch.where(poisoned, noise[0], kq),
+                               torch.where(poisoned, noise[1], vq), mask, 0.125,
+                               (ks.masked_fill(keys, float("nan")),
+                                vs.masked_fill(keys, float("nan"))))
+        want = da.decode_attention_q8_plain(q, kq, ks, vq, vs, mask, 0.125)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
 
@@ -354,6 +380,31 @@ def _split_inputs(seed, m, s, kind, device, dtype):
     return (*(t(a).to(device, dtype) for a in (q, k, v)), t(mask).to(device))
 
 
+def _kernel_args(kernel, q, k, v):
+    """The K/V arguments of a decode kernel: (k, v), or for the int8 kernel
+    the quantised (kq, ks, vq, vs) of the fp32 K/V."""
+    if kernel != "decode_attention_q8":
+        return k, v
+    (kq, ks), (vq, vs) = da.quantize_kv_rowwise(k.float()), da.quantize_kv_rowwise(v.float())
+    return kq, ks, vq, vs
+
+
+def _poison(kv, mask, seed):
+    """The K/V arguments with every masked key of a row that has an unmasked
+    key poisoned: K/V rows NaN, or for the int8 kernel random int8 rows and
+    NaN scales. A kernel that reads any of them spreads the NaN."""
+    poisoned = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
+    if len(kv) == 2:
+        return tuple(x.masked_fill(poisoned, float("nan")) for x in kv)
+    g = torch.Generator(device=mask.device).manual_seed(seed)
+    kq, ks, vq, vs = kv
+    keys = poisoned[..., 0][:, :, None, :].expand(ks.shape)
+    noise = [torch.randint(-127, 128, kq.shape, generator=g, device=mask.device,
+                           dtype=torch.int8) for _ in range(2)]
+    return (torch.where(poisoned, noise[0], kq), ks.masked_fill(keys, float("nan")),
+            torch.where(poisoned, noise[1], vq), vs.masked_fill(keys, float("nan")))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("m,s,kind", SPLIT_SHAPES)
@@ -385,54 +436,57 @@ def test_decode_vpu_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_vpu"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_vpu",
+                                    "decode_attention_q8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,s,kind", [(4, 2880, "chunk"), (1, 513, "last"), (4, 37, "random")])
 def test_decode_kernels_never_read_masked_keys_on_card(cuda_device, kernel, dtype, m, s, kind):
     """K and V rows of masked keys set to NaN in the rows that have an
-    unmasked key: the output's bits do not change (a read would spread the
-    NaN). The fully masked row 0 reads every V row, which stays clean."""
+    unmasked key (int8: the rows random, the K and V scales NaN): the
+    output's bits do not change (a read would spread the NaN). The fully
+    masked row 0 reads every V row, which stays clean."""
     q, k, v, mask = _split_inputs(14, m, s, kind, cuda_device, dtype)
     run = getattr(da, kernel)
-    clean = run(q, k, v, mask, 0.125)
-    poisoned = (mask == NEG)[:, None, :, None] & (mask != NEG).any(1)[:, None, None, None]
-    dirty = run(q, k.masked_fill(poisoned, float("nan")), v.masked_fill(poisoned, float("nan")),
-                mask, 0.125)
+    kv = _kernel_args(kernel, q, k, v)
+    clean = run(q, *kv, mask, 0.125)
+    dirty = run(q, *_poison(kv, mask, 14), mask, 0.125)
     torch.cuda.synchronize()
     assert torch.equal(clean, dirty)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_vpu"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_vpu",
+                                    "decode_attention_q8"])
 def test_decode_kernels_take_the_largest_s_on_card(cuda_device, kernel):
     """The largest S the cluster's shared memory holds at M = 4 runs and
     agrees with the plain version (bf16, 1e-2); one key more raises."""
-    s = da.max_keys(4, 64, 2)
+    q8 = kernel == "decode_attention_q8"
+    s = da.max_keys(4, 64, 1 if q8 else 2)
     g = torch.Generator(device=cuda_device).manual_seed(15)
     q, k, v = (torch.randn(1, 12, n, 64, generator=g, device=cuda_device).to(torch.bfloat16)
                for n in (4, s, s))
+    kv = _kernel_args(kernel, q, k, v)
     mask = t(_masked_like_the_paths(16, 2, s, "chunk")[1:]).to(cuda_device)
-    got = getattr(da, kernel)(q, k, v, mask, 0.125)
-    want = getattr(da, kernel + "_plain")(q, k, v, mask, 0.125)
+    got = getattr(da, kernel)(q, *kv, mask, 0.125)
+    want = getattr(da, kernel + "_plain")(q, *kv, mask, 0.125)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
     k1 = torch.zeros(1, 12, s + 1, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="exceeds"):
-        getattr(da, kernel)(q, k1, k1, torch.zeros(1, s + 1, device=cuda_device), 0.125)
+        getattr(da, kernel)(q, *_kernel_args(kernel, q, k1, k1),
+                            torch.zeros(1, s + 1, device=cuda_device), 0.125)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("m,s", [(1, 2880), (4, 2880), (1, 100)])
-def test_decode_q8_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s):
-    q, k, v, mask = _decode_inputs(11, 3, 12, m, s, 64)
-    q = t(q).to(cuda_device, dtype)
-    kq, ks = da.quantize_kv_rowwise(t(k).to(cuda_device))
-    vq, vs = da.quantize_kv_rowwise(t(v).to(cuda_device))
-    mask = t(mask).to(cuda_device)
+@pytest.mark.parametrize("m,s,kind", SPLIT_SHAPES)
+def test_decode_q8_kernel_matches_plain_on_card(cuda_device, dtype, tol, m, s, kind):
+    q, k, v, mask = _split_inputs(11, m, s, kind, cuda_device, torch.float32)
+    q = q.to(dtype)
+    kv = _kernel_args("decode_attention_q8", q, k, v)
     with parity_mode():
-        got = da.decode_attention_q8(q, kq, ks, vq, vs, mask, 0.125)
-        want = da.decode_attention_q8_plain(q, kq, ks, vq, vs, mask, 0.125)
+        got = da.decode_attention_q8(q, *kv, mask, 0.125)
+        want = da.decode_attention_q8_plain(q, *kv, mask, 0.125)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
