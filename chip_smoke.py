@@ -6,10 +6,10 @@
 Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a);
-               the registers and spills of the split decode kernel's
+               the registers and spills of the split kernel's
                instantiations (decode_attention, decode_attention_vpu,
-               decode_attention_q8) and of fused_out_ln_ffn from the build
-               log (-Xptxas -v).
+               decode_attention_q8, fused_cross_attn) and of fused_qkv_attn
+               and fused_out_ln_ffn from the build log (-Xptxas -v).
   3. kernels - each of the thirteen kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
@@ -50,8 +50,14 @@ Phases, each printing one JSON line:
                256, S = 2,880 with 15 of 40 image slots masked, the step at
                columns 1, 128 and 255), also with a fully masked row, the new
                K/V column written where it belongs and the rest of the cache
-               bit-exact, the FFN kernel also at 11 studies with each row's
-               bits the same alone, among 8 and among 11; their times are
+               bit-exact, the self-attention kernel (its q/k/v projection
+               split-K) and the FFN kernel also at 11 studies with each row's
+               bits (and the written column's) the same alone, among 8 and
+               among 11, the cross-attention kernel (the split body under the
+               fused contract) also at the edges of its split (CROSS_EDGES: S
+               from 1 to its largest) with NaN in the masked keys' K/V rows
+               leaving its bits unchanged and a fully masked study finite;
+               their times are
                taken one launch at a time with the L2 cache flushed before
                each, as a decode step finds it.
                The three kernels of flash_attention_grad (the forward with
@@ -199,9 +205,9 @@ def device_ms(fns, reps: int = 20, warmup: int = 3):
 
 def ptxas_report(log: str):
     """Registers and spills of each instantiation of the split decode kernel
-    (csrc/decode_split.cuh: decode_attention, decode_attention_vpu and
-    decode_attention_q8) and of fused_out_ln_ffn's kernel, from the -Xptxas
-    -v lines of the build log."""
+    (csrc/decode_split.cuh: decode_attention, decode_attention_vpu,
+    decode_attention_q8 and fused_cross_attn) and of fused_qkv_attn's and
+    fused_out_ln_ffn's kernels, from the -Xptxas -v lines of the build log."""
     import re
 
     out, name = [], None
@@ -211,18 +217,19 @@ def ptxas_report(log: str):
             name = entry.group(1)
         split = name and re.search(
             r"decode_split_kernelI(f|13__nv_bfloat16)(a|f|S\d*_)Li(\d)ELb(\d)E", name)
-        ffn = name and re.search(r"out_ln_ffn_kernelI(f|13__nv_bfloat16)E", name)
-        if not (split or ffn):
+        dense = name and re.search(r"(out_ln_ffn|qkv_attn)_kernelI(f|13__nv_bfloat16)E", name)
+        if not (split or dense):
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         used = re.search(r"Used (\d+) registers", line)
         if spill or used:
             if not out or out[-1]["mangled"] != name:
-                if ffn:
-                    row = {"kernel": "fused_out_ln_ffn",
-                           "dtype": "fp32" if ffn.group(1) == "f" else "bf16"}
+                if dense:
+                    row = {"kernel": f"fused_{dense.group(1)}",
+                           "dtype": "fp32" if dense.group(2) == "f" else "bf16"}
                 else:
-                    row = {"kernel": "decode_attention_q8" if split.group(2) == "a" else
+                    row = {"kernel": "fused_cross_attn" if "5FusedE" in name else
+                           "decode_attention_q8" if split.group(2) == "a" else
                            "decode_attention_vpu" if split.group(4) == "1" else
                            "decode_attention",
                            "dtype": "fp32" if split.group(1) == "f" else "bf16",
@@ -1121,14 +1128,95 @@ def check_layer_step(torch, F, fd, x, dtype, v2_ms):
     return r
 
 
-def check_fused(torch, F, fd, dtype):
+# S of fused_cross_attn's edge checks around decode_schedule's tiles and
+# blocks, beside the fused path's 2,880; "largest": cross_fits' limit
+CROSS_EDGES = (1, 63, 64, 65, 2880, 3073, "largest")
+
+
+def check_cross_edges(torch, fd, da, dtype):
+    """fused_cross_attn at CROSS_EDGES, 8 studies (1 at the largest S): a
+    quarter of the keys masked at random, for S >= 128 every key of one tile
+    (2,880: the fused path's slot mask instead), study 1 fully masked.
+    Against its plain version (1e-5 fp32, 1e-2 bf16); the fully masked study
+    finite; NaN in the K and V rows of the masked keys of every study with an
+    open key leaves the output's bits unchanged (a read would spread it)."""
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    g = torch.Generator(device="cuda")
+    rows = []
+    for s in CROSS_EDGES:
+        if s == "largest":
+            s = da.max_keys(1, HEAD_DIM, torch.finfo(dtype).bits // 8)
+        b = 1 if s > 3073 else STUDIES
+        g.manual_seed(SEED + 21 + s)
+        cq = torch.randn(b, D_MODEL, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(b, HEADS, s, HEAD_DIM, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        if s == SLOTS * 576:
+            mask = (key_mask(torch, "slots", b, s) == 0).int()
+        else:
+            mask = (torch.rand(b, s, generator=g, device="cuda") >= 0.25).int()
+            if s >= 128:
+                mask[:, 64:128] = 0
+        if b > 1:
+            mask[1] = 0
+        got = fd.fused_cross_attn(cq, k, v, mask)
+        row = {"s": s, "b": b, "n_split": da.decode_schedule(s, HEAD_DIM)[0],
+               "max_abs_err": _err(got, fd.fused_cross_attn_plain(cq, k, v, mask)),
+               "fully_masked_study_finite": bool(torch.isfinite(got.float()).all())}
+        poison = (mask == 0)[:, None, :, None] & (mask != 0).any(1)[:, None, None, None]
+        dirty = fd.fused_cross_attn(cq, k.masked_fill(poison, float("nan")),
+                                    v.masked_fill(poison, float("nan")), mask)
+        row["masked_rows_unread"] = bool(torch.equal(got, dirty))
+        rows.append(row)
+        if not (row["max_abs_err"] <= tol and row["fully_masked_study_finite"]
+                and row["masked_rows_unread"]):
+            raise AssertionError(f"fused_cross_attn {dtype} at S={s}: {row}")
+        del k, v, dirty
+    return rows
+
+
+def qkv_rows_alone(torch, fd, x):
+    """fused_qkv_attn's rows (ctx and the written cache column) bit-equal
+    alone, in the B = 8 call and in a B = 11 call (three more studies), its
+    split-K projection summed in a fixed order; every other cache column of
+    the B = 11 call untouched."""
+    b = x.hidden.shape[0]
+    index = x.cache_k.shape[2] // 2
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    more = [torch.randn(3, *t.shape[1:], generator=g, device="cuda").to(t.dtype)
+            for t in (x.hidden, x.cache_k, x.cache_v)]
+    hidden = torch.cat([x.hidden, more[0]])
+    ck, cv = torch.cat([x.cache_k, more[1]]), torch.cat([x.cache_v, more[2]])
+    mask = torch.cat([x.self_mask, x.self_mask[:3]])
+
+    def run(lo, hi):  # -> ctx, the caches after the call
+        k, v = ck[lo:hi].clone(), cv[lo:hi].clone()
+        return fd.fused_qkv_attn(hidden[lo:hi], x.wqkv, x.bqkv, k, v, index, mask[lo:hi]), k, v
+
+    def rows(out):  # ctx and the written column
+        return out[0], out[1][:, :, index], out[2][:, :, index]
+
+    b11 = run(0, b + 3)
+    want = rows(b11)
+    equal = all(torch.equal(w[:b], got) for w, got in zip(want, rows(run(0, b))))
+    for i in range(b + 3):
+        equal &= all(torch.equal(w[i:i + 1], got) for w, got in zip(want, rows(run(i, i + 1))))
+    others = [c for c in range(ck.shape[2]) if c != index]
+    untouched = (torch.equal(b11[1][:, :, others], ck[:, :, others])
+                 and torch.equal(b11[2][:, :, others], cv[:, :, others]))
+    return {"rows_equal_alone_b8_b11": bool(equal), "b11_other_columns_exact": bool(untouched)}
+
+
+def check_fused(torch, F, fd, da, dtype):
     """The four kernels of the fused decoder-layer step against their plain
     versions at the fused main path's shapes: the self-attention kernel with
     the step at columns 1, 128 and 255 (the new K/V column within tolerance of
-    the plain version's, every other cache column bit-exact) and with a fully
-    masked study; the cross-attention kernel also with a fully masked study;
-    times (cold L2) of the kernel, the plain version and the same stage in
-    F.linear / F.layer_norm / F.gelu / SDPA calls, at column 128."""
+    the plain version's, every other cache column bit-exact), with a fully
+    masked study, and its rows' bits alone, in B = 8 and in B = 11; the
+    cross-attention kernel also with a fully masked study and at the edges of
+    its split (check_cross_edges); times (cold L2) of the kernel, the plain
+    version and the same stage in F.linear / F.layer_norm / F.gelu / SDPA
+    calls, at column 128."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     x = fused_operands(torch, dtype, g)
     b, d = x.hidden.shape
@@ -1160,6 +1248,9 @@ def check_fused(torch, F, fd, dtype):
         qkv["max_abs_err"] = max(qkv["max_abs_err"], err)
     if not qkv["cache_exact"]:
         raise AssertionError(f"fused_qkv_attn {dtype}: a cache column other than the step's changed")
+    qkv.update(qkv_rows_alone(torch, fd, x))
+    if not (qkv["rows_equal_alone_b8_b11"] and qkv["b11_other_columns_exact"]):
+        raise AssertionError(f"fused_qkv_attn {dtype}: {qkv}")
 
     lnq = res["fused_out_ln_q"]
     got, want = fd.fused_out_ln_q(x.hidden, x.res, *x.out_ln_q, 1e-12), \
@@ -1177,6 +1268,7 @@ def check_fused(torch, F, fd, dtype):
             if not bool(torch.isfinite(got.float()).all()):
                 raise AssertionError(f"fused_cross_attn {dtype}: fully masked row not finite")
         cross["max_abs_err"] = max(cross["max_abs_err"], err)
+    cross["edges"] = check_cross_edges(torch, fd, da, dtype)
 
     # the FFN kernel at B = 8 and at B = 11 (a second, ragged chunk of rows);
     # its split-K sums run in a fixed order, so each row's bits are the same
@@ -1263,7 +1355,7 @@ def kernel_phase(torch, F, fa, da, br, fd):
                    "decode": {c: check_decode_call(torch, da, F, g, dtype, *c) for c in calls},
                    "decode_edges": check_decode_edges(torch, da, dtype),
                    "reorder": {t: check_reorder(torch, br, dtype, t) for t in widths},
-                   "fused": check_fused(torch, F, fd, dtype),
+                   "fused": check_fused(torch, F, fd, da, dtype),
                    "flash_grad": check_flash_grad(torch, fa, F, dtype, name)}
         checked = ([("flash_attention", {"images": n, **r}) for n, r in res["flash"].items()]
                    + [(c[0], r) for c, r in res["decode"].items()]

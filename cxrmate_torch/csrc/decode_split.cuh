@@ -1,9 +1,18 @@
 // One decode-attention call split over the blocks of a thread-block cluster:
 // the kernel body that decode_attention.cu (any summation order, fma),
 // decode_attention_vpu.cu (separate fp32 multiplies and adds in one fixed
-// order) and decode_attention_q8.cu (int8 K/V with per-key fp32 scales, fma)
-// instantiate. Each source's note states the contract, the bound and its own
-// order of operations.
+// order), decode_attention_q8.cu (int8 K/V with per-key fp32 scales, fma) and
+// fused_cross_attn.cu (the fused step's contract, below) instantiate. Each
+// source's note states the contract, the bound and its own order of
+// operations.
+//
+// Two contracts (the template parameter C). Decode: an additive fp32 [B, S]
+// mask, a key skipped where it is exactly finfo(float32).min, a read key's
+// score q.k x scale + mask, and the probs rounded to T before P.V. Fused (the
+// fused decode step's cross-attention, M = 1): an integer [B, S] study mask
+// shared by the heads, a key skipped where it is 0, a read key's score q.k x
+// scale, and the probs kept fp32. With M = 1 the fused step's [B, D] query and
+// context rows (the heads side by side) are the [B, H, 1, 64] layout here.
 //
 // Grid and cluster. One cluster of n_split <= 8 blocks (the portable cluster
 // size) per (b, h), 128 threads a block, launched once per call with
@@ -17,9 +26,10 @@
 // (ops/decode_attention.py:decode_schedule), a function of (S, dh) alone.
 //
 // Per block:
-//   0. The mask entries of the block's keys, one bit per key: a key is skipped when its
-//      additive mask is exactly finfo(float32).min (the port's masked value).
-//      Its score is set to finfo.min without reading its K row. The tiles
+//   0. The mask entries of the block's keys, one bit per key, four
+//      neighbouring keys a thread (one 16-byte load where the mask's rows are
+//      16-byte aligned), their 32-key words gathered by shuffles: a skipped
+//      key's score is set to finfo.min without reading its K row. The tiles
 //      that hold an unskipped key are listed; no other tile is visited.
 //   1. The listed tiles' K rows, then their V rows, stream through a ring of
 //      kRing tiles in shared memory by cp.async (16 bytes a lane, L2 only);
@@ -34,10 +44,10 @@
 //      The ring's next tiles, the first V tiles, are in flight meanwhile.
 //   3. e = exp(score - max), the local sum of e; cluster.sync(); every block
 //      adds the n_split sums in rank order, so all hold the same denominator.
-//   4. p = round_to_T(e / sum), as the contract asks (the normalised probs,
-//      rounded: an online softmax would round unnormalised partials); the
-//      partial context sum_s p[s] v[s] of its keys in fp32, skipped keys'
-//      V rows not read.
+//   4. p = round_to_T(e / sum), as the decode contract asks (the normalised
+//      probs, rounded: an online softmax would round unnormalised partials;
+//      the fused contract keeps e / sum); the partial context sum_s p[s]
+//      v[s] of its keys in fp32, skipped keys' V rows not read.
 // int8 K/V (KV = signed char): the K scale of a read key multiplies its dot
 // before `scale` and the mask, ((q . kq) ks) scale + mask; its V scale, loaded
 // with the score and kept in shared memory, multiplies the normalised prob
@@ -52,7 +62,8 @@
 //      the others to finish.
 //
 // Why skipping is exact. A skipped key's score is finfo.min: the plain
-// version's q.k x scale + finfo.min rounds to finfo.min for |q.k x scale| <
+// version's q.k x scale + finfo.min (the fused contract's q.k x scale + (1 -
+// mask) finfo.min alike) rounds to finfo.min for |q.k x scale| <
 // 2^103, far above any score of finite bf16/fp32 activations, so its K row is
 // never needed. Where the row max is above finfo.min (the row has an
 // unmasked key), it is at least one ulp (2^104) above, so a skipped key's
@@ -69,6 +80,7 @@
 #include <algorithm>
 #include <cfloat>
 #include <cooperative_groups.h>
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -90,6 +102,41 @@ constexpr size_t kMaxSmem = 232448 - 1024;
 constexpr float kSkip = -FLT_MAX;  // finfo(float32).min, the port's masked key
 
 constexpr int kRing = 2;       // K/V tiles in flight a block
+
+// The two contracts (see the top of the file): the mask's type, which
+// entries skip a key, whether the mask is added to a read key's score and
+// whether the probs are rounded to T.
+struct Decode {
+  using Mask = float;
+  static constexpr bool kAddMask = true, kRoundP = true;
+  static __host__ __device__ __forceinline__ bool skip(float x) { return x == kSkip; }
+};
+struct Fused {
+  using Mask = int;
+  static constexpr bool kAddMask = false, kRoundP = false;
+  static __host__ __device__ __forceinline__ bool skip(int x) { return x == 0; }
+};
+
+__device__ __forceinline__ void ldg4(const float* p, float (&x)[4]) {
+  const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = w.x; x[1] = w.y; x[2] = w.z; x[3] = w.w;
+}
+__device__ __forceinline__ void ldg4(const int* p, int (&x)[4]) {
+  const int4 w = __ldg(reinterpret_cast<const int4*>(p));
+  x[0] = w.x; x[1] = w.y; x[2] = w.z; x[3] = w.w;
+}
+
+// Four neighbouring mask entries at p, n of them inside the row: one 16-byte
+// load where vec says the row is 16-byte aligned (then n >= 4).
+template <typename M>
+__device__ __forceinline__ void load_mask4(const M* p, bool vec, int n, M (&x)[4]) {
+  if (vec) {
+    ldg4(p, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = j < n ? __ldg(p + j) : M(0);
+  }
+}
 
 // The ring [kRing][kTile][kDh] of K/V values of `elem` bytes (after the V
 // pass, the [kWarps][m][kDh] fp32 warp partials in its place), [m][chunk]
@@ -264,15 +311,16 @@ __device__ __forceinline__ float dot_lane(const float* qf, const float* kf) {
 }
 
 // q and the output are T; K and V are KV: T itself, or signed char with the
-// fp32 scales ks and vs ([B, H, 1, S]; null otherwise). bf16 and int8 K/V: at
-// most 72 registers, so that the 96 clusters of 8 blocks of a cross call (8
-// studies x 12 heads) are resident at once (7 blocks an SM)
-template <typename T, typename KV, int MM, bool kExact>
+// fp32 scales ks and vs ([B, H, 1, S]; null otherwise); the mask is C's. bf16
+// and int8 K/V: at most 72 registers, so that the 96 clusters of 8 blocks of a
+// cross call (8 studies x 12 heads) are resident at once (7 blocks an SM)
+template <typename T, typename KV, int MM, bool kExact, typename C = Decode>
 __global__ void __launch_bounds__(kThreads, sizeof(KV) <= 2 ? 7 : 3)
 decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                     const float* __restrict__ ks, const float* __restrict__ vs,
-                    const float* __restrict__ mask, T* __restrict__ o, int heads, int m,
-                    int s_len, int chunk, float scale) {
+                    const typename C::Mask* __restrict__ mask, T* __restrict__ o, int heads,
+                    int m, int s_len, int chunk, float scale) {
+  using Mask = typename C::Mask;
   using A = Arith<kExact>;
   using R = Rows<KV>;
   using P = typename R::Piece;
@@ -281,12 +329,10 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  // clusters in launch order take the rows fastest: the heads of one row
-  // (as much unmasked work as each other) spread over the card, not onto
-  // neighbouring SMs
-  const int rows = gridDim.x / n_split / heads;
-  const int c = blockIdx.x / n_split;
-  const int b = c % rows, bh = b * heads + c / rows;
+  // clusters in launch order take the heads fastest: on the H100 that
+  // spread the rows' unmasked tiles over the SMs more evenly than taking the
+  // rows fastest (PERF.md, the split kernels' findings)
+  const int bh = blockIdx.x / n_split, b = bh / heads;
   // the block's tiles, its last one (perhaps a part tile) and its keys
   const int tiles = ((s_len + kTile - 1) / kTile - rank + n_split - 1) / n_split;
   const int last = rank + (tiles - 1) * n_split;
@@ -313,7 +359,7 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
   const int li = lane % R::kLpk;   // the lane's piece of the key row
   const int row = warp * R::kCopyKpw + sub;  // + read_step(u): the lane's key row at step u
   const int crow = warp * R::kCopyKpw + lane / R::kCopyLpk, cl = lane % R::kCopyLpk;  // copies
-  const float* mb = mask + (size_t)b * s_len;
+  const Mask* mb = mask + (size_t)b * s_len;
   const uint4* k4 = reinterpret_cast<const uint4*>(k + (size_t)bh * s_len * kDh);
   const uint4* v4 = reinterpret_cast<const uint4*>(v + (size_t)bh * s_len * kDh);
   const float* ksb = kQ8 ? ks + (size_t)bh * s_len : nullptr;  // the scales are [B, H, 1, S]
@@ -329,26 +375,30 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
       for (int e = 0; e < R::kVec; ++e) qf[r][e] = 0.f;
     }
   }
-  // 0: which keys are read (a thread's mask entries loaded together);
-  // skipped keys' scores are finfo.min
-  constexpr int kBatch = 4;
-  for (int base = 0; base < tiles * kTile; base += kBatch * kThreads) {
-    float mv[kBatch];
+  // 0: which keys are read, the local keys 4 tid .. 4 tid + 3 of a round (of
+  // one tile, neighbours in S); skipped keys' scores are finfo.min
+  const bool vec = (s_len & 3) == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  for (int base = 0; base < tiles * kTile; base += 4 * kThreads) {
+    const int i = base + 4 * tid;
+    unsigned nib = 0;  // bit j: local key i + j is read
+    if (i < len) {
+      Mask mv[4];
+      load_mask4(mb + global_key(i, rank, n_split), vec, len - i, mv);
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = base + j * kThreads + tid;
-      mv[j] = i < len ? __ldg(mb + global_key(i, rank, n_split)) : kSkip;
+      for (int j = 0; j < 4; ++j)
+        if (i + j < len) {
+          if (!C::skip(mv[j])) {
+            nib |= 1u << j;
+          } else {
+            for (int r = 0; r < m; ++r) sc[r * chunk + i + j] = kSkip;
+          }
+        }
     }
+    // a 32-key word is the nibbles of 8 neighbouring lanes
+    unsigned word = nib << (4 * (lane & 7));
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = base + j * kThreads + tid;
-      if (i >= tiles * kTile) break;  // whole warps: 32 | kTile
-      const bool take = i < len && mv[j] != kSkip;
-      const unsigned word = __ballot_sync(0xffffffffu, take);
-      if (lane == 0) bits[i >> 5] = word;
-      if (!take && i < len)
-        for (int r = 0; r < m; ++r) sc[r * chunk + i] = kSkip;
-    }
+    for (int off = 1; off < 8; off <<= 1) word |= __shfl_xor_sync(0xffffffffu, word, off);
+    if ((lane & 7) == 0 && i < tiles * kTile) bits[i >> 5] = word;
   }
   __syncthreads();
   if (warp == 0) {  // the tiles that hold an unskipped key, in order
@@ -399,8 +449,10 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
           sc[r * chunk + i] =
               A::add(A::mul(A::mul(acc[0], __ldg(ksb + gk)), scale), __ldg(mb + gk));
           if (li == 0) vsc[i] = __ldg(vsb + gk);
-        } else {
+        } else if constexpr (C::kAddMask) {
           sc[r * chunk + i] = A::add(A::mul(acc[0], scale), __ldg(mb + gk));
+        } else {
+          sc[r * chunk + i] = A::mul(acc[0], scale);
         }
       }
     }
@@ -506,7 +558,8 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
   }
 
   // 4: probs rounded to T (int8 K/V: times the key's V scale, then rounded;
-  // only for the keys whose V rows are read), then the block's partial context
+  // only for the keys whose V rows are read; the fused contract: e / sum,
+  // fp32), then the block's partial context
   for (int i = tid; i < len; i += kThreads) {
     if constexpr (kQ8) {
       if (!all && !unskipped(bits, i)) continue;
@@ -519,9 +572,10 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
     } else {
 #pragma unroll
       for (int r = 0; r < MM; ++r)
-        if (r < m)
-          sc[r * chunk + i] =
-              cxr::to_float(cxr::from_float<T>(A::div(sc[r * chunk + i], gsum[r])));
+        if (r < m) {
+          const float p = A::div(sc[r * chunk + i], gsum[r]);
+          sc[r * chunk + i] = C::kRoundP ? cxr::to_float(cxr::from_float<T>(p)) : p;
+        }
     }
   }
   __syncthreads();
@@ -612,13 +666,13 @@ decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV*
   }
 }
 
-template <typename T, typename KV, int MM, bool kExact>
+template <typename T, typename KV, int MM, bool kExact, typename C>
 cudaError_t launch_mm(const void* q, const void* k, const void* v, const float* ks,
-                      const float* vs, const float* mask, void* o, int bh, int heads, int m,
-                      int s_len, int n_split, int chunk, float scale, size_t smem,
+                      const float* vs, const typename C::Mask* mask, void* o, int bh, int heads,
+                      int m, int s_len, int n_split, int chunk, float scale, size_t smem,
                       cudaStream_t stream) {
-  auto fn = decode_split_kernel<T, KV, MM, kExact>;
-  if (smem > 48 * 1024) {
+  auto fn = decode_split_kernel<T, KV, MM, kExact, C>;
+  if (smem + 1024 > 48 * 1024) {  // the default limit holds the static memory too
     const cudaError_t err =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -643,8 +697,8 @@ cudaError_t launch_mm(const void* q, const void* k, const void* v, const float* 
 
 // Checks the schedule it is given (the wrapper computes it) and launches. q
 // and o are T, k and v KV; ks and vs the int8 K/V's scales (KV = signed
-// char), else null.
-template <typename T, typename KV, bool kExact>
+// char), else null; the mask is C's.
+template <typename T, typename KV, bool kExact, typename C = Decode>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                    const void* mask, void* o, int bh, int heads, int m, int s_len, int dh,
                    int n_split, int chunk, float scale, cudaStream_t stream) {
@@ -656,14 +710,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(m, chunk, sizeof(KV));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const float* mk = static_cast<const float*>(mask);
+  const auto* mk = static_cast<const typename C::Mask*>(mask);
   const float* kf = static_cast<const float*>(ks);
   const float* vf = static_cast<const float*>(vs);
   if (m == 1)
-    return launch_mm<T, KV, 1, kExact>(q, k, v, kf, vf, mk, o, bh, heads, m, s_len, n_split,
-                                       chunk, scale, smem, stream);
-  return launch_mm<T, KV, 4, kExact>(q, k, v, kf, vf, mk, o, bh, heads, m, s_len, n_split, chunk,
-                                     scale, smem, stream);
+    return launch_mm<T, KV, 1, kExact, C>(q, k, v, kf, vf, mk, o, bh, heads, m, s_len, n_split,
+                                          chunk, scale, smem, stream);
+  if constexpr (std::is_same<C, Decode>::value)
+    return launch_mm<T, KV, 4, kExact, C>(q, k, v, kf, vf, mk, o, bh, heads, m, s_len, n_split,
+                                          chunk, scale, smem, stream);
+  return cudaErrorInvalidValue;  // the fused contract has M = 1
 }
 
 }  // namespace split

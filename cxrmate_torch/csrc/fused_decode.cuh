@@ -112,14 +112,21 @@ template <> __device__ __forceinline__ void store_x<__nv_bfloat16>(float* row, i
   *reinterpret_cast<float4*>(row + (n >> 1) + 4 * j) = make_float4(x[4], x[5], x[6], x[7]);
 }
 
+struct Nothing {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // Rows [0, rows) of a contiguous [rows, n] array of T in device memory -> xs
 // (dense-pass layout, fp32); rows [rows, kRows) are zeroed. 16-byte loads,
-// kUnroll of them in flight per thread. The caller syncs the block.
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, int rows, int n, float* xs) {
+// kUnroll of them in flight per thread; issued() once a thread's first loads
+// are on their way (at once if it has none). The caller syncs the block.
+template <typename T, typename Issued = Nothing>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, int rows, int n, float* xs,
+                                          Issued issued = Issued()) {
   constexpr int VPR = 16 / sizeof(T);
   const int nvec = n / VPR, total = kRows * nvec, live = rows * nvec;
   const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  bool first = true;
   for (int i0 = threadIdx.x; i0 < total; i0 += blockDim.x * kUnroll) {
     uint4 buf[kUnroll];
 #pragma unroll
@@ -127,6 +134,8 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, int rows, i
       const int i = i0 + u * blockDim.x;
       buf[u] = i < live ? __ldg(s4 + i) : make_uint4(0, 0, 0, 0);
     }
+    if (first) issued();
+    first = false;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u * blockDim.x;
@@ -138,6 +147,7 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, int rows, i
       }
     }
   }
+  if (first) issued();
 }
 
 // The same for fp32 rows another block wrote during this launch. A group of
@@ -463,18 +473,146 @@ __device__ __forceinline__ void attend(const float* qs, const T* kc, const T* vc
   __syncthreads();
 }
 
+// The split-K pass of the dense kernels that use it (fused_qkv_attn.cu,
+// fused_out_ln_ffn.cu): a unit is one output's K-slice of kSliceVecs 16-byte
+// weight vectors (512 bytes), one vector a lane, multiplied with the lane's
+// input values of up to kRows rows from shared memory and summed over the
+// warp; the units of a block are cut into contiguous runs, one a warp, and a
+// warp has the weights of up to kBatch units in flight. The number of
+// K-slices is a function of the input width and the dtype alone, and an
+// output's slices are added in slice order, so a row's bits depend neither on
+// the card, the grid nor the batch. The kernels that use it launch blocks of
+// kPassThreads threads.
+constexpr int kPassThreads = 512;
+constexpr int kPassWarps = kPassThreads / 32;
+constexpr int kSliceVecs = 32;   // 16-byte weight vectors of a K-slice: one a lane
+constexpr int kBatch = 3;        // units whose weights a warp has in flight, unless a kernel says
+constexpr size_t kPiece = 16384; // bytes of one L2 prefetch
+
+// K-slices of a split pass with n_in inputs of T (ops/fused_decode.py:pass_slices)
+template <typename T> __device__ __forceinline__ int slices(int n_in) {
+  return (n_in / (16 / (int)sizeof(T)) + kSliceVecs - 1) / kSliceVecs;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"((unsigned)bytes)
+               : "memory");
+}
+
+// Bring the n values of T at p into this SM's L1, a 128-byte line a thread:
+// the LayerNorms' vectors, asked for before the grid sync that precedes them.
+template <typename T>
+__device__ __forceinline__ void prefetch_l1(const T* p, int n) {
+  const char* c = reinterpret_cast<const char*>(p);
+  for (int at = threadIdx.x * 128; at < n * (int)sizeof(T); at += kPassThreads * 128)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(c + at));
+}
+
+// Ask L2 for [p, p + bytes), in pieces spread over the block's threads.
+__device__ __forceinline__ void prefetch_range(const void* p, size_t bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (size_t at = threadIdx.x * kPiece; at < bytes; at += kPassThreads * kPiece)
+    prefetch_l2(c + at, bytes - at < kPiece ? bytes - at : kPiece);
+}
+
+// The units [ub, ue) of a pass over w ([n_out, n_in], T) and the input rows
+// in xs (dense-pass layout, kRows rows of n_in): unit u is K-slice u / n_o of
+// output o_lo + u % n_o. The block's warps take contiguous runs of units, as
+// even as can be (warp w [ub + (ue - ub) w / 16, ub + (ue - ub) (w + 1) / 16));
+// a warp loads the weights of up to NB units at once, lane j the slice's
+// vector j, multiplies them with the rows' values from shared memory in fp32
+// (each row's products in a fixed order, four rows at a time) and adds the
+// lanes by warp_sum_rows; sink(u, o, k, row, partial) at lane 4 row, for
+// row < rows.
+template <typename T, int NB = kBatch, typename Sink>
+__device__ __forceinline__ void split_pass(const float* xs, int n_in, const T* __restrict__ w,
+                                           int o_lo, int n_o, int ub, int ue, int rows,
+                                           Sink sink) {
+  constexpr int VPR = 16 / sizeof(T);
+  constexpr int HALF = kRows / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = n_in / VPR;
+  const int first = ub + (ue - ub) * warp / kPassWarps;
+  const int last = ub + (ue - ub) * (warp + 1) / kPassWarps;
+  const uint4* w4 = reinterpret_cast<const uint4*>(w);
+  for (int u0 = first; u0 < last; u0 += NB) {
+    uint4 wv[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int u = u0 + i, k = u / n_o, j = k * kSliceVecs + lane;
+      wv[i] = u < last && j < nvec ? __ldg(w4 + (size_t)(o_lo + u - k * n_o) * nvec + j)
+                                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int u = u0 + i;
+      if (u >= last) break;
+      const int k = u / n_o, j = k * kSliceVecs + lane;
+      float wf[VPR];
+      unpack16<T>(wv[i], wf);
+      float acc[kRows];
+#pragma unroll
+      for (int b0 = 0; b0 < kRows; b0 += HALF) {
+        float xf[HALF][VPR];
+#pragma unroll
+        for (int b = 0; b < HALF; ++b) {
+          if (j < nvec) {
+            load_x<T>(xs + (b0 + b) * n_in, j, n_in, xf[b]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VPR; ++e) xf[b][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < HALF; ++b) {
+          acc[b0 + b] = xf[b][0] * wf[0];
+#pragma unroll
+          for (int e = 1; e < VPR; ++e) acc[b0 + b] = fmaf(xf[b][e], wf[e], acc[b0 + b]);
+        }
+      }
+      const float y = warp_sum_rows(acc, lane);
+      if ((lane & 3) == 0 && (lane >> 2) < rows) sink(u, o_lo + u - k * n_o, k, lane >> 2, y);
+    }
+  }
+}
+
+// The block's outputs [lo, hi) of a pass, in rounds of at most `cap`: their
+// units' partials into part ([slice][output][kRows]), then each (output,
+// row) the sum of its slices' partials in slice order, to epi(o, row, y,
+// pre(o, row)); a thread's first pre() is loaded before the pass.
+template <typename T, int NB = kBatch, typename Pre, typename Epi>
+__device__ __forceinline__ void block_outputs(const float* xs, int n_in, const T* __restrict__ w,
+                                              int lo, int hi, int rows, float* part, int cap,
+                                              Pre pre, Epi epi) {
+  const int ks = slices<T>(n_in);
+  for (int o0 = lo; o0 < hi; o0 += cap) {
+    const int n_o = min(cap, hi - o0);
+    const int p0 = threadIdx.x, i0 = p0 / rows;
+    const float2 add0 = p0 < n_o * rows ? pre(o0 + i0, p0 - i0 * rows) : make_float2(0.f, 0.f);
+    split_pass<T, NB>(xs, n_in, w, o0, n_o, 0, ks * n_o, rows,
+                  [&](int u, int, int, int row, float y) { part[u * kRows + row] = y; });
+    __syncthreads();
+    for (int p = p0; p < n_o * rows; p += kPassThreads) {
+      const int i = p / rows, row = p - i * rows;
+      float y = part[i * kRows + row];
+      for (int k = 1; k < ks; ++k) y += part[(k * n_o + i) * kRows + row];
+      epi(o0 + i, row, y, p == p0 ? add0 : pre(o0 + i, row));
+    }
+    __syncthreads();
+  }
+}
+
 // One block per SM for a cooperative launch of `fn`, or an error if not even
-// one block of it fits. Sets the dynamic shared memory limit when needed.
+// one block of it fits. Sets the dynamic shared memory limit (always: 48 KB of
+// dynamic memory and the kernel's static memory together exceed the default).
 inline cudaError_t cooperative_grid(const void* fn, int threads, size_t smem, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;

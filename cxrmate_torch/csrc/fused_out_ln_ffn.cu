@@ -51,123 +51,8 @@ namespace cg = cooperative_groups;
 using namespace cxr;
 using namespace cxr::fused;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = kPassThreads;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSliceVecs = 32;   // 16-byte weight vectors of a K-slice: one a lane
-constexpr int kBatch = 3;        // units whose weights a warp has in flight
-constexpr size_t kPiece = 16384; // bytes of one L2 prefetch
-
-// K-slices of a pass with n_in inputs of T (ops/fused_decode.py:ffn_slices)
-template <typename T> __device__ __forceinline__ int slices(int n_in) {
-  return (n_in / (16 / (int)sizeof(T)) + kSliceVecs - 1) / kSliceVecs;
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"((unsigned)bytes)
-               : "memory");
-}
-
-// Bring the n values of T at p into this SM's L1, a 128-byte line a thread:
-// the LayerNorms' vectors, asked for before the grid sync that precedes them.
-template <typename T>
-__device__ __forceinline__ void prefetch_l1(const T* p, int n) {
-  const char* c = reinterpret_cast<const char*>(p);
-  for (int at = threadIdx.x * 128; at < n * (int)sizeof(T); at += kThreads * 128)
-    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(c + at));
-}
-
-// Ask L2 for [p, p + bytes), in pieces spread over the block's threads.
-__device__ __forceinline__ void prefetch_range(const void* p, size_t bytes) {
-  const char* c = static_cast<const char*>(p);
-  for (size_t at = threadIdx.x * kPiece; at < bytes; at += kThreads * kPiece)
-    prefetch_l2(c + at, bytes - at < kPiece ? bytes - at : kPiece);
-}
-
-// The units [ub, ue) of a pass over w ([n_out, n_in], T) and the input rows
-// in xs (dense-pass layout, kRows rows of n_in): unit u is K-slice u / n_o of
-// output o_lo + u % n_o. The block's warps take contiguous runs of units, as
-// even as can be (warp w [ub + (ue - ub) w / 16, ub + (ue - ub) (w + 1) / 16));
-// a warp loads the weights of up to kBatch units at once, lane j the slice's
-// vector j, multiplies them with the rows' values from shared memory in fp32
-// (each row's products in a fixed order, four rows at a time) and adds the
-// lanes by warp_sum_rows; sink(u, o, k, row, partial) at lane 4 row, for
-// row < rows.
-template <typename T, typename Sink>
-__device__ __forceinline__ void split_pass(const float* xs, int n_in, const T* __restrict__ w,
-                                           int o_lo, int n_o, int ub, int ue, int rows,
-                                           Sink sink) {
-  constexpr int VPR = 16 / sizeof(T);
-  constexpr int HALF = kRows / 2;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nvec = n_in / VPR;
-  const int first = ub + (ue - ub) * warp / kWarps, last = ub + (ue - ub) * (warp + 1) / kWarps;
-  const uint4* w4 = reinterpret_cast<const uint4*>(w);
-  for (int u0 = first; u0 < last; u0 += kBatch) {
-    uint4 wv[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int u = u0 + i, k = u / n_o, j = k * kSliceVecs + lane;
-      wv[i] = u < last && j < nvec ? __ldg(w4 + (size_t)(o_lo + u - k * n_o) * nvec + j)
-                                   : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int u = u0 + i;
-      if (u >= last) break;
-      const int k = u / n_o, j = k * kSliceVecs + lane;
-      float wf[VPR];
-      unpack16<T>(wv[i], wf);
-      float acc[kRows];
-#pragma unroll
-      for (int b0 = 0; b0 < kRows; b0 += HALF) {
-        float xf[HALF][VPR];
-#pragma unroll
-        for (int b = 0; b < HALF; ++b) {
-          if (j < nvec) {
-            load_x<T>(xs + (b0 + b) * n_in, j, n_in, xf[b]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < VPR; ++e) xf[b][e] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int b = 0; b < HALF; ++b) {
-          acc[b0 + b] = xf[b][0] * wf[0];
-#pragma unroll
-          for (int e = 1; e < VPR; ++e) acc[b0 + b] = fmaf(xf[b][e], wf[e], acc[b0 + b]);
-        }
-      }
-      const float y = warp_sum_rows(acc, lane);
-      if ((lane & 3) == 0 && (lane >> 2) < rows) sink(u, o_lo + u - k * n_o, k, lane >> 2, y);
-    }
-  }
-}
-
-// The block's outputs [lo, hi) of a pass, in rounds of at most `cap`: their
-// units' partials into part ([slice][output][kRows]), then each (output,
-// row) the sum of its slices' partials in slice order, to epi(o, row, y,
-// pre(o, row)); a thread's first pre() is loaded before the pass.
-template <typename T, typename Pre, typename Epi>
-__device__ __forceinline__ void block_outputs(const float* xs, int n_in, const T* __restrict__ w,
-                                              int lo, int hi, int rows, float* part, int cap,
-                                              Pre pre, Epi epi) {
-  const int ks = slices<T>(n_in);
-  for (int o0 = lo; o0 < hi; o0 += cap) {
-    const int n_o = min(cap, hi - o0);
-    const int p0 = threadIdx.x, i0 = p0 / rows;
-    const float2 add0 = p0 < n_o * rows ? pre(o0 + i0, p0 - i0 * rows) : make_float2(0.f, 0.f);
-    split_pass<T>(xs, n_in, w, o0, n_o, 0, ks * n_o, rows,
-                  [&](int u, int, int, int row, float y) { part[u * kRows + row] = y; });
-    __syncthreads();
-    for (int p = p0; p < n_o * rows; p += kThreads) {
-      const int i = p / rows, row = p - i * rows;
-      float y = part[i * kRows + row];
-      for (int k = 1; k < ks; ++k) y += part[(k * n_o + i) * kRows + row];
-      epi(o0 + i, row, y, p == p0 ? add0 : pre(o0 + i, row));
-    }
-    __syncthreads();
-  }
-}
 
 // Columns [c0, c1) (multiples of 4) of rows [0, rows) of a [rows, n] fp32
 // array another block wrote during this launch -> xs (dense-pass layout);

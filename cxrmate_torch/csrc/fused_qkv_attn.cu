@@ -15,13 +15,25 @@
 // at D = 768) are read once for all rows, the self cache up to 2 B H T dh
 // elements (only the columns below `index` that are not masked).
 //
-// Design: one cooperative launch, two stages with a grid-wide sync between.
-// Stage 1 is one dense pass over the concatenated [3D, D] weight (the port's
-// layout: nn.Linear's [out, in] rows, q then k then v): the grid's warps
-// share the 3D outputs, each weight is read once for up to 8 rows, the fp32
-// results go to scratch. Stage 2 gives each (study, head) to a block: the
-// attend routine of fused_decode.cuh over the columns below `index`, the new
-// token as the extra column. More than 8 studies run stage 1 in chunks of 8.
+// Design: one cooperative launch, one block of 16 warps per SM, two stages
+// with a grid-wide sync between.
+//   Stage 1 is a split-K pass (fused_decode.cuh: split_pass, block_outputs)
+//     over the concatenated [3D, D] weight (the port's layout: nn.Linear's
+//     [out, in] rows, q then k then v): block b owns the outputs [3D b / G,
+//     3D (b + 1) / G), whose 512-byte K-slices (3 a row in bf16, 6 in fp32
+//     at D = 768) its warps share in contiguous runs; the slices' partials are
+//     reduced through shared memory in slice order, the bias added, the fp32
+//     results written to scratch. Every warp of the grid has a few units, and
+//     a row's q, k and v (so its cache column) do not depend on the card or
+//     the batch. A warp has the weights of all its (up to 4) units in flight
+//     at once. Each block asks L2 for its rows of the weight
+//     (cp.async.bulk.prefetch.L2) once hidden's loads are on their way. More
+//     than 8 studies run stage 1 in chunks of 8, which find the weight in L2.
+//   Stage 2 gives each (study, head) to a block: the attend routine of
+//     fused_decode.cuh over the columns below `index`, the new token as the
+//     extra column. Before the grid sync each block asks L2 for its first
+//     unit's cached K and V columns and L1 for its mask row, so that stage 2
+//     finds them on chip.
 #include "fused_decode.cuh"
 
 namespace {
@@ -30,8 +42,11 @@ namespace cg = cooperative_groups;
 using namespace cxr;
 using namespace cxr::fused;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = kPassThreads;
 constexpr int kWarps = kThreads / 32;
+// units whose weights a warp has in flight: a block's 3.4 a warp at D = 768
+// in bf16 (18 outputs x 3 slices over 16 warps) in one round
+constexpr int kUnits = 4;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -43,20 +58,33 @@ qkv_attn_kernel(const T* __restrict__ hidden, const T* __restrict__ wqkv,
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float red[kWarps];
   cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5;
-  const int gwarp = blockIdx.x * kWarps + warp, gwarps = gridDim.x * kWarps;
-  const int d3 = 3 * d_model;
+  const int d3 = 3 * d_model, g = gridDim.x, blk = blockIdx.x;
+  const int lo = (int)((long)d3 * blk / g), hi = (int)((long)d3 * (blk + 1) / g);
 
-  // stage 1: q, k_new, v_new of every row, fp32, to scratch [batch, 3D]
+  // stage 1: q, k_new, v_new of every row, fp32, to scratch [batch, 3D]; the
+  // slices' partials after the rows in shared memory. The block's rows of
+  // Wqkv are asked into L2 once the first rows of hidden are on their way
+  // (asked before them, they delay hidden's loads behind them)
   for (int b0 = 0; b0 < batch; b0 += kRows) {
     const int rows = min(kRows, batch - b0);
-    load_rows<T>(hidden + (size_t)b0 * d_model, rows, d_model, smem);
+    load_rows<T>(hidden + (size_t)b0 * d_model, rows, d_model, smem, [&] {
+      if (b0 == 0)
+        prefetch_range(wqkv + (size_t)lo * d_model, sizeof(T) * (size_t)(hi - lo) * d_model);
+    });
     __syncthreads();
-    dense_pass<T>(
-        smem, d_model, wqkv, d3, rows, gwarp, gwarps,
-        [&](int o, int b) { return make_float2(to_float(bqkv[o]), 0.f); },
+    block_outputs<T, kUnits>(
+        smem, d_model, wqkv, lo, hi, rows, smem + kRows * d_model,
+        d_model / slices<T>(d_model),
+        [&](int o, int) { return make_float2(to_float(bqkv[o]), 0.f); },
         [&](int o, int b, float y, float2 a) { qkv[(size_t)(b0 + b) * d3 + o] = y + a.x; });
-    __syncthreads();
+  }
+  // the block's first (study, head) while the grid syncs: its cached K and V
+  // columns below `index` to L2, its mask row to L1
+  if (blk < batch * heads) {
+    const size_t base = (size_t)blk * t_len * kDh, cols = sizeof(T) * (size_t)index * kDh;
+    prefetch_range(cache_k + base, cols);
+    prefetch_range(cache_v + base, cols);
+    prefetch_l1(key_mask + (size_t)(blk / heads) * t_len, t_len);
   }
   grid.sync();
 
@@ -91,7 +119,7 @@ cudaError_t launch(const void* hidden, const void* wqkv, const void* bqkv, void*
                    cudaStream_t stream) {
   if (dh != kDh || d_model != heads * dh || d_model % 8 != 0 || index < 0 || index >= t_len)
     return cudaErrorInvalidValue;
-  const size_t dense = (size_t)kRows * d_model;
+  const size_t dense = (size_t)2 * kRows * d_model;  // the rows, then the slices' partials
   const size_t attn = 3 * kDh + attend_floats(t_len, kWarps);
   const size_t smem = sizeof(float) * (dense > attn ? dense : attn);
   const void* fn = reinterpret_cast<const void*>(&qkv_attn_kernel<T>);

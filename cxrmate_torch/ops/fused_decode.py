@@ -4,7 +4,9 @@ calls.
 
 The port of ``cxrmate_tpu/ops/fused_decode.py:366 fused_layer_step_v2`` and its
 four Pallas bodies. Each has a CUDA kernel here (``csrc/fused_*.cu``, shared
-device code in ``csrc/fused_decode.cuh``), a wrapper and a plain version:
+device code in ``csrc/fused_decode.cuh``; the cross-attention kernel is the
+split decode body of ``csrc/decode_split.cuh`` under its own contract), a
+wrapper and a plain version:
 
   ====================== ============================== =======================
   wrapper                replaces (fused_decode.py)     source
@@ -60,6 +62,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from cxrmate_torch.ops import _build
+from cxrmate_torch.ops import decode_attention as da
 from cxrmate_torch.ops.layers import LoraLinear
 
 NEG = float(torch.finfo(torch.float32).min)
@@ -67,7 +70,7 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _DH = 64              # the head dim the kernels are written for
 _ROWS = 8             # batch rows a dense pass carries per weight read
-_DENSE_WARPS, _CROSS_WARPS = 16, 32
+_DENSE_WARPS = 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -75,34 +78,40 @@ def _attend_floats(n: int, warps: int) -> int:
     return (n + 1 + 3) // 4 * 4 + warps * _DH
 
 
-# Dynamic shared memory (bytes) of one block of each kernel, as the launchers
-# compute it: the fp32 input rows of a dense pass (8 x D, for the FFN
-# 8 x (D + F)), or the scores of T + 1 / S keys and the per-warp contexts.
+# Dynamic shared memory (bytes) of one block of each dense kernel, as the
+# launchers compute it: the fp32 input rows of a dense pass (8 x D, for the
+# FFN 8 x (D + F)), or the scores of T + 1 keys and the per-warp contexts.
 def _smem_qkv_attn(d_model: int, t_len: int) -> int:
-    return 4 * max(_ROWS * d_model, 3 * _DH + _attend_floats(t_len, _DENSE_WARPS))
+    # stage 1: the rows, then the slices' partials of the block's outputs
+    return 4 * max(2 * _ROWS * d_model, 3 * _DH + _attend_floats(t_len, _DENSE_WARPS))
 
 
 def _smem_out_ln_q(d_model: int) -> int:
     return 4 * _ROWS * d_model
 
 
-def _smem_cross_attn(s_len: int) -> int:
-    return 4 * (_DH + _attend_floats(s_len, _CROSS_WARPS))
+def cross_fits(s_len: int, itemsize: int) -> bool:
+    """Whether :func:`fused_cross_attn` takes S = ``s_len`` keys of
+    ``itemsize`` bytes: its block (the split decode body at M = 1,
+    ``csrc/decode_split.cuh``) fits in shared memory, up to
+    ``decode_attention.max_keys(1, 64, itemsize)`` keys."""
+    return s_len >= 1 and da.smem_bytes(1, s_len, _DH, itemsize) <= da._SPLIT_SMEM_LIMIT
 
 
 def _smem_out_ln_ffn(d_model: int, d_ff: int) -> int:
     return 4 * _ROWS * (d_model + max(d_model, d_ff))
 
 
-_SLICE_VECS = 32  # 16-byte weight vectors of a K-slice of fused_out_ln_ffn's passes
-_FFN_WARPS = 16   # warps of a fused_out_ln_ffn block
+_SLICE_VECS = 32  # 16-byte weight vectors of a K-slice of a split-K pass
+_PASS_WARPS = 16  # warps of a block of the kernels with split-K passes
 
 
-def ffn_slices(n_in: int, itemsize: int) -> int:
-    """K-slices of a split-K pass of :func:`fused_out_ln_ffn` over ``n_in``
-    inputs of ``itemsize`` bytes: each weight row cut into slices of
-    _SLICE_VECS 16-byte vectors (one a lane), a function of the width and dtype alone
-    (``csrc/fused_out_ln_ffn.cu:slices``)."""
+def pass_slices(n_in: int, itemsize: int) -> int:
+    """K-slices of a split-K pass (:func:`fused_qkv_attn`'s projection,
+    :func:`fused_out_ln_ffn`'s three products) over ``n_in`` inputs of
+    ``itemsize`` bytes: each weight row cut into slices of _SLICE_VECS 16-byte
+    vectors (one a lane), a function of the width and dtype alone
+    (``csrc/fused_decode.cuh:slices``)."""
     return -(-(n_in * itemsize // 16) // _SLICE_VECS)
 
 
@@ -110,35 +119,48 @@ def _warp_runs(ub: int, ue: int):
     """(warp, unit) of the units [ub, ue) of a block: contiguous runs as even
     as can be, one a warp (``split_pass``)."""
     n = ue - ub
-    for w in range(_FFN_WARPS):
-        for u in range(ub + n * w // _FFN_WARPS, ub + n * (w + 1) // _FFN_WARPS):
+    for w in range(_PASS_WARPS):
+        for u in range(ub + n * w // _PASS_WARPS, ub + n * (w + 1) // _PASS_WARPS):
             yield w, u
+
+
+def _block_units(n_out: int, n_in: int, part: int, itemsize: int, grid: int) -> list:
+    """(block, warp, output, slice) of a pass whose block b owns the outputs
+    [n_out b / grid, n_out (b + 1) / grid), taken in rounds of as many outputs
+    as ``part`` floats of shared-memory partials hold (_ROWS a unit), each
+    round's units slice by slice (``block_outputs``)."""
+    ks = pass_slices(n_in, itemsize)
+    cap = part // ks
+    out = []
+    for b in range(grid):
+        lo, hi = n_out * b // grid, n_out * (b + 1) // grid
+        for o0 in range(lo, hi, cap):
+            n_o = min(cap, hi - o0)
+            out += [(b, w, o0 + u % n_o, u // n_o) for w, u in _warp_runs(0, ks * n_o)]
+    return out
 
 
 def ffn_units(d_model: int, d_ff: int, itemsize: int, grid: int) -> dict:
     """The ownership map of :func:`fused_out_ln_ffn`'s three split-K passes
     on a grid of ``grid`` blocks, as the kernel computes it: {"wo" | "w1" |
     "w2": [(block, warp, output, slice), ...]}. Wo and W1: block b owns the
-    outputs [n b / grid, n (b + 1) / grid), taken in rounds of as many
-    outputs as its shared-memory partials hold (hs for Wo, xs for W1), each
-    round's units slice by slice; W2: the units (slice k, output o), slice by
-    slice, cut into ``grid`` equal runs, one a block."""
-    units = {}
-    for name, n_out, n_in, part in (("wo", d_model, d_model, d_model),
-                                    ("w1", d_ff, d_model, max(d_model, d_ff))):
-        ks = ffn_slices(n_in, itemsize)
-        cap = part // ks  # the partials hold _ROWS floats a unit
-        out = []
-        for b in range(grid):
-            lo, hi = n_out * b // grid, n_out * (b + 1) // grid
-            for o0 in range(lo, hi, cap):
-                n_o = min(cap, hi - o0)
-                out += [(b, w, o0 + u % n_o, u // n_o) for w, u in _warp_runs(0, ks * n_o)]
-        units[name] = out
-    n2 = ffn_slices(d_ff, itemsize) * d_model
+    outputs [n b / grid, n (b + 1) / grid), in rounds as its shared-memory
+    partials hold them (hs for Wo, xs for W1); W2: the units (slice k, output
+    o), slice by slice, cut into ``grid`` equal runs, one a block."""
+    units = {"wo": _block_units(d_model, d_model, d_model, itemsize, grid),
+             "w1": _block_units(d_ff, d_model, max(d_model, d_ff), itemsize, grid)}
+    n2 = pass_slices(d_ff, itemsize) * d_model
     units["w2"] = [(b, w, u % d_model, u // d_model) for b in range(grid)
                    for w, u in _warp_runs(n2 * b // grid, n2 * (b + 1) // grid)]
     return units
+
+
+def qkv_units(d_model: int, itemsize: int, grid: int) -> list:
+    """The ownership map of :func:`fused_qkv_attn`'s split-K projection on a
+    grid of ``grid`` blocks, as the kernel computes it: [(block, warp,
+    output, slice), ...] over the [3D, D] weight, block b owning the outputs
+    [3D b / grid, 3D (b + 1) / grid), their partials in D floats a row."""
+    return _block_units(3 * d_model, d_model, d_model, itemsize, grid)
 
 
 _STEP_WARPS = 16  # warps per block of the v1 kernel, attention stages included
@@ -158,7 +180,8 @@ def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor, version: int =
     (as ``fused_decode.py:219``), and the kernels' own limits in place of the
     TPU's memory budget: float32 or bfloat16, head dim 64, widths that are
     multiples of 8, and the shared memory one block may use (the T + 1 and S
-    scores, the 8 x (D + F) fp32 rows of the FFN). ``models.bert.bert_step``
+    scores, the 8 x (D + F) fp32 rows of the FFN; v2's S up to
+    :func:`cross_fits`, a cluster's share of it a block). ``models.bert.bert_step``
     does not ask (its gate is no LoRA and no deferred write, as in the JAX
     package); on the card a wrapper raises on what its kernel does not take."""
     if isinstance(layer.attention.self.query, LoraLinear):
@@ -171,11 +194,10 @@ def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor, version: int =
     if d_model != cache_k.shape[1] * _DH or d_model % 8 or d_ff % 8:
         return False
     if version == 1:
-        need = _smem_layer_step(d_model, d_ff, cache_k.shape[2], cross_k.shape[2])
-    else:
-        need = max(_smem_qkv_attn(d_model, cache_k.shape[2]), _smem_out_ln_q(d_model),
-                   _smem_cross_attn(cross_k.shape[2]), _smem_out_ln_ffn(d_model, d_ff))
-    return need <= _SMEM_LIMIT
+        return _smem_layer_step(d_model, d_ff, cache_k.shape[2], cross_k.shape[2]) <= _SMEM_LIMIT
+    need = max(_smem_qkv_attn(d_model, cache_k.shape[2]), _smem_out_ln_q(d_model),
+               _smem_out_ln_ffn(d_model, d_ff))
+    return need <= _SMEM_LIMIT and cross_fits(cross_k.shape[2], cross_k.element_size())
 
 
 # ------------------------------------------------------------ plain versions
@@ -382,13 +404,16 @@ def fused_out_ln_q(ctx: torch.Tensor, res: torch.Tensor, wo: torch.Tensor, bo: t
 
 fused_out_ln_q.launches = 0
 
-_ARGS_CROSS = [_P] * 5 + [_I] * 5 + [_F, _P]
+_ARGS_CROSS = [_P] * 5 + [_I] * 6 + [_F, _P]
 
 
 def fused_cross_attn(cq: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor,
                      cross_mask: torch.Tensor) -> torch.Tensor:
     """cq [B, D] (heads side by side); cross_k/cross_v [B, H, S, 64];
-    cross_mask [B, S] int32 (non-zero = may be attended) -> cctx [B, D]."""
+    cross_mask [B, S] int32 (non-zero = may be attended) -> cctx [B, D].
+    On the card one launch of a thread-block cluster per (study, head), the
+    split of ``decode_attention.decode_schedule(S, 64)``; S up to
+    :func:`cross_fits`."""
     if cq.device.type == "cpu":
         return fused_cross_attn_plain(cq, cross_k, cross_v, cross_mask)
     name = "fused_cross_attn"
@@ -403,12 +428,16 @@ def fused_cross_attn(cq: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Ten
     ptrs = _pointers(name, cq.dtype, dev, (
         (cq, (b, d), None), (cross_k, (b, h, s, dh), None), (cross_v, (b, h, s, dh), None),
         (cross_mask, (b, s), torch.int32)))
-    _check_smem(name, _smem_cross_attn(s))
+    if not cross_fits(s, cross_k.element_size()):
+        raise ValueError(f"{name}: S={s} exceeds the "
+                         f"{da.max_keys(1, dh, cross_k.element_size())} keys a cluster of "
+                         f"{da.MAX_SPLIT} blocks holds with {cross_k.dtype} K/V")
     cctx = torch.empty_like(cq)
     if b == 0:
         return cctx
+    n_split, chunk = da.decode_schedule(s, dh)
     _launch(f"cxr_fused_cross_attn_{_SUFFIX[cq.dtype]}", _ARGS_CROSS, dev, *ptrs,
-            cctx.data_ptr(), b, h, s, d, dh, 1.0 / math.sqrt(dh))
+            cctx.data_ptr(), b * h, h, s, dh, n_split, chunk, 1.0 / math.sqrt(dh))
     fused_cross_attn.launches += 1
     return cctx
 
@@ -445,7 +474,7 @@ def fused_out_ln_ffn(cctx: torch.Tensor, res: torch.Tensor, wo: torch.Tensor, bo
     if b == 0:
         return out
     # y1 [B, D], z [B, F], W2's partials [slices][8][D]
-    scratch = torch.empty(b * (d + f) + ffn_slices(f, cctx.element_size()) * _ROWS * d,
+    scratch = torch.empty(b * (d + f) + pass_slices(f, cctx.element_size()) * _ROWS * d,
                           dtype=torch.float32, device=dev)
     _launch(f"cxr_fused_out_ln_ffn_{_SUFFIX[cctx.dtype]}", _ARGS_FFN, dev, *ptrs, out.data_ptr(),
             scratch.data_ptr(), b, d, f, float(eps))

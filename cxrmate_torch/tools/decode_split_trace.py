@@ -6,12 +6,17 @@ Builds a copy of ``csrc/decode_split.cuh`` in which thread 0 of every block
 stamps the device clock (``%globaltimer``) after each phase, with a small
 runner program, by ``nvcc`` into ``cxrmate_torch/_build/trace/``, and runs it in bf16
 at the decode-attention shapes of ``chip_smoke.py``'s main paths, with the
-same masks (``chip_smoke.key_mask``): the three kernels on the body
-(``decode_attention_q8`` with int8 K/V and fp32 scales). One JSON line per shape: the time of a
-launch (CUDA events over back-to-back launches), the span of the traced
-launch, blocks resident per SM and clusters at once (the occupancy API), the
-median, 90th percentile and largest time of each phase over the blocks, and
-the unmasked key tiles each SM was given. A phase ends at a block barrier or
+same masks (``chip_smoke.key_mask``): the four kernels on the body
+(``decode_attention_q8`` with int8 K/V and fp32 scales; ``fused_cross_attn``
+under the fused contract, its integer study mask, at the fused path's cross
+shape). One JSON line per shape and L2 state: the time of a launch
+(``warm``: CUDA events over back-to-back launches on the same inputs, whose
+K/V largely stay in the 50 MB L2; ``cold``: each launch timed alone after a
+512 MB read, which leaves L2 full of clean lines, as a decode step's layer
+finds it), the span of the traced launch, blocks resident per SM and
+clusters at once (the occupancy API), the median, 90th percentile and largest
+time of each phase over the blocks, and the unmasked key tiles each SM was
+given. A phase ends at a block barrier or
 a cluster barrier, so its time includes the wait for the slowest thread or
 block. The stamps are the only difference from the kernel the port runs; an
 anchor that is no longer in the source fails the run.
@@ -59,7 +64,16 @@ template <> __nv_bfloat16 kv_value<__nv_bfloat16>(size_t i) {
 }
 template <> signed char kv_value<signed char>(size_t i) { return (signed char)((int)(i * 104729 % 255) - 127); }
 
-template <typename KV, int MM, bool kExact>
+static bool g_cold = false;  // a 512 MB read before each timed launch, which is then timed alone
+
+__global__ void flush_read(const int4* p, size_t n, int* sink) {
+  int acc = 0;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n; i += (size_t)gridDim.x * blockDim.x)
+    acc ^= p[i].x ^ p[i].w;
+  if (acc == 0x7fffffff) *sink = acc;  // keeps the loads
+}
+
+template <typename KV, int MM, bool kExact, typename C = Decode>
 int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) {
   const int H = 12, tiles_all = (S + kTile - 1) / kTile, blocks = n * B * H;
   const size_t nq = (size_t)B * H * M * kDh, nk = (size_t)B * H * S * kDh;
@@ -69,13 +83,14 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
   std::vector<float> hs((size_t)B * H * S, 0.01f);
   for (size_t i = 0; i < nq; ++i) hq[i] = __float2bfloat16((float)(i * 7919 % 1000) / 1000.f - 0.5f);
   for (size_t i = 0; i < nk; ++i) hk[i] = kv_value<KV>(i);
-  std::vector<float> hm((size_t)B * S);
+  std::vector<typename C::Mask> hm((size_t)B * S);
   FILE* f = fopen(mask_path, "rb");
   if (!f || fread(hm.data(), 4, hm.size(), f) != hm.size()) { fprintf(stderr, "mask %s\n", mask_path); return 1; }
   fclose(f);
   __nv_bfloat16 *q, *o;
   KV *k, *v;
-  float *mk, *sc;
+  typename C::Mask* mk;
+  float* sc;
   unsigned long long* tr;
   CK(cudaMalloc(&q, nq * 2)); CK(cudaMalloc(&k, nk * sizeof(KV))); CK(cudaMalloc(&v, nk * sizeof(KV)));
   CK(cudaMalloc(&o, nq * 2)); CK(cudaMalloc(&mk, hm.size() * 4)); CK(cudaMalloc(&sc, hs.size() * 4));
@@ -87,7 +102,7 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
   CK(cudaMemcpy(mk, hm.data(), hm.size() * 4, cudaMemcpyHostToDevice));
   CK(cudaMemcpy(sc, hs.data(), hs.size() * 4, cudaMemcpyHostToDevice));
   const size_t smem = smem_bytes(M, chunk, sizeof(KV));
-  auto fn = decode_split_kernel<__nv_bfloat16, KV, MM, kExact>;
+  auto fn = decode_split_kernel<__nv_bfloat16, KV, MM, kExact, C>;
   int per_sm = 0, clusters = 0;
   CK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem));
   cudaLaunchAttribute attr[1];
@@ -97,18 +112,37 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
   cfg.gridDim = dim3(blocks); cfg.blockDim = dim3(kThreads); cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr; cfg.numAttrs = 1;
   CK(cudaOccupancyMaxActiveClusters(&clusters, (void*)fn, &cfg));
-  auto once = [&]() { return launch<__nv_bfloat16, KV, kExact>(
+  auto once = [&]() { return launch<__nv_bfloat16, KV, kExact, C>(
       q, k, v, q8 ? sc : nullptr, q8 ? sc : nullptr, mk, o, B * H, H, M, S, kDh, n, chunk, 0.125f, 0); };
   for (int i = 0; i < 3; ++i) CK(once());
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0); cudaEventCreate(&e1);
   CK(cudaDeviceSynchronize());
-  cudaEventRecord(e0);
-  for (int i = 0; i < reps; ++i) CK(once());
-  cudaEventRecord(e1);
-  CK(cudaDeviceSynchronize());
   float ms = 0;
-  cudaEventElapsedTime(&ms, e0, e1);
+  if (!g_cold) {
+    cudaEventRecord(e0);
+    for (int i = 0; i < reps; ++i) CK(once());
+    cudaEventRecord(e1);
+    CK(cudaDeviceSynchronize());
+    cudaEventElapsedTime(&ms, e0, e1);
+  } else {
+    static int4* fl = nullptr;
+    static int* sink = nullptr;
+    const size_t nfl = ((size_t)512 << 20) / 16;
+    if (!fl) {
+      CK(cudaMalloc(&fl, nfl * 16)); CK(cudaMemset(fl, 0, nfl * 16)); CK(cudaMalloc(&sink, 4));
+    }
+    for (int i = 0; i < reps; ++i) {
+      flush_read<<<1056, 512>>>(fl, nfl, sink);
+      cudaEventRecord(e0);
+      CK(once());
+      cudaEventRecord(e1);
+      CK(cudaDeviceSynchronize());
+      float one = 0;
+      cudaEventElapsedTime(&one, e0, e1);
+      ms += one;
+    }
+  }
   std::vector<unsigned long long> t((size_t)blocks * 9);
   CK(cudaMemcpy(t.data(), tr, t.size() * 8, cudaMemcpyDeviceToHost));
   unsigned long long t0 = ~0ull, t1 = 0;
@@ -124,15 +158,15 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
     printf("%s\"%s\": [%.3f, %.3f, %.3f]", p ? ", " : "", names[p], d[d.size() / 2],
            d[d.size() * 9 / 10], d.back());
   }
-  // unmasked tiles of each block (its tiles dealt every n), summed per SM
+  // unmasked tiles of each block (its tiles dealt every n; cluster c is the
+  // (row, head) c, heads fastest), summed per SM
   std::vector<int> sm_tiles(1024, 0), sm_blocks(1024, 0);
-  const int rows = B;
   for (int blk = 0; blk < blocks; ++blk) {
-    const int c = blk / n, r = blk % n, b = c % rows;
+    const int c = blk / n, r = blk % n, b = c / H;
     int open = 0;
     for (int g = r; g < tiles_all; g += n) {
       bool any = false;
-      for (int i = g * kTile; i < std::min(S, g * kTile + kTile); ++i) any |= hm[(size_t)b * S + i] != kSkip;
+      for (int i = g * kTile; i < std::min(S, g * kTile + kTile); ++i) any |= !C::skip(hm[(size_t)b * S + i]);
       open += any;
     }
     const unsigned sm = (unsigned)t[blk * 9 + 8] % 1024;
@@ -147,14 +181,18 @@ int run(int B, int M, int S, int n, int chunk, const char* mask_path, int reps) 
 }
 
 int main(int argc, char** argv) {
-  // argv: groups of B M S n_split chunk kind mask_path (kind 0: decode_attention, 1: vpu, 2: q8)
-  for (int a = 1; a + 6 < argc; a += 7) {
+  // argv: cold (0: back-to-back launches, 1: a read flush before each), then groups of
+  // B M S n_split chunk kind mask_path (kind 0: decode_attention, 1: vpu, 2: q8,
+  // 3: fused_cross_attn, M = 1)
+  g_cold = argc > 1 && atoi(argv[1]) != 0;
+  for (int a = 2; a + 6 < argc; a += 7) {
     const int B = atoi(argv[a]), M = atoi(argv[a + 1]), S = atoi(argv[a + 2]);
     const int n = atoi(argv[a + 3]), chunk = atoi(argv[a + 4]), kind = atoi(argv[a + 5]);
     const char* mp = argv[a + 6];
     using bf = __nv_bfloat16;
     using i8 = signed char;
-    int rc = kind == 2 ? (M == 1 ? run<i8, 1, false>(B, M, S, n, chunk, mp, 30)
+    int rc = kind == 3 ? run<bf, 1, false, Fused>(B, M, S, n, chunk, mp, 30)
+           : kind == 2 ? (M == 1 ? run<i8, 1, false>(B, M, S, n, chunk, mp, 30)
                                  : run<i8, 4, false>(B, M, S, n, chunk, mp, 30))
            : M == 1 ? (kind ? run<bf, 1, true>(B, M, S, n, chunk, mp, 30) : run<bf, 1, false>(B, M, S, n, chunk, mp, 30))
                     : (kind ? run<bf, 4, true>(B, M, S, n, chunk, mp, 30) : run<bf, 4, false>(B, M, S, n, chunk, mp, 30));
@@ -198,20 +236,29 @@ def main() -> int:
     subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS[:4], "-I", str(_build.CSRC), "-o",
                     str(out / "runner"), str(out / "runner.cu")], check=True)
     calls = sorted({c for p in cs.main_path_calls(da).values() for c in p["decode"]})
+    calls.append(("fused_cross_attn", cs.STUDIES, 1, cs.SLOTS * 576, "slots"))
+    kinds = (*cs.SPLIT, "fused_cross_attn")
     args = []
     for i, (kernel, b, m, s, kind) in enumerate(calls):
         path = out / f"mask{i}.bin"
-        cs.key_mask(torch, kind, b, s).cpu().numpy().astype(np.float32).tofile(path)
+        mask = cs.key_mask(torch, kind, b, s).cpu().numpy()
+        if kernel == "fused_cross_attn":  # the study mask: non-zero = open
+            (mask == 0).astype(np.int32).tofile(path)
+        else:
+            mask.astype(np.float32).tofile(path)
         n_split, chunk = da.decode_schedule(s, 64)
-        args += [b, m, s, n_split, chunk, cs.SPLIT.index(kernel), path]
+        args += [b, m, s, n_split, chunk, kinds.index(kernel), path]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    res = subprocess.run([str(out / "runner"), *map(str, args)], capture_output=True, text=True)
-    if res.returncode != 0:
-        print(res.stderr, file=sys.stderr)
-        return res.returncode
-    for line, (kernel, b, m, s, kind) in zip(res.stdout.splitlines(), calls):
-        print(json.dumps({"kernel": kernel, "mask": kind, **json.loads(line)}))
+    for cold in (0, 1):
+        res = subprocess.run([str(out / "runner"), str(cold), *map(str, args)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stderr, file=sys.stderr)
+            return res.returncode
+        for line, (kernel, b, m, s, kind) in zip(res.stdout.splitlines(), calls):
+            print(json.dumps({"kernel": kernel, "mask": kind, "l2": "cold" if cold else "warm",
+                              **json.loads(line)}))
     return 0
 
 

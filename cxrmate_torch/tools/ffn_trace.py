@@ -109,7 +109,7 @@ def main() -> int:
         b, d = x.hidden.shape
         f = x.out_ln_ffn[4].shape[0]
         result = torch.empty_like(x.hidden)
-        scratch = torch.empty(b * (d + f) + fd.ffn_slices(f, x.hidden.element_size()) * 8 * d,
+        scratch = torch.empty(b * (d + f) + fd.pass_slices(f, x.hidden.element_size()) * 8 * d,
                               device="cuda")
         args = [P(t.data_ptr()) for t in (x.hidden, x.res, *x.out_ln_ffn, result, scratch)]
         trace = torch.zeros(grid * 9, dtype=torch.int64, device="cuda")

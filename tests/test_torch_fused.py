@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from cxrmate_torch.models import bert as tb
+from cxrmate_torch.ops import decode_attention as da
 from cxrmate_torch.ops import fused_decode as fd
 from cxrmate_torch.utils.precision import parity_mode
 
@@ -373,7 +374,12 @@ def test_supports_and_prepare(step_setup):
                                                  intermediate=wide.intermediate), k64, k64)
     assert not fd.supports(wide, k64.half(), k64.half())                      # dtype
     assert not fd.supports(wide, torch.zeros(2, 4, 8, 8), torch.zeros(2, 4, 8, 8))  # head dim
-    assert not fd.supports(wide, k64, torch.zeros(2, 4, 60000, 64, dtype=torch.bfloat16))  # S
+    # S: the cross kernel's own limit, a cluster's share of the keys in one block
+    s_cross = da.max_keys(1, 64, 2)
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    assert fd.supports(wide, k64, torch.empty(2, 4, s_cross, 64, **meta))
+    assert not fd.supports(wide, k64, torch.empty(2, 4, s_cross + 1, 64, **meta))
+    assert not fd.supports(wide, k64, torch.empty(2, 4, 10 ** 6, 64, **meta))
     # v1's one kernel: the same gate, its own shared-memory limit
     assert fd.supports(wide, k64, k64, version=1)
     assert not fd.supports(types.SimpleNamespace(attention=lora.attention,
@@ -398,23 +404,39 @@ def test_supports_and_prepare(step_setup):
     assert len(prep[0]["out_ln_q"]) == 6 and len(prep[0]["out_ln_ffn"]) == 10
 
 
-@pytest.mark.parametrize("d,f,grid", [(768, 3072, 132), (768, 3072, 114), (32, 64, 132),
-                                      (32, 64, 114)])
-def test_ffn_ownership_map_covers_every_unit_once(d, f, grid):
+@pytest.mark.parametrize("d,f,grid,itemsize", [
+    pytest.param(d, f, g, None, id=f"{d}-{f}-{g}")
+    for d, f, g in [(768, 3072, 132), (768, 3072, 114), (32, 64, 132), (32, 64, 114)]] + [
+    pytest.param(d, None, g, e, id=f"qkv-{d}-{g}-{e}")
+    for d in (768, 32) for g in (132, 114) for e in (2, 4)])
+def test_ffn_ownership_map_covers_every_unit_once(d, f, grid, itemsize):
     """fused_out_ln_ffn's split-K passes: on a grid of 132 or 114 blocks (the
     H100 SXM's and PCIe's SMs), at the decoder's widths and the tiny
     config's, in fp32 and bf16, every (output, K-slice) of Wo, W1 and W2 is
     owned by exactly one (block, warp), each of a block's warps has a unit
     where the block has 16, W2's units are cut evenly over the blocks, and
-    the slices are a function of the input width and dtype alone."""
+    the slices are a function of the input width and dtype alone. The qkv
+    cases (``f`` None): fused_qkv_attn's projection over the [3D, D] weight
+    likewise, each block's outputs its even share of the 3D."""
 
     def per_block(owned, n):
         return [[u for u in owned if u[0] == blk] for blk in range(n)]
 
+    if f is None:
+        units = fd.qkv_units(d, itemsize, grid)
+        ks = fd.pass_slices(d, itemsize)
+        assert ks == -(-d * itemsize // 512)
+        got = sorted((o, k) for _, _, o, k in units)
+        assert got == [(o, k) for o in range(3 * d) for k in range(ks)]
+        for blk, mine in enumerate(per_block(units, grid)):
+            outs = {o for _, _, o, _ in mine}  # the block's even share of the outputs
+            assert outs == set(range(3 * d * blk // grid, 3 * d * (blk + 1) // grid))
+            assert len({w for _, w, _, _ in mine}) == min(16, len(mine))
+        return
     for itemsize in (2, 4):
         units = fd.ffn_units(d, f, itemsize, grid)
         for name, n_out, n_in in (("wo", d, d), ("w1", f, d), ("w2", d, f)):
-            ks = fd.ffn_slices(n_in, itemsize)
+            ks = fd.pass_slices(n_in, itemsize)
             assert ks == -(-n_in * itemsize // 512)
             got = sorted((o, k) for _, _, o, k in units[name])
             assert got == [(o, k) for o in range(n_out) for k in range(ks)], name
@@ -460,6 +482,30 @@ def card_operands(dev, dtype, b=8, d=768, f=3072, h=12, t_len=256, s=2880, seed=
         out_ln_ffn=(rn(d, d, scale=0.02), rn(d, scale=0.02), gain(), rn(d, scale=0.02),
                     rn(f, d, scale=0.02), rn(f, scale=0.02), rn(d, f, scale=0.02),
                     rn(d, scale=0.02), gain(), rn(d, scale=0.02)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qkv_attn_rows_bit_equal_alone_and_in_batches_on_card(cuda_device, dtype):
+    """The split-K projection sums in a fixed order: a row's ctx and its new
+    cache column are the same bits alone, in a batch of 8 and in one of 11;
+    the B = 11 call leaves every other column as it was."""
+    x = card_operands(cuda_device, dtype, b=11)
+
+    def run(lo, hi):
+        ck, cv = x.cache_k[lo:hi].clone(), x.cache_v[lo:hi].clone()
+        ctx = fd.fused_qkv_attn(x.hidden[lo:hi], x.wqkv, x.bqkv, ck, cv, 128, x.key_mask[lo:hi])
+        return ctx, ck, cv
+
+    ctx, ck, cv = run(0, 11)
+    want = (ctx, ck[:, :, 128], cv[:, :, 128])
+    for lo, hi in [(0, 8)] + [(i, i + 1) for i in range(11)]:
+        got, k, v = run(lo, hi)
+        for w, g in zip(want, (got, k[:, :, 128], v[:, :, 128])):
+            assert torch.equal(w[lo:hi], g)
+    others = [c for c in range(x.cache_k.shape[2]) if c != 128]
+    assert torch.equal(ck[:, :, others], x.cache_k[:, :, others])
+    assert torch.equal(cv[:, :, others], x.cache_v[:, :, others])
 
 
 @pytest.mark.cuda
@@ -513,6 +559,41 @@ def test_cross_attn_kernel_matches_plain_on_card(cuda_device, dtype, tol):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 2880, 3073, "largest"])
+def test_cross_attn_masked_rows_unread_on_card(cuda_device, dtype, tol, s):
+    """The cross kernel on the cluster split reads no K or V row of a masked
+    key while its study has an open one: NaN there leaves the output's bits
+    unchanged; within tol of the plain version; a fully masked study (row 1)
+    finite. A quarter of the keys masked, and for S >= 128 a whole tile."""
+    if s == "largest":
+        s = da.max_keys(1, 64, torch.finfo(dtype).bits // 8)
+    b = 1 if s > 3073 else 4
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    cq = torch.randn(b, 768, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(b, 12, s, 64, generator=g, device=cuda_device).to(dtype) for _ in range(2))
+    mask = (torch.rand(b, s, generator=g, device=cuda_device) >= 0.25).int()
+    if s >= 128:
+        mask[:, 64:128] = 0
+    if b > 1:
+        mask[1] = 0
+    poison = (mask == 0)[:, None, :, None] & (mask != 0).any(1)[:, None, None, None]
+    with parity_mode():
+        got = fd.fused_cross_attn(cq, k, v, mask)
+        dirty = fd.fused_cross_attn(cq, k.masked_fill(poison, float("nan")),
+                                    v.masked_fill(poison, float("nan")), mask)
+        want = fd.fused_cross_attn_plain(cq, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and torch.equal(got, dirty)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="exceeds"):
+        over = da.max_keys(1, 64, torch.finfo(dtype).bits // 8) + 1
+        fd.fused_cross_attn(cq[:1], *(torch.empty(1, 12, over, 64, dtype=dtype,
+                                                  device=cuda_device) for _ in range(2)),
+                            torch.ones(1, over, dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ import torch
 from cxrmate_torch.ops import beam_reorder as br
 from cxrmate_torch.ops import decode_attention as da
 from cxrmate_torch.ops import flash_attention as fa
+from cxrmate_torch.ops import fused_decode as fd
 from cxrmate_torch.utils.precision import parity_mode
 # as in the harness: the full suite runs six xdist workers on eight cores
 torch.set_num_threads(2)
@@ -62,9 +63,11 @@ def _masked_like_the_paths(seed, b, s, kind):
     """A [b, s] mask for the split kernels' edge cases: ``random`` (a quarter
     of the keys masked), ``chunk`` (random, and every key of the second block
     of decode_schedule masked in every row: it reads nothing while its row
-    has unmasked keys elsewhere) or ``last`` (random, and the last row's only
-    unmasked key is the last key, in the last tile). Row 0 is fully masked,
-    as in _decode_inputs."""
+    has unmasked keys elsewhere), ``last`` (random, and the last row's only
+    unmasked key is the last key, in the last tile), ``slots`` (row i's first
+    (i + 1) image slots of 576 keys open, the rest masked, as a study's
+    all-zero slots) or ``dark`` (every key masked). Row 0 is fully masked, as
+    in _decode_inputs."""
     rs = np.random.RandomState(seed)
     mask = np.where(rs.rand(b, s) > 0.25, 0.0, NEG).astype(np.float32)
     blocks = da.block_tiles(s, 64)
@@ -74,6 +77,11 @@ def _masked_like_the_paths(seed, b, s, kind):
     elif kind == "last":
         mask[-1] = NEG
         mask[-1, -1] = 0.0
+    elif kind == "slots":
+        for i in range(b):
+            mask[i] = np.where(np.arange(s) < (i + 1) * 576, 0.0, NEG)
+    elif kind == "dark":
+        mask[:] = NEG
     mask[0] = NEG
     return mask
 
@@ -173,7 +181,7 @@ def test_decode_max_keys_is_the_shared_memory_limit(m, itemsize):
     assert s > 2880 * 25  # far beyond one block's 232 KB of [M, S] scores
 
 
-def _split_emulation(q, k, v, mask, scale, scales=None):
+def _split_emulation(q, k, v, mask, scale, scales=None, fused=False):
     """The split kernels' algorithm in plain torch (fp32 scores): per block
     of decode_schedule (its tiles dealt in turn), scores of the keys whose
     mask is not finfo.min only (the others get finfo.min and their K and V
@@ -182,12 +190,22 @@ def _split_emulation(q, k, v, mask, scale, scales=None):
     keys, added in rank order. A fully masked row reads every V row. With
     ``scales`` (the int8 kernel's (ks, vs), k and v int8): a read key's dot
     times its K scale before scale and the mask, its prob times its V scale
-    before the rounding; a skipped key's scales are never touched."""
+    before the rounding; a skipped key's scales are never touched. With
+    ``fused`` (fused_cross_attn's contract): q and the output are [B, D] rows
+    (the heads side by side, M = 1), ``mask`` the integer [B, S] study mask
+    (a key is skipped where it is 0, a read key's score is q.k x scale), and
+    the probs stay fp32."""
+    if fused:
+        q = q.reshape(k.shape[0], k.shape[1], 1, k.shape[3])
+        read = mask != 0  # [b, s]
+        add = torch.zeros(mask.shape)
+    else:
+        read = mask != NEG
+        add = mask
     b, h, m, dh = q.shape
     s = k.shape[2]
     blocks = [torch.cat([torch.arange(t * 64, min(t * 64 + 64, s)) for t in tiles])
               for tiles in da.block_tiles(s, dh)]
-    read = mask != NEG  # [b, s]
     full = ~read.any(1)  # fully masked rows read every V row
     scores = torch.full((b, h, m, s), NEG)
     for bi in range(b):
@@ -195,7 +213,7 @@ def _split_emulation(q, k, v, mask, scale, scales=None):
         dots = q[bi].float() @ k[bi][:, keys].float().transpose(-1, -2)  # only the read keys
         if scales is not None:
             dots = dots * scales[0][bi][..., keys]
-        scores[bi][..., keys] = dots * scale + mask[bi, keys]
+        scores[bi][..., keys] = dots * scale + add[bi, keys]
     gmax = torch.stack([scores[..., keys].amax(-1) for keys in blocks]).amax(0)
     e = torch.exp(scores - gmax[..., None])
     total = sum(e[..., keys].sum(-1) for keys in blocks)
@@ -206,11 +224,12 @@ def _split_emulation(q, k, v, mask, scale, scales=None):
         pk = p[bi][..., keys]
         if scales is not None:
             pk = pk * scales[1][bi][..., keys]
-        pk = pk.to(q.dtype).float()
+        if not fused:
+            pk = pk.to(q.dtype).float()
         for own in blocks:
             at = torch.isin(keys, own)
             ctx[bi] += pk[..., at] @ v[bi][:, keys[at]].float()
-    return ctx.to(q.dtype)
+    return ctx.reshape(b, h * dh).to(q.dtype) if fused else ctx.to(q.dtype)
 
 
 @pytest.mark.parametrize("m,s,kind,kv", [
@@ -218,13 +237,19 @@ def _split_emulation(q, k, v, mask, scale, scales=None):
     [(4, 37, "random"), (1, 511, "random"), (4, 512, "chunk"), (1, 513, "last"),
      (4, 2880, "chunk"), (1, 3073, "last")]] + [
     pytest.param(*c, "int8", id="q8-" + "-".join(map(str, c))) for c in
-    [(4, 37, "random"), (1, 513, "last"), (4, 2880, "chunk")]])
+    [(4, 37, "random"), (1, 513, "last"), (4, 2880, "chunk")]] + [
+    pytest.param(*c, "fused", id="fused-" + "-".join(map(str, c))) for c in
+    [(1, 37, "random"), (1, 2880, "slots"), (1, 3073, "last"), (1, 2880, "dark")]])
 def test_split_without_masked_keys_matches_plain(m, s, kind, kv):
     """Skipping the masked keys and splitting S is exact: the emulated split
     on K/V whose masked rows are NaN (never read) equals the plain version
     on clean K/V within 1e-5 in fp32, the fully masked row (uniform) too.
     For int8 K/V (the q8 kernel): the masked keys' int8 rows random and
-    their K and V scales NaN, against decode_attention_q8_plain."""
+    their K and V scales NaN, against decode_attention_q8_plain. For the
+    fused contract (fused_cross_attn): [B, D] rows, the integer study mask
+    (``slots``: whole image slots of 576 keys open, as the fused path's;
+    ``dark``: every study fully masked), fp32 probs, against
+    fused_cross_attn_plain."""
     q, k, v, _ = _decode_inputs(12, 3, 2, m, s, 64)
     mask = _masked_like_the_paths(13, 3, s, kind)
     q, k, v, mask = t(q), t(k), t(v), t(mask)
@@ -233,6 +258,11 @@ def test_split_without_masked_keys_matches_plain(m, s, kind, kv):
         got = _split_emulation(q, k.masked_fill(poisoned, float("nan")),
                                v.masked_fill(poisoned, float("nan")), mask, 0.125)
         want = da.decode_attention_plain(q, k, v, mask, 0.125)
+    elif kv == "fused":
+        rows, study = q.reshape(3, -1), (mask != NEG).int()
+        got = _split_emulation(rows, k.masked_fill(poisoned, float("nan")),
+                               v.masked_fill(poisoned, float("nan")), study, 0.125, fused=True)
+        want = fd.fused_cross_attn_plain(rows, k, v, study)
     else:
         (kq, ks), (vq, vs) = da.quantize_kv_rowwise(k), da.quantize_kv_rowwise(v)
         noise = torch.from_numpy(np.random.RandomState(14).randint(-127, 128, (2,) + kq.shape)
