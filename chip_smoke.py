@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
   2. build   - builds the CUDA kernels from cxrmate_torch/csrc (nvcc, sm_90a);
                the registers and spills of the split kernel's
                instantiations (decode_attention, decode_attention_vpu,
-               decode_attention_q8, fused_cross_attn) and of fused_qkv_attn
-               and fused_out_ln_ffn from the build log (-Xptxas -v).
+               decode_attention_q8, fused_cross_attn) and of fused_qkv_attn,
+               fused_out_ln_q, fused_out_ln_ffn and fused_layer_step (v1)
+               from the build log (-Xptxas -v).
   3. kernels - each of the thirteen kernels against its plain PyTorch version on
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
@@ -51,9 +52,10 @@ Phases, each printing one JSON line:
                columns 1, 128 and 255), also with a fully masked row, the new
                K/V column written where it belongs and the rest of the cache
                bit-exact, the self-attention kernel (its q/k/v projection
-               split-K) and the FFN kernel also at 11 studies with each row's
-               bits (and the written column's) the same alone, among 8 and
-               among 11, the cross-attention kernel (the split body under the
+               split-K), fused_out_ln_q and the FFN kernel (split-K passes)
+               also at 11 studies with each row's bits (and the written
+               column's) the same alone, among 8 and among 11, the
+               cross-attention kernel (the split body under the
                fused contract) also at the edges of its split (CROSS_EDGES: S
                from 1 to its largest) with NaN in the masked keys' K/V rows
                leaving its bits unchanged and a fully masked study finite;
@@ -78,7 +80,11 @@ Phases, each printing one JSON line:
                shapes against its plain version (fp32 <= 1e-5, bf16 <= 1e-2
                of the largest output), the written column and the untouched
                rest, with fully masked self and cross rows, and against v2 on
-               the same operands; timed cold beside v2's four kernels summed.
+               the same operands; each row's bits the same alone, among 8 and
+               among 11, and, at the edges of its cross split (V1_EDGES: S
+               from 1 to the fused cross kernel's largest), NaN in the masked
+               cross keys' K/V rows leaving its bits unchanged; timed cold
+               beside v2's four kernels summed.
   4. main    - seeded random full-width models (CvT-21@384, BERT 6x768, the
                repository tokenizer's vocabulary) written as HF directories,
                loaded with CXRMate.from_hf_checkpoint and run through
@@ -206,8 +212,9 @@ def device_ms(fns, reps: int = 20, warmup: int = 3):
 def ptxas_report(log: str):
     """Registers and spills of each instantiation of the split decode kernel
     (csrc/decode_split.cuh: decode_attention, decode_attention_vpu,
-    decode_attention_q8 and fused_cross_attn) and of fused_qkv_attn's and
-    fused_out_ln_ffn's kernels, from the -Xptxas -v lines of the build log."""
+    decode_attention_q8 and fused_cross_attn) and of the kernels of
+    fused_qkv_attn, fused_out_ln_q, fused_out_ln_ffn and fused_layer_step
+    (v1), from the -Xptxas -v lines of the build log."""
     import re
 
     out, name = [], None
@@ -217,7 +224,8 @@ def ptxas_report(log: str):
             name = entry.group(1)
         split = name and re.search(
             r"decode_split_kernelI(f|13__nv_bfloat16)(a|f|S\d*_)Li(\d)ELb(\d)E", name)
-        dense = name and re.search(r"(out_ln_ffn|qkv_attn)_kernelI(f|13__nv_bfloat16)E", name)
+        dense = name and re.search(
+            r"(out_ln_ffn|qkv_attn|out_ln_q|layer_step)_kernelI(f|13__nv_bfloat16)E", name)
         if not (split or dense):
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1043,7 +1051,7 @@ def layer_step_work(x, index):
     return nbytes, flops
 
 
-def check_layer_step(torch, F, fd, x, dtype, v2_ms):
+def check_layer_step(torch, F, fd, da, x, dtype, v2_ms):
     """fused_layer_step (v1, one kernel; no path calls it) at the fused path's
     shapes: against its plain version (fp32 <= 1e-5, bf16 <= 1e-2 of the
     largest output) with the step at columns 1, 128 and 255 and with a study
@@ -1051,7 +1059,8 @@ def check_layer_step(torch, F, fd, x, dtype, v2_ms):
     within tolerance and every other column bit-exact; against v2 on the same
     operands (fp32 <= 1e-5; bf16 printed: v2 rounds ctx, h1, cq and cctx);
     timed cold beside v2's four kernels summed and the same layer in library
-    calls."""
+    calls. Its rows' bits the same alone, among 8 and among 11; NaN in the
+    masked cross keys' K/V rows leaving its bits unchanged at V1_EDGES."""
     b, d = x.hidden.shape
     t_len, mid = x.cache_k.shape[2], (1 + NEW_TOKENS) // 2
     prep = {"wqkv": x.wqkv, "bqkv": x.bqkv, "out_ln_q": x.out_ln_q, "out_ln_ffn": x.out_ln_ffn}
@@ -1090,6 +1099,10 @@ def check_layer_step(torch, F, fd, x, dtype, v2_ms):
                              "changed")
     if not r["max_rel_err"] <= tol:
         raise AssertionError(f"fused_layer_step {dtype}: {r}, above {tol} of the largest output")
+    r["rows_equal_alone_b8_b11"] = layer_step_rows_alone(torch, fd, x, prep)
+    if not r["rows_equal_alone_b8_b11"]:
+        raise AssertionError(f"fused_layer_step {dtype}: a row's bits depend on its batch")
+    r["edges"] = check_v1_cross_edges(torch, fd, da, x, prep, dtype)
     v1 = step(fd.fused_layer_step, mid, x.self_mask, x.cross_mask)
     v2 = step(fd.fused_layer_step_v2, mid, x.self_mask, x.cross_mask)
     r["vs_v2_max_abs_err"] = max(_err(a, b) for a, b in zip(v1, v2))
@@ -1131,6 +1144,82 @@ def check_layer_step(torch, F, fd, x, dtype, v2_ms):
 # S of fused_cross_attn's edge checks around decode_schedule's tiles and
 # blocks, beside the fused path's 2,880; "largest": cross_fits' limit
 CROSS_EDGES = (1, 63, 64, 65, 2880, 3073, "largest")
+# S of v1's: its cross stage keeps its scores in scratch, so no block limits
+# S; "largest" is the fused cross kernel's, the most v2 takes
+V1_EDGES = (1, 63, 64, 65, 2880, "largest")
+
+
+def layer_step_rows_alone(torch, fd, x, prep) -> bool:
+    """v1's output rows bit-equal alone, in the B = 8 call and in a B = 11
+    call (three more studies with their own caches and cross K/V): its
+    split-K passes and its cross parts add in a fixed order."""
+    b = x.hidden.shape[0]
+    index = x.cache_k.shape[2] // 2
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    hidden, ck, cv, xk, xv = (
+        torch.cat([t, torch.randn(3, *t.shape[1:], generator=g, device="cuda").to(t.dtype)])
+        for t in (x.hidden, x.cache_k, x.cache_v, x.cross_k, x.cross_v))
+    smask = torch.cat([x.self_mask, x.self_mask[:3]])
+    cmask = torch.cat([x.cross_mask, x.cross_mask[:3]])
+
+    def run(lo, hi):
+        k, v = ck[lo:hi].clone(), cv[lo:hi].clone()
+        return fd.fused_layer_step(hidden[lo:hi], None, k, v, xk[lo:hi], xv[lo:hi], index,
+                                   smask[lo:hi], cmask[lo:hi], 1e-12, prep)[0]
+
+    want = run(0, b + 3)
+    return bool(torch.equal(want[:b], run(0, b))
+                and all(torch.equal(want[i:i + 1], run(i, i + 1)) for i in range(b + 3)))
+
+
+def check_v1_cross_edges(torch, fd, da, x, prep, dtype):
+    """v1 at V1_EDGES with the fused path's weights and self caches, 8 studies
+    (1 at the largest S): a quarter of the cross keys masked at random, for S
+    >= 128 every key of one tile (2,880: the fused path's slot mask instead),
+    study 1 fully masked. Against its plain version (fp32 1e-5, bf16 1e-2 of
+    the largest output); the fully masked study finite; NaN in the K and V
+    rows of the masked keys of every study with an open key leaves the
+    output's bits unchanged (a read would spread it)."""
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    index = x.cache_k.shape[2] // 2
+    g = torch.Generator(device="cuda")
+    rows = []
+    for s in V1_EDGES:
+        if s == "largest":
+            s = da.max_keys(1, HEAD_DIM, torch.finfo(dtype).bits // 8)
+        b = 1 if s > 3073 else STUDIES
+        g.manual_seed(SEED + 25 + s)
+        k, v = (torch.randn(b, HEADS, s, HEAD_DIM, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        if s == SLOTS * 576:
+            mask = x.cross_mask.clone()
+        else:
+            mask = (torch.rand(b, s, generator=g, device="cuda") >= 0.25).int()
+            if s >= 128:
+                mask[:, 64:128] = 0
+        if b > 1:
+            mask[1] = 0
+
+        def run(ck, cv, fn=fd.fused_layer_step):
+            sk, sv = x.cache_k[:b].clone(), x.cache_v[:b].clone()
+            return fn(x.hidden[:b], None, sk, sv, ck, cv, index, x.self_mask[:b], mask, 1e-12,
+                      prep)[0]
+
+        got = run(k, v)
+        want = run(k, v, fd.fused_layer_step_plain)
+        poison = (mask == 0)[:, None, :, None] & (mask != 0).any(1)[:, None, None, None]
+        dirty = run(k.masked_fill(poison, float("nan")), v.masked_fill(poison, float("nan")))
+        row = {"s": s, "b": b, "n_split": da.decode_schedule(s, HEAD_DIM)[0],
+               "max_abs_err": _err(got, want),
+               "fully_masked_study_finite": bool(torch.isfinite(got.float()).all()),
+               "masked_rows_unread": bool(torch.equal(got, dirty))}
+        row["max_rel_err"] = row["max_abs_err"] / float(want.float().abs().max())
+        rows.append(row)
+        if not (row["max_rel_err"] <= tol and row["fully_masked_study_finite"]
+                and row["masked_rows_unread"]):
+            raise AssertionError(f"fused_layer_step {dtype} at S={s}: {row}")
+        del k, v, dirty
+    return rows
 
 
 def check_cross_edges(torch, fd, da, dtype):
@@ -1207,6 +1296,25 @@ def qkv_rows_alone(torch, fd, x):
     return {"rows_equal_alone_b8_b11": bool(equal), "b11_other_columns_exact": bool(untouched)}
 
 
+def lnq_rows_alone(torch, fd, x):
+    """fused_out_ln_q's rows (h1 and cq) bit-equal alone, in the B = 8 call
+    and in a B = 11 call (three more studies), its split-K passes summed in
+    a fixed order."""
+    b = x.hidden.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    ctx, res = (torch.cat([t, torch.randn(3, t.shape[1], generator=g, device="cuda").to(t.dtype)])
+                for t in (x.hidden, x.res))
+
+    def run(lo, hi):
+        return fd.fused_out_ln_q(ctx[lo:hi], res[lo:hi], *x.out_ln_q, 1e-12)
+
+    want = run(0, b + 3)
+    equal = all(torch.equal(w[:b], got) for w, got in zip(want, run(0, b)))
+    for i in range(b + 3):
+        equal &= all(torch.equal(w[i:i + 1], got) for w, got in zip(want, run(i, i + 1)))
+    return {"rows_equal_alone_b8_b11": bool(equal)}
+
+
 def check_fused(torch, F, fd, da, dtype):
     """The four kernels of the fused decoder-layer step against their plain
     versions at the fused main path's shapes: the self-attention kernel with
@@ -1256,6 +1364,9 @@ def check_fused(torch, F, fd, da, dtype):
     got, want = fd.fused_out_ln_q(x.hidden, x.res, *x.out_ln_q, 1e-12), \
         fd.fused_out_ln_q_plain(x.hidden, x.res, *x.out_ln_q, 1e-12)
     lnq["max_abs_err"] = max(_err(got[0], want[0]), _err(got[1], want[1]))
+    lnq.update(lnq_rows_alone(torch, fd, x))
+    if not lnq["rows_equal_alone_b8_b11"]:
+        raise AssertionError(f"fused_out_ln_q {dtype}: a row's bits depend on its batch")
 
     cross = res["fused_cross_attn"]
     dark = x.cross_mask.clone()
@@ -1328,7 +1439,7 @@ def check_fused(torch, F, fd, da, dtype):
         r["library_ms"] = time_cold_ms([library])
         r["bytes"], r["flops"] = work[name]
         r["ops_dtype"] = "fp32"  # fp32 inside, whatever the storage type
-    res["fused_layer_step"] = check_layer_step(torch, F, fd, x, dtype,
+    res["fused_layer_step"] = check_layer_step(torch, F, fd, da, x, dtype,
                                                sum(res[k]["ms"] for k in FUSED))
     return res
 

@@ -4,18 +4,20 @@
 // cxrmate_tpu/ops/fused_decode.py:366 fused_layer_step_v2, and by the one
 // kernel of v1 (fused_layer_step.cu, :164 fused_layer_step).
 //
-// Three building blocks, all fp32 inside (weights and activations are cast up
+// The building blocks, all fp32 inside (weights and activations are cast up
 // from their storage type, as the Pallas bodies do with .astype(float32)):
 //
-//   dense_pass   y[b, o] = sum_i x[b, i] W[o, i] for up to kRows batch rows at
-//                once. W is nn.Linear's [out, in]: one output's weights are
-//                contiguous, so a warp takes one output, its lanes read the
-//                row with 16-byte loads side by side, and every weight is read
-//                once for all rows. The rows of x sit in shared memory in a
-//                layout (xs_pos) that lets the lanes read them without bank
-//                conflicts. The warps of the whole grid share the outputs.
+//   split_pass / block_outputs  y[b, o] = sum_i x[b, i] W[o, i] for up to kRows
+//                batch rows at once, split over K: a unit is one output's
+//                512-byte K-slice (W is nn.Linear's [out, in], one output's
+//                weights contiguous), one 16-byte vector a lane, multiplied
+//                with the lane's inputs of every row from shared memory (in
+//                a layout, xs_pos, that the lanes read without bank
+//                conflicts); a block owns a share of the outputs and adds
+//                their slices' partials in slice order, so a row's bits
+//                depend neither on the card, the grid nor the batch.
 //   layer_norm_rows  fp32 LayerNorm (biased variance) of rows that an earlier
-//                dense pass left in device memory, into shared memory for the
+//                pass left in device memory, into shared memory for the
 //                next pass: one pass over device memory, the statistics from
 //                shared memory. Every block normalises every row itself:
 //                8 x 768 values, cheaper than another grid-wide sync.
@@ -24,6 +26,12 @@
 //                step's own token). Exact softmax over scores in shared
 //                memory; the probabilities are NOT rounded before P.V (the
 //                Pallas bodies keep them fp32, unlike decode_attention).
+//   qkv_projection, out_ln_q_passes, out_ln_ffn_passes  the stages the v2
+//                kernels (fused_qkv_attn.cu, fused_out_ln_q.cu,
+//                fused_out_ln_ffn.cu) and v1 (fused_layer_step.cu) share:
+//                the q/k/v projection; Wo -> LayerNorm -> Wq; Wo ->
+//                LayerNorm -> W1 . GELU -> W2 -> LayerNorm. v1 runs them with
+//                its own inputs and store types (fp32 where v2 rounds).
 //
 // Masked scores are s + finfo(f32).min, which is finfo(f32).min itself for any
 // |s| < 2^103: a masked key has probability exactly 0 unless every key of the
@@ -46,6 +54,8 @@
 
 namespace cxr {
 namespace fused {
+
+namespace cg = cooperative_groups;
 
 constexpr float kNeg = -3.4028234663852886e38f;  // finfo(float32).min
 constexpr int kRows = 8;    // batch rows one dense pass carries per weight read
@@ -195,70 +205,6 @@ __device__ __forceinline__ float warp_sum_rows(const float* acc, int lane) {
   a += __shfl_xor_sync(0xffffffffu, a, 2);
   a += __shfl_xor_sync(0xffffffffu, a, 1);
   return a;
-}
-
-// y[b, o] = sum_i x[b, i] w[o, i] for the kRows rows in xs and the outputs
-// o = gwarp, gwarp + gwarps, ... . The lane that will hold row b's sum (lane
-// 4 b) first calls pre(o, b) for the two addends of its result (bias,
-// residual), so that their loads are under way while the weights stream, and
-// at the end epi(o, b, y[b, o], addends) if b < rows. The next kUnroll weight
-// vectors are loaded before the current ones are used, and the rows go four
-// at a time (their shared-memory reads first, then four independent chains of
-// multiply-adds): a pass keeps few warps busy per SM, so a warp has to hide
-// its own latencies. n_in is a multiple of 16 / sizeof(T), w 16-byte aligned.
-template <typename T, typename Pre, typename Epi>
-__device__ __forceinline__ void dense_pass(const float* xs, int n_in, const T* __restrict__ w,
-                                           int n_out, int rows, int gwarp, int gwarps, Pre pre,
-                                           Epi epi) {
-  constexpr int VPR = 16 / sizeof(T);
-  constexpr int HALF = kRows / 2;
-  const int lane = threadIdx.x & 31;
-  const int nvec = n_in / VPR;
-  const int my_row = lane >> 2;
-  const bool writer = (lane & 3) == 0 && my_row < rows;
-  for (int o = gwarp; o < n_out; o += gwarps) {
-    const uint4* w4 = reinterpret_cast<const uint4*>(w + (size_t)o * n_in);
-    const float2 add = writer ? pre(o, my_row) : make_float2(0.f, 0.f);
-    uint4 cur[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = lane + 32 * u;
-      cur[u] = j < nvec ? __ldg(w4 + j) : make_uint4(0, 0, 0, 0);
-    }
-    float acc[kRows];
-#pragma unroll
-    for (int b = 0; b < kRows; ++b) acc[b] = 0.f;
-    for (int j0 = lane; j0 < nvec; j0 += 32 * kUnroll) {
-      uint4 nxt[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + 32 * (kUnroll + u);
-        nxt[u] = j < nvec ? __ldg(w4 + j) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + 32 * u;
-        if (j < nvec) {
-          float wf[VPR];
-          unpack16<T>(cur[u], wf);
-#pragma unroll
-          for (int b0 = 0; b0 < kRows; b0 += HALF) {
-            float xf[HALF][VPR];
-#pragma unroll
-            for (int b = 0; b < HALF; ++b) load_x<T>(xs + (b0 + b) * n_in, j, n_in, xf[b]);
-#pragma unroll
-            for (int e = 0; e < VPR; ++e)
-#pragma unroll
-              for (int b = 0; b < HALF; ++b) acc[b0 + b] = fmaf(xf[b][e], wf[e], acc[b0 + b]);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
-    }
-    const float y = warp_sum_rows(acc, lane);
-    if (writer) epi(o, my_row, y, add);
-  }
 }
 
 // fp32 LayerNorm over the last axis of rows [0, rows) of y ([rows, n] fp32 in
@@ -473,8 +419,8 @@ __device__ __forceinline__ void attend(const float* qs, const T* kc, const T* vc
   __syncthreads();
 }
 
-// The split-K pass of the dense kernels that use it (fused_qkv_attn.cu,
-// fused_out_ln_ffn.cu): a unit is one output's K-slice of kSliceVecs 16-byte
+// The split-K pass of the dense kernels (fused_qkv_attn.cu, fused_out_ln_q.cu,
+// fused_out_ln_ffn.cu, fused_layer_step.cu): a unit is one output's K-slice of kSliceVecs 16-byte
 // weight vectors (512 bytes), one vector a lane, multiplied with the lane's
 // input values of up to kRows rows from shared memory and summed over the
 // warp; the units of a block are cut into contiguous runs, one a warp, and a
@@ -490,7 +436,7 @@ constexpr int kBatch = 3;        // units whose weights a warp has in flight, un
 constexpr size_t kPiece = 16384; // bytes of one L2 prefetch
 
 // K-slices of a split pass with n_in inputs of T (ops/fused_decode.py:pass_slices)
-template <typename T> __device__ __forceinline__ int slices(int n_in) {
+template <typename T> __host__ __device__ __forceinline__ int slices(int n_in) {
   return (n_in / (16 / (int)sizeof(T)) + kSliceVecs - 1) / kSliceVecs;
 }
 
@@ -599,6 +545,255 @@ __device__ __forceinline__ void block_outputs(const float* xs, int n_in, const T
       epi(o0 + i, row, y, p == p0 ? add0 : pre(o0 + i, row));
     }
     __syncthreads();
+  }
+}
+
+// Block b's share [n b / G, n (b + 1) / G) of n outputs on a grid of G blocks.
+__device__ __forceinline__ int2 block_share(int n) {
+  return make_int2((int)((long)n * blockIdx.x / gridDim.x),
+                   (int)((long)n * (blockIdx.x + 1) / gridDim.x));
+}
+
+// Columns [c0, c1) (multiples of 4) of rows [0, rows) of a [rows, n] fp32
+// array another block wrote during this launch -> xs (dense-pass layout);
+// the same columns of rows [rows, kRows) are zeroed.
+template <typename T>
+__device__ __forceinline__ void load_scratch_cols(const float* src, int rows, int n, int c0,
+                                                  int c1, float* xs) {
+  const int nq = (c1 - c0) / 4;
+  for (int i = threadIdx.x; i < kRows * nq; i += kPassThreads) {
+    const int r = i / nq, c = c0 + 4 * (i - r * nq);
+    const float4 v = r < rows ? __ldcg(reinterpret_cast<const float4*>(src + (size_t)r * n + c))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(xs + r * n + xs_pos<T>(c, n)) = v;
+  }
+}
+
+// The q/k/v projection of fused_qkv_attn (and v1's first stage): q, k_new,
+// v_new of every row, fp32, to qkv [batch, 3D]. Block b owns the outputs
+// [3D b / G, 3D (b + 1) / G) of the concatenated [3D, D] weight; the rows
+// in xs, the slices' partials after them (2 kRows D floats). The block's
+// rows of Wqkv are asked into L2 once the first rows of hidden are on their
+// way (asked before them, they delay hidden's loads behind them). More than
+// 8 studies run in chunks of 8, which find the weight in L2.
+template <typename T, int NB>
+__device__ __forceinline__ void qkv_projection(const T* __restrict__ hidden,
+                                               const T* __restrict__ wqkv,
+                                               const T* __restrict__ bqkv, float* qkv, int batch,
+                                               int d_model, float* xs) {
+  const int d3 = 3 * d_model;
+  const int2 own = block_share(d3);
+  for (int b0 = 0; b0 < batch; b0 += kRows) {
+    const int rows = min(kRows, batch - b0);
+    load_rows<T>(hidden + (size_t)b0 * d_model, rows, d_model, xs, [&] {
+      if (b0 == 0)
+        prefetch_range(wqkv + (size_t)own.x * d_model,
+                       sizeof(T) * (size_t)(own.y - own.x) * d_model);
+    });
+    __syncthreads();
+    block_outputs<T, NB>(
+        xs, d_model, wqkv, own.x, own.y, rows, xs + kRows * d_model,
+        d_model / slices<T>(d_model),
+        [&](int o, int) { return make_float2(to_float(bqkv[o]), 0.f); },
+        [&](int o, int b, float y, float2 a) { qkv[(size_t)(b0 + b) * d3 + o] = y + a.x; });
+  }
+}
+
+// Before the grid sync that precedes the self-attention: the block's first
+// (study, head)'s cached K and V columns below `index` to L2, its mask row to
+// L1, so that the attention finds them on chip.
+template <typename T>
+__device__ __forceinline__ void prefetch_self_unit(const T* cache_k, const T* cache_v,
+                                                   const int* key_mask, int units, int heads,
+                                                   int t_len, int index) {
+  const int blk = blockIdx.x;
+  if (blk < units) {
+    const size_t base = (size_t)blk * t_len * kDh, cols = sizeof(T) * (size_t)index * kDh;
+    prefetch_range(cache_k + base, cols);
+    prefetch_range(cache_v + base, cols);
+    prefetch_l1(key_mask + (size_t)(blk / heads) * t_len, t_len);
+  }
+}
+
+// The self-attention of fused_qkv_attn (and v1's second stage): one (study,
+// head) per block in turn; q, k_new and v_new from qkv (fp32 [batch, 3D]),
+// the attend routine over the cached columns below `index` with the new
+// token as the extra column; the context, as O, to ctx [batch, D]; then,
+// the head's reads of the cache done, the new column rounded to T into
+// column `index` of the caches. smem holds 3 kDh + attend_floats(t_len,
+// kPassWarps) floats, red kPassWarps.
+template <typename T, typename O>
+__device__ __forceinline__ void self_attention(const float* qkv, T* cache_k, T* cache_v,
+                                               const int* __restrict__ key_mask,
+                                               typename store_t<O>::type* ctx, int batch,
+                                               int heads, int t_len, int d_model, int index,
+                                               float scale, float* smem, float* red) {
+  const int d3 = 3 * d_model;
+  float* qs = smem;       // [kDh]
+  float* kn = qs + kDh;   // [kDh]
+  float* vn = kn + kDh;   // [kDh]
+  float* sc = vn + kDh;   // attend_floats(t_len, kPassWarps)
+  for (int unit = blockIdx.x; unit < batch * heads; unit += gridDim.x) {
+    const int b = unit / heads, h = unit - b * heads;
+    const float* row = qkv + (size_t)b * d3 + h * kDh;
+    for (int i = threadIdx.x; i < 3 * kDh; i += kPassThreads)
+      qs[i] = __ldcg(row + (i / kDh) * d_model + (i % kDh));
+    __syncthreads();
+    const size_t base = (size_t)unit * t_len * kDh;
+    const int* mask = key_mask + (size_t)b * t_len;
+    attend<T, kPassWarps, O>(qs, cache_k + base, cache_v + base, mask, t_len, index, true, kn,
+                             vn, mask[index] != 0, scale, sc, red,
+                             ctx + (size_t)b * d_model + h * kDh);
+    // the head's reads of the cache are done: insert the new column
+    for (int i = threadIdx.x; i < kDh; i += kPassThreads) {
+      cache_k[base + (size_t)index * kDh + i] = from_float<T>(kn[i]);
+      cache_v[base + (size_t)index * kDh + i] = from_float<T>(vn[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// Ask L2 for the block's rows [lo, hi) of each [n_out, n_in] weight of T.
+template <typename T>
+__device__ __forceinline__ void prefetch_rows(const T* w, int2 own, int n_in) {
+  prefetch_range(w + (size_t)own.x * n_in, sizeof(T) * (size_t)(own.y - own.x) * n_in);
+}
+
+// fused_out_ln_q's two products (and v1's third stage) for the rows [off,
+// off + rows) whose input is in xs (dense-pass layout): y = ctx . Wo^T + bo
+// + res (fp32, to y), grid sync, every block normalises y into xs (block 0
+// also stores it to h_out as O), then cq = LayerNorm(y) . Wq^T + bq from
+// the unrounded LayerNorm, stored as O. Block b owns the outputs [D b / G,
+// D (b + 1) / G) of both passes, their slices' partials after the rows
+// (2 kRows D floats of shared memory). The LayerNorm's vectors are asked
+// into L1 before the sync. O is T where v2 rounds, float for v1.
+template <typename T, typename O, int NB = kBatch>
+__device__ __forceinline__ void out_ln_q_passes(
+    cg::grid_group& grid, float* xs, int rows, size_t off, int d_model,
+    const T* __restrict__ res, const T* __restrict__ wo, const T* __restrict__ bo,
+    const T* __restrict__ gamma, const T* __restrict__ beta, const T* __restrict__ wq,
+    const T* __restrict__ bq, float eps, float* y, typename store_t<O>::type* h_out,
+    typename store_t<O>::type* q_out) {
+  const int2 own = block_share(d_model);
+  float* part = xs + kRows * d_model;
+  const int cap = d_model / slices<T>(d_model);
+  block_outputs<T, NB>(
+      xs, d_model, wo, own.x, own.y, rows, part, cap,
+      [&](int o, int b) {
+        return make_float2(to_float(bo[o]), to_float(res[off + (size_t)b * d_model + o]));
+      },
+      [&](int o, int b, float v, float2 a) { y[off + (size_t)b * d_model + o] = (v + a.x) + a.y; });
+  prefetch_l1(gamma, d_model);
+  prefetch_l1(beta, d_model);
+  grid.sync();
+  layer_norm_rows<T, kPassWarps, O>(y + off, rows, d_model, gamma, beta, eps, xs,
+                                    blockIdx.x == 0 ? h_out + off : nullptr);
+  __syncthreads();
+  block_outputs<T, NB>(
+      xs, d_model, wq, own.x, own.y, rows, part, cap,
+      [&](int o, int) { return make_float2(to_float(bq[o]), 0.f); },
+      [&](int o, int b, float v, float2 a) {
+        q_out[off + (size_t)b * d_model + o] = from_float<O>(v + a.x);
+      });
+}
+
+// fused_out_ln_ffn's three products and two LayerNorms (and v1's last stage)
+// for the rows [off, off + rows) whose input is in xs (dense-pass layout,
+// kRows max(D, F) floats; hs holds kRows D): the residual of the first is
+// res_at(o, b).
+//   Wo: the block's outputs [D b / G, D (b + 1) / G), their slices' partials
+//     reduced through shared memory (hs) -> y1 (fp32 scratch); grid sync;
+//     every block normalises y1 into hs (h, the FFN's input and residual);
+//   W1: the block's outputs [F b / G, F (b + 1) / G) likewise (partials in
+//     xs), GELU in the epilogue -> z (scratch [., F]); grid sync;
+//   W2: the units (slice k, output o), slice by slice, cut into G equal
+//     runs, one a block: a block loads only its slices' columns of z, and
+//     writes each unit's partial to p2 ([slices(F)][kRows][D]); grid sync;
+//   the last LayerNorm, one row a block: its slices' partials added in
+//     slice order, + b2 + h, normalised into `out` (rounded to T).
+// A LayerNorm's vectors are asked into L1 before the grid sync that precedes
+// it, so that it waits only for the rows. NB: units a warp has in flight.
+template <typename T, int NB = kBatch, typename Res>
+__device__ __forceinline__ void out_ln_ffn_passes(
+    cg::grid_group& grid, float* hs, float* xs, int rows, size_t off, size_t off_ff,
+    int d_model, int d_ff, Res res_at, const T* __restrict__ wo, const T* __restrict__ bo,
+    const T* __restrict__ gamma2, const T* __restrict__ beta2, const T* __restrict__ w1,
+    const T* __restrict__ b1, const T* __restrict__ w2, const T* __restrict__ b2,
+    const T* __restrict__ gamma3, const T* __restrict__ beta3, float eps, float* y1, float* z,
+    float* p2, T* __restrict__ out) {
+  constexpr int VPR = 16 / sizeof(T);
+  const int g = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
+  const int2 own_o = block_share(d_model), own_1 = block_share(d_ff);
+  const int ks2 = slices<T>(d_ff), slice = kSliceVecs * VPR;
+  const int2 own_2 = block_share(ks2 * d_model);
+  const int f_wide = d_ff > d_model ? d_ff : d_model;
+  // Wo: the partials in hs, free until the LayerNorm
+  block_outputs<T, NB>(
+      xs, d_model, wo, own_o.x, own_o.y, rows, hs, d_model / slices<T>(d_model),
+      [&](int o, int b) { return make_float2(to_float(bo[o]), res_at(o, b)); },
+      [&](int o, int b, float y, float2 a) {
+        y1[off + (size_t)b * d_model + o] = (y + a.x) + a.y;
+      });
+  prefetch_l1(gamma2, d_model);
+  prefetch_l1(beta2, d_model);
+  grid.sync();
+  layer_norm_rows<T, kPassWarps>(y1 + off, rows, d_model, gamma2, beta2, eps, hs, nullptr);
+  __syncthreads();
+  // W1: the partials in xs, free until z is loaded
+  block_outputs<T, NB>(
+      hs, d_model, w1, own_1.x, own_1.y, rows, xs, f_wide / slices<T>(d_model),
+      [&](int o, int) { return make_float2(to_float(b1[o]), 0.f); },
+      [&](int o, int b, float y, float2 add) {
+        const float a = y + add.x;
+        z[off_ff + (size_t)b * d_ff + o] = a * (0.5f * (1.0f + erff(a * 0.70710678118654752f)));
+      });
+  grid.sync();
+  // W2: only the columns of z the block's slices read
+  if (own_2.x < own_2.y) {
+    const int k0 = own_2.x / d_model, k1 = (own_2.y - 1) / d_model;
+    load_scratch_cols<T>(z + off_ff, rows, d_ff, k0 * slice, min(d_ff, (k1 + 1) * slice), xs);
+    __syncthreads();
+    split_pass<T, NB>(xs, d_ff, w2, 0, d_model, own_2.x, own_2.y, rows,
+                      [&](int, int o, int k, int b, float y) {
+                        p2[((size_t)k * kRows + b) * d_model + o] = y;
+                      });
+  }
+  if (blk < rows) {
+    prefetch_l1(b2, d_model);
+    prefetch_l1(gamma3, d_model);
+    prefetch_l1(beta3, d_model);
+  }
+  grid.sync();
+  // the last LayerNorm, one row a block: y2 = (sum of the slices' partials
+  // + b2) + h, the row in xs[0, D), the block's warp sums after it
+  float* red = xs + d_model;
+  for (int r = blk; r < rows; r += g) {
+    float s = 0.f;
+    for (int o = tid; o < d_model; o += kPassThreads) {
+      float y = 0.f;
+      for (int k0 = 0; k0 < ks2; k0 += 8) {  // eight partials in flight, added in order
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v[k] = k0 + k < ks2 ? __ldcg(p2 + ((size_t)(k0 + k) * kRows + r) * d_model + o) : 0.f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k0 + k < ks2) y += v[k];
+      }
+      y = (y + to_float(b2[o])) + hs[r * d_model + xs_pos<T>(o, d_model)];
+      xs[o] = y;
+      s += y;
+    }
+    const float mean = block_sum<kPassWarps>(s, red) / (float)d_model;
+    float q = 0.f;
+    for (int o = tid; o < d_model; o += kPassThreads) {
+      const float d = xs[o] - mean;
+      q += d * d;
+    }
+    const float rstd = 1.0f / sqrtf(block_sum<kPassWarps>(q, red) / (float)d_model + eps);
+    T* orow = out + off + (size_t)r * d_model;
+    for (int o = tid; o < d_model; o += kPassThreads)
+      orow[o] = from_float<T>((xs[o] - mean) * rstd * to_float(gamma3[o]) + to_float(beta3[o]));
   }
 }
 

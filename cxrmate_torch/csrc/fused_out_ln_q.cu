@@ -6,27 +6,32 @@
 // y = LayerNorm(ctx . Wo^T + bo + res); h1 = y rounded to the hidden dtype;
 // cq = y . Wq^T + bq from the UNROUNDED y, rounded to the hidden dtype.
 //
-// Bound on the H100: bytes: two [D, D] weights (2.4 MB in bf16 at D = 768)
-// for 4 B D^2 flops at B = 8.
+// Bound on the H100: bytes: two [D, D] weights (2.4 MB in bf16 at D = 768,
+// 0.72 us at 3.35 TB/s) for 4 B D^2 flops at B = 8.
 //
 // Design: the LayerNorm needs the whole row of the first product before the
-// second can start. One cooperative launch, one block per SM: a dense pass
-// over Wo (the grid's warps share the D outputs, up to 8 rows per weight
-// read) leaves y in an fp32 scratch buffer; a grid-wide sync; every block
-// normalises the rows itself into its shared memory (block 0 also writes h1)
-// and the grid shares the D outputs of Wq. The sync costs a few microseconds;
-// a block per batch row would need none but would pull every weight through
-// one SM once per row.
+// second can start. One cooperative launch, one block of 16 warps per SM,
+// both products split-K passes over every warp of the grid (fused_decode.cuh:
+// out_ln_q_passes, shared with v1's fused_layer_step.cu): block b owns the
+// outputs [D b / G, D (b + 1) / G) of Wo and of Wq, whose 512-byte K-slices
+// (3 a row in bf16, 6 in fp32 at D = 768) its warps share in contiguous
+// runs, every unit of a warp in flight at once; the slices' partials are
+// added in slice order through shared memory, bias and residual in the
+// epilogue, y to an fp32 scratch buffer; a grid-wide sync; every block
+// normalises the rows into its shared memory (block 0 also writes h1) and
+// runs the Wq pass the same way. A row's bits depend neither on the card,
+// the grid nor the batch. Each block asks L2 for its rows of Wo and Wq once
+// ctx's loads are on their way (asked at launch, they would queue ctx's
+// loads behind them), and L1 for the LayerNorm's gamma and beta before the
+// sync, so that after it the block waits only for the rows.
 #include "fused_decode.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using namespace cxr;
 using namespace cxr::fused;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = kPassThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -36,34 +41,23 @@ out_ln_q_kernel(const T* __restrict__ ctx, const T* __restrict__ res, const T* _
                 T* __restrict__ h_out, T* __restrict__ q_out, float* y, int batch, int d_model,
                 float eps) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [kRows][D]
+  float* xs = reinterpret_cast<float*>(smem4);  // [kRows][D], then the slices' partials
   cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5;
-  const int gwarp = blockIdx.x * kWarps + warp, gwarps = gridDim.x * kWarps;
+  const int2 own = block_share(d_model);
 
   for (int b0 = 0; b0 < batch; b0 += kRows) {
     const int rows = min(kRows, batch - b0);
     const size_t off = (size_t)b0 * d_model;
-    load_rows<T>(ctx + off, rows, d_model, xs);
+    const auto ask = [&] {  // the block's rows of both weights, once
+      if (b0 == 0) {
+        prefetch_rows(wo, own, d_model);
+        prefetch_rows(wq, own, d_model);
+      }
+    };
+    load_rows<T>(ctx + off, rows, d_model, xs, ask);
     __syncthreads();
-    dense_pass<T>(
-        xs, d_model, wo, d_model, rows, gwarp, gwarps,
-        [&](int o, int b) {
-          return make_float2(to_float(bo[o]), to_float(res[off + (size_t)b * d_model + o]));
-        },
-        [&](int o, int b, float v, float2 a) {
-          y[off + (size_t)b * d_model + o] = (v + a.x) + a.y;
-        });
-    grid.sync();
-    layer_norm_rows<T, kWarps>(y + off, rows, d_model, gamma, beta, eps, xs,
-                               blockIdx.x == 0 ? h_out + off : nullptr);
-    __syncthreads();
-    dense_pass<T>(
-        xs, d_model, wq, d_model, rows, gwarp, gwarps,
-        [&](int o, int b) { return make_float2(to_float(bq[o]), 0.f); },
-        [&](int o, int b, float v, float2 a) {
-          q_out[off + (size_t)b * d_model + o] = from_float<T>(v + a.x);
-        });
+    out_ln_q_passes<T, T>(grid, xs, rows, off, d_model, res, wo, bo, gamma, beta, wq, bq, eps, y,
+                          h_out, q_out);
     __syncthreads();
   }
 }
@@ -74,7 +68,7 @@ cudaError_t launch(const void* ctx, const void* res, const void* wo, const void*
                    void* h_out, void* q_out, void* scratch, int batch, int d_model, float eps,
                    cudaStream_t stream) {
   if (d_model < 8 || d_model % 8 != 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kRows * d_model;
+  const size_t smem = sizeof(float) * 2 * kRows * d_model;  // the rows, then the partials
   const void* fn = reinterpret_cast<const void*>(&out_ln_q_kernel<T>);
   static int grid = 0;
   static size_t grid_smem = 0;

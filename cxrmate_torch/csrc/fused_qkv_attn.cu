@@ -17,7 +17,8 @@
 //
 // Design: one cooperative launch, one block of 16 warps per SM, two stages
 // with a grid-wide sync between.
-//   Stage 1 is a split-K pass (fused_decode.cuh: split_pass, block_outputs)
+//   Stage 1 is a split-K pass (fused_decode.cuh: qkv_projection, shared with
+//     v1's fused_layer_step.cu, on split_pass and block_outputs)
 //     over the concatenated [3D, D] weight (the port's layout: nn.Linear's
 //     [out, in] rows, q then k then v): block b owns the outputs [3D b / G,
 //     3D (b + 1) / G), whose 512-byte K-slices (3 a row in bf16, 6 in fp32
@@ -38,7 +39,6 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
 using namespace cxr;
 using namespace cxr::fused;
 
@@ -58,58 +58,15 @@ qkv_attn_kernel(const T* __restrict__ hidden, const T* __restrict__ wqkv,
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float red[kWarps];
   cg::grid_group grid = cg::this_grid();
-  const int d3 = 3 * d_model, g = gridDim.x, blk = blockIdx.x;
-  const int lo = (int)((long)d3 * blk / g), hi = (int)((long)d3 * (blk + 1) / g);
 
-  // stage 1: q, k_new, v_new of every row, fp32, to scratch [batch, 3D]; the
-  // slices' partials after the rows in shared memory. The block's rows of
-  // Wqkv are asked into L2 once the first rows of hidden are on their way
-  // (asked before them, they delay hidden's loads behind them)
-  for (int b0 = 0; b0 < batch; b0 += kRows) {
-    const int rows = min(kRows, batch - b0);
-    load_rows<T>(hidden + (size_t)b0 * d_model, rows, d_model, smem, [&] {
-      if (b0 == 0)
-        prefetch_range(wqkv + (size_t)lo * d_model, sizeof(T) * (size_t)(hi - lo) * d_model);
-    });
-    __syncthreads();
-    block_outputs<T, kUnits>(
-        smem, d_model, wqkv, lo, hi, rows, smem + kRows * d_model,
-        d_model / slices<T>(d_model),
-        [&](int o, int) { return make_float2(to_float(bqkv[o]), 0.f); },
-        [&](int o, int b, float y, float2 a) { qkv[(size_t)(b0 + b) * d3 + o] = y + a.x; });
-  }
-  // the block's first (study, head) while the grid syncs: its cached K and V
-  // columns below `index` to L2, its mask row to L1
-  if (blk < batch * heads) {
-    const size_t base = (size_t)blk * t_len * kDh, cols = sizeof(T) * (size_t)index * kDh;
-    prefetch_range(cache_k + base, cols);
-    prefetch_range(cache_v + base, cols);
-    prefetch_l1(key_mask + (size_t)(blk / heads) * t_len, t_len);
-  }
+  // stage 1: q, k_new, v_new of every row, fp32, to scratch [batch, 3D]
+  qkv_projection<T, kUnits>(hidden, wqkv, bqkv, qkv, batch, d_model, smem);
+  prefetch_self_unit(cache_k, cache_v, key_mask, batch * heads, heads, t_len, index);
   grid.sync();
 
   // stage 2: one (study, head) per block in turn
-  float* qs = smem;       // [kDh]
-  float* kn = qs + kDh;   // [kDh]
-  float* vn = kn + kDh;   // [kDh]
-  float* sc = vn + kDh;   // attend_floats(t_len, kWarps)
-  for (int unit = blockIdx.x; unit < batch * heads; unit += gridDim.x) {
-    const int b = unit / heads, h = unit - b * heads;
-    const float* row = qkv + (size_t)b * d3 + h * kDh;
-    for (int i = threadIdx.x; i < 3 * kDh; i += kThreads)
-      qs[i] = __ldcg(row + (i / kDh) * d_model + (i % kDh));
-    __syncthreads();
-    const size_t base = (size_t)unit * t_len * kDh;
-    const int* mask = key_mask + (size_t)b * t_len;
-    attend<T, kWarps>(qs, cache_k + base, cache_v + base, mask, t_len, index, true, kn, vn,
-                      mask[index] != 0, scale, sc, red, ctx + (size_t)b * d_model + h * kDh);
-    // the head's reads of the cache are done: insert the new column
-    for (int i = threadIdx.x; i < kDh; i += kThreads) {
-      cache_k[base + (size_t)index * kDh + i] = from_float<T>(kn[i]);
-      cache_v[base + (size_t)index * kDh + i] = from_float<T>(vn[i]);
-    }
-    __syncthreads();
-  }
+  self_attention<T, T>(qkv, cache_k, cache_v, key_mask, ctx, batch, heads, t_len, d_model, index,
+                       scale, smem, red);
 }
 
 template <typename T>

@@ -70,7 +70,7 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _DH = 64              # the head dim the kernels are written for
 _ROWS = 8             # batch rows a dense pass carries per weight read
-_DENSE_WARPS = 16
+_PASS_WARPS = 16  # warps of a block of the dense kernels (split-K passes, attention stages)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -83,11 +83,12 @@ def _attend_floats(n: int, warps: int) -> int:
 # FFN 8 x (D + F)), or the scores of T + 1 keys and the per-warp contexts.
 def _smem_qkv_attn(d_model: int, t_len: int) -> int:
     # stage 1: the rows, then the slices' partials of the block's outputs
-    return 4 * max(2 * _ROWS * d_model, 3 * _DH + _attend_floats(t_len, _DENSE_WARPS))
+    return 4 * max(2 * _ROWS * d_model, 3 * _DH + _attend_floats(t_len, _PASS_WARPS))
 
 
 def _smem_out_ln_q(d_model: int) -> int:
-    return 4 * _ROWS * d_model
+    # the rows, then the slices' partials of the block's outputs
+    return 4 * 2 * _ROWS * d_model
 
 
 def cross_fits(s_len: int, itemsize: int) -> bool:
@@ -103,7 +104,6 @@ def _smem_out_ln_ffn(d_model: int, d_ff: int) -> int:
 
 
 _SLICE_VECS = 32  # 16-byte weight vectors of a K-slice of a split-K pass
-_PASS_WARPS = 16  # warps of a block of the kernels with split-K passes
 
 
 def pass_slices(n_in: int, itemsize: int) -> int:
@@ -163,14 +163,57 @@ def qkv_units(d_model: int, itemsize: int, grid: int) -> list:
     return _block_units(3 * d_model, d_model, d_model, itemsize, grid)
 
 
-_STEP_WARPS = 16  # warps per block of the v1 kernel, attention stages included
+def lnq_units(d_model: int, itemsize: int, grid: int) -> dict:
+    """The ownership map of :func:`fused_out_ln_q`'s two split-K passes (and
+    v1's third stage) on a grid of ``grid`` blocks, as the kernel computes
+    it: {"wo" | "wq": [(block, warp, output, slice), ...]}, block b owning
+    the outputs [D b / grid, D (b + 1) / grid) of both, their partials in D
+    floats a row (``csrc/fused_decode.cuh:out_ln_q_passes``)."""
+    units = _block_units(d_model, d_model, d_model, itemsize, grid)
+    return {"wo": units, "wq": list(units)}
 
 
-def _smem_layer_step(d_model: int, d_ff: int, t_len: int, s_len: int) -> int:
+def layer_step_units(d_model: int, d_ff: int, itemsize: int, grid: int) -> dict:
+    """The ownership map of v1's six split-K passes (``csrc/fused_layer_step.cu``):
+    the q/k/v projection as :func:`qkv_units`, Wo and Wcq as
+    :func:`lnq_units`, Wco, W1 and W2 as :func:`ffn_units`."""
+    lnq, ffn = lnq_units(d_model, itemsize, grid), ffn_units(d_model, d_ff, itemsize, grid)
+    return {"wqkv": qkv_units(d_model, itemsize, grid), "wo": lnq["wo"], "wcq": lnq["wq"],
+            "wco": ffn["wo"], "w1": ffn["w1"], "w2": ffn["w2"]}
+
+
+def cross_deal(batch: int, heads: int, s_len: int, grid: int) -> list:
+    """v1's cross-attention split over the grid, as the kernel deals it:
+    [(block, warp, unit, part, tile), ...]. Unit u is (study u // heads, head
+    u % heads); its S keys' 64-key tiles go to the n_split parts of
+    ``decode_attention.decode_schedule(S, 64)`` in turn (part p the tiles p,
+    p + n_split, ...); item it = u n_split + p is taken by the pair of warps
+    (it // grid) % 8 and that + 8 of block it % grid, which take the part's
+    tiles in turn (its j-th tile the warp + 8 (j % 2))."""
+    n_split, _ = da.decode_schedule(s_len, _DH)
+    tiles = da.block_tiles(s_len, _DH)
+    pairs = _PASS_WARPS // 2
+    return [(it % grid, it // grid % pairs + pairs * (j % 2), it // n_split, it % n_split, t)
+            for it in range(batch * heads * n_split) for j, t in enumerate(tiles[it % n_split])]
+
+
+def _layer_step_scratch(batch: int, heads: int, d_model: int, d_ff: int, s_len: int,
+                        itemsize: int) -> int:
+    """fp32 scratch (floats) of the v1 kernel: the stages' rows (q/k/v, ctx,
+    y1, h1, cq, y2, cctx: 9 D a row; z: F), W2's partials, per cross item
+    (rounded up to 4) its maximum, its sum and its partial context, a ticket
+    per (study, head) and a flag per study."""
+    n_split, _ = da.decode_schedule(s_len, _DH)
+    items = -(-batch * heads * n_split // 4) * 4
+    return (batch * (9 * d_model + d_ff + heads + 1)
+            + pass_slices(d_ff, itemsize) * _ROWS * d_model + items * (2 + _DH))
+
+
+def _smem_layer_step(d_model: int, d_ff: int, t_len: int) -> int:
     """Dynamic shared memory (bytes) of the v1 kernel's blocks: the largest of
-    its stages' (v2's four, with 16 warps in the cross stage)."""
-    return 4 * max(_ROWS * d_model, 3 * _DH + _attend_floats(t_len, _STEP_WARPS),
-                   _DH + _attend_floats(s_len, _STEP_WARPS),
+    its stages' (a split-K pass's rows and partials, the self-attention, the
+    FFN's rows; the cross stage's exchange is a few KB), whatever S."""
+    return 4 * max(2 * _ROWS * d_model, 3 * _DH + _attend_floats(t_len, _PASS_WARPS),
                    _ROWS * (d_model + max(d_model, d_ff)))
 
 
@@ -179,9 +222,10 @@ def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor, version: int =
     :func:`fused_layer_step`) applies to this layer and these caches: no LoRA
     (as ``fused_decode.py:219``), and the kernels' own limits in place of the
     TPU's memory budget: float32 or bfloat16, head dim 64, widths that are
-    multiples of 8, and the shared memory one block may use (the T + 1 and S
+    multiples of 8, and the shared memory one block may use (the T + 1
     scores, the 8 x (D + F) fp32 rows of the FFN; v2's S up to
-    :func:`cross_fits`, a cluster's share of it a block). ``models.bert.bert_step``
+    :func:`cross_fits`, a cluster's share of it a block; v1's S is not held
+    in a block). ``models.bert.bert_step``
     does not ask (its gate is no LoRA and no deferred write, as in the JAX
     package); on the card a wrapper raises on what its kernel does not take."""
     if isinstance(layer.attention.self.query, LoraLinear):
@@ -194,7 +238,7 @@ def supports(layer, cache_k: torch.Tensor, cross_k: torch.Tensor, version: int =
     if d_model != cache_k.shape[1] * _DH or d_model % 8 or d_ff % 8:
         return False
     if version == 1:
-        return _smem_layer_step(d_model, d_ff, cache_k.shape[2], cross_k.shape[2]) <= _SMEM_LIMIT
+        return _smem_layer_step(d_model, d_ff, cache_k.shape[2]) <= _SMEM_LIMIT
     need = max(_smem_qkv_attn(d_model, cache_k.shape[2]), _smem_out_ln_q(d_model),
                _smem_out_ln_ffn(d_model, d_ff))
     return need <= _SMEM_LIMIT and cross_fits(cross_k.shape[2], cross_k.element_size())
@@ -617,11 +661,12 @@ def fused_layer_step(hidden: torch.Tensor, layer, cache_k: torch.Tensor, cache_v
         (cache_k, (b, h, t, dh), None), (cache_v, (b, h, t, dh), None),
         (cross_k, (b, h, s, dh), None), (cross_v, (b, h, s, dh), None),
         (key_mask, (b, t), torch.int32), (cross_mask, (b, s), torch.int32)))
-    _check_smem(name, _smem_layer_step(d, f, t, s))
+    _check_smem(name, _smem_layer_step(d, f, t))
     out = torch.empty_like(hidden)
     if b == 0:
         return out, cache_k, cache_v
-    scratch = torch.empty(b, 10 * d + f, dtype=torch.float32, device=dev)
+    scratch = torch.empty(_layer_step_scratch(b, h, d, f, s, hidden.element_size()),
+                          dtype=torch.float32, device=dev)
     arr = (_P * 27)(*ptrs, out.data_ptr(), scratch.data_ptr())
     _launch(f"cxr_fused_layer_step_{_SUFFIX[hidden.dtype]}", _ARGS_STEP, dev, arr, b, h, t, s, d,
             f, dh, int(index), 1.0 / math.sqrt(dh), float(eps))

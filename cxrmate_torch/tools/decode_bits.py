@@ -1,4 +1,4 @@
-"""Hold two builds of the port's decode and FFN kernels to each other bit for bit.
+"""Hold two builds of the port's decode, fused qkv and FFN kernels to each other bit for bit.
 
     python3 -m cxrmate_torch.tools.decode_bits save OUT.pt     # from a checkout; one NVIDIA GPU
     python3 -m cxrmate_torch.tools.decode_bits compare A.pt B.pt
@@ -8,8 +8,9 @@
 ``quantize_kv_rowwise``) in fp32 and bf16 on inputs made from fixed seeds
 with numpy, at the main paths' cross and self shapes and a few edges of the
 split (about 30% of the keys masked, one row fully masked), and
-``fused_out_ln_ffn`` at the decoder's widths (D = 768, F = 3,072) for 1, 8
-and 11 studies, and saves the outputs. ``compare`` prints how many of
+``fused_out_ln_ffn`` and ``fused_qkv_attn`` (its context and the cache
+column it writes; T = 256, the step at column 128) at the decoder's widths
+(D = 768, F = 3,072) for 1, 8 and 11 studies, and saves the outputs. ``compare`` prints how many of
 the saved outputs are bit-equal between two files, and exits 1 if any is
 not. Run ``save`` from two checkouts (two builds of ``csrc/``) to show that
 a change left a kernel's bits as they were.
@@ -23,8 +24,9 @@ import sys
 # below one tile, one key above 8 full blocks
 SHAPES = ((8, 1, 2880), (8, 4, 2880), (32, 1, 256), (32, 1, 511), (8, 1, 383), (8, 4, 37),
           (8, 1, 3073))
-KERNELS = ("decode_attention", "decode_attention_vpu", "decode_attention_q8", "fused_out_ln_ffn")
-FFN_ROWS = (1, 8, 11)  # fused_out_ln_ffn's batches: a row alone, one chunk of 8, a ragged second
+KERNELS = ("decode_attention", "decode_attention_vpu", "decode_attention_q8", "fused_out_ln_ffn",
+           "fused_qkv_attn")
+FFN_ROWS = (1, 8, 11)  # the fused kernels' batches: a row alone, one chunk of 8, a ragged second
 
 
 def save(path: str) -> int:
@@ -65,9 +67,17 @@ def save(path: str) -> int:
                    rn(d, f, scale=0.02), rn(d, scale=0.02), rn(d, scale=0.05) + 0.3,
                    rn(d, scale=0.02))
         cctx, res = rn(max(FFN_ROWS), d), rn(max(FFN_ROWS), d)
+        wqkv, bqkv = rn(3 * d, d, scale=0.02), rn(3 * d, scale=0.02)
+        cache = [rn(max(FFN_ROWS), 12, 256, 64, scale=0.5) for _ in range(2)]
+        key_mask = torch.ones(max(FFN_ROWS), 256, dtype=torch.int32, device="cuda")
+        key_mask[1, 3:9] = 0
         for b in FFN_ROWS:
             out[f"fused_out_ln_ffn {dtype} B={b}"] = \
                 fd.fused_out_ln_ffn(cctx[:b], res[:b], *weights, 1e-12).cpu()
+            ck, cv = (c[:b].clone() for c in cache)
+            ctx = fd.fused_qkv_attn(cctx[:b], wqkv, bqkv, ck, cv, 128, key_mask[:b])
+            out[f"fused_qkv_attn {dtype} B={b}"] = torch.cat(
+                [ctx, ck[:, :, 128].reshape(b, -1), cv[:, :, 128].reshape(b, -1)], 1).cpu()
     torch.save(out, path)
     print(f"saved {len(out)} outputs to {path}")
     return 0

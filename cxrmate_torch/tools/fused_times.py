@@ -1,11 +1,12 @@
-"""Time the fused decode step's four kernels one launch at a time, three ways.
+"""Time the fused decode step's four kernels and v1 one launch at a time, three ways.
 
     python3 -m cxrmate_torch.tools.fused_times [--label NAME]   # one NVIDIA GPU
 
 At the fused main path's shapes (``chip_smoke.fused_operands``: 8 studies,
-D = 768, T = 256, the step at column 128, S = 2,880 with the all-zero image
-slots masked), bf16, each kernel of ``ops/fused_decode.py`` through its
-wrapper, CUDA events around one launch:
+D = 768, F = 3,072, T = 256, the step at column 128, S = 2,880 with the
+all-zero image slots masked), bf16, each kernel of ``ops/fused_decode.py``
+through its wrapper (v2's four, then v1's ``fused_layer_step``, one whole
+layer), CUDA events around one launch:
 
   cold_write  L2 flushed by writing 512 MB before each launch, as
               ``chip_smoke.time_cold_ms`` does: the flush leaves L2 full of
@@ -49,6 +50,7 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
     x = cs.fused_operands(torch, torch.bfloat16, g)
     mid = x.cache_k.shape[2] // 2
+    prep = {"wqkv": x.wqkv, "bqkv": x.bqkv, "out_ln_q": x.out_ln_q, "out_ln_ffn": x.out_ln_ffn}
     runs = {
         "fused_qkv_attn": lambda: fd.fused_qkv_attn(x.hidden, x.wqkv, x.bqkv, x.cache_k,
                                                     x.cache_v, mid, x.self_mask),
@@ -56,6 +58,9 @@ def main(argv=None) -> int:
         "fused_cross_attn": lambda: fd.fused_cross_attn(x.hidden, x.cross_k, x.cross_v,
                                                         x.cross_mask),
         "fused_out_ln_ffn": lambda: fd.fused_out_ln_ffn(x.hidden, x.res, *x.out_ln_ffn, 1e-12),
+        "fused_layer_step": lambda: fd.fused_layer_step(x.hidden, None, x.cache_k, x.cache_v,
+                                                        x.cross_k, x.cross_v, mid, x.self_mask,
+                                                        x.cross_mask, 1e-12, prep),
     }
     flush = torch.empty(128 * 2 ** 20, dtype=torch.int32, device="cuda")
 

@@ -17,8 +17,9 @@ is the device's time). A stage ends at a block or grid barrier, so its time
 includes the wait for the slowest thread or block. The stamps are the only
 difference from the kernel the port runs; an anchor that is no longer in the
 source fails the run. The anchors hold in the kernel's one-warp-an-output
-form (``dense_pass``) and in its split-K form alike, so the tool also traces
-an older checkout's sources: ``--csrc DIR``.
+form (``dense_pass``), in its split-K form and with its stages moved into
+``fused_decode.cuh`` alike, so the tool also traces an older checkout's
+sources: ``--csrc DIR``.
 """
 
 from __future__ import annotations
@@ -32,23 +33,27 @@ from pathlib import Path
 
 STAGES = ("load hidden", "projection", "grid sync", "load q/k/v row", "scores", "softmax",
           "P.V", "column write")
-# (file, anchor, stamps before it, stamps after it); each anchor occurs once,
-# or one of a tuple of them (the one-warp-an-output and the split-K forms)
+# (anchor, stamps before it, stamps after it): an anchor is (file, text), or
+# a tuple of them (the one-warp-an-output form, the split-K form in the
+# kernel's file, and the stages moved into fused_decode.cuh), exactly one of
+# which occurs once
+_Q, _H = "fused_qkv_attn.cu", "fused_decode.cuh"
 _ANCHORS = (
-    ("fused_qkv_attn.cu", "  cg::grid_group grid = cg::this_grid();\n", (), (0,)),
-    ("fused_qkv_attn.cu", ("    dense_pass<T>(", "    block_outputs<T"), (1,), ()),
-    ("fused_qkv_attn.cu", "  grid.sync();\n\n  // stage 2", (2,), ()),
-    ("fused_qkv_attn.cu", "  grid.sync();\n", (), (3,)),
-    ("fused_qkv_attn.cu",
-     "      qs[i] = __ldcg(row + (i / kDh) * d_model + (i % kDh));\n    __syncthreads();\n",
+    ((_Q, "  cg::grid_group grid = cg::this_grid();\n"), (), (0,)),
+    (((_Q, "    dense_pass<T>("), (_Q, "    block_outputs<T"),
+      (_H, "    block_outputs<T, NB>(\n        xs, d_model, wqkv,")), (1,), ()),
+    ((_Q, "  grid.sync();\n\n  // stage 2"), (2,), ()),
+    ((_Q, "  grid.sync();\n"), (), (3,)),
+    (((_Q, "      qs[i] = __ldcg(row + (i / kDh) * d_model + (i % kDh));\n    __syncthreads();\n"),
+      (_H, "      qs[i] = __ldcg(row + (i / kDh) * d_model + (i % kDh));\n    __syncthreads();\n")),
      (), (4,)),
-    ("fused_decode.cuh", "  __syncthreads();\n\n  // pass 2: exact softmax", (), ()),
-    ("fused_decode.cuh", "  // pass 2: exact softmax", (5,), ()),
-    ("fused_decode.cuh", "  // pass 3: context = probs . V", (6,), ()),
-    ("fused_decode.cuh", "    out[i] = from_float<O>(x);\n  }\n  __syncthreads();\n", (), (7,)),
-    ("fused_qkv_attn.cu",
-     "      cache_v[base + (size_t)index * kDh + i] = from_float<T>(vn[i]);\n    }\n"
-     "    __syncthreads();\n", (), (8,)),
+    ((_H, "  // pass 2: exact softmax"), (5,), ()),
+    ((_H, "  // pass 3: context = probs . V"), (6,), ()),
+    ((_H, "    out[i] = from_float<O>(x);\n  }\n  __syncthreads();\n"), (), (7,)),
+    (((_Q, "      cache_v[base + (size_t)index * kDh + i] = from_float<T>(vn[i]);\n    }\n"
+           "    __syncthreads();\n"),
+      (_H, "      cache_v[base + (size_t)index * kDh + i] = from_float<T>(vn[i]);\n    }\n"
+           "    __syncthreads();\n")), (), (8,)),
 )
 _STAMP = (
     "__device__ unsigned long long* g_trace;\n"
@@ -62,13 +67,13 @@ _SET = "extern \"C\" int cxr_qkv_set_trace(void* p) " \
 
 def traced_sources(kernel: str, header: str):
     """(fused_qkv_attn.cu, fused_decode.cuh) with the stamps in place."""
-    srcs = {"fused_qkv_attn.cu": kernel, "fused_decode.cuh": header}
-    for name, anchors, before, after in _ANCHORS:
-        found = [a for a in (anchors if isinstance(anchors, tuple) else (anchors,))
-                 if srcs[name].count(a) == 1]
+    srcs = {_Q: kernel, _H: header}
+    for anchors, before, after in _ANCHORS:
+        alts = anchors if isinstance(anchors[0], tuple) else (anchors,)
+        found = [(name, text) for name, text in alts if srcs[name].count(text) == 1]
         if len(found) != 1:
-            raise RuntimeError(f"qkv_trace: anchor not in {name} once: {anchors!r}")
-        anchor = found[0]
+            raise RuntimeError(f"qkv_trace: anchor not in the sources once: {anchors!r}")
+        name, anchor = found[0]
         stamps = lambda ps: "".join(f"  STAMP({p});\n" for p in ps)  # noqa: E731
         srcs[name] = srcs[name].replace(anchor, stamps(before) + anchor + stamps(after))
     header = srcs["fused_decode.cuh"].replace('#include "common.cuh"\n',

@@ -386,12 +386,16 @@ def test_supports_and_prepare(step_setup):
                                                  intermediate=wide.intermediate), k64, k64,
                            version=1)
     assert not fd.supports(wide, torch.zeros(2, 4, 8, 8), torch.zeros(2, 4, 8, 8), version=1)
-    s_max = (fd._SMEM_LIMIT // 4 - 64 - 16 * 64) // 4 * 4 - 4  # the most cross scores it holds
-    def cross(s_len):  # shapes only: the gate reads no data
-        return torch.empty(1, 4, s_len, 64, dtype=torch.bfloat16, device="meta")
+    # its cross stage keeps the scores in scratch, so S is not bounded by one
+    # block; T is, by the self-attention's scores in shared memory
+    t_max = (fd._SMEM_LIMIT // 4 - 3 * 64 - 16 * 64) // 4 * 4 - 1
 
-    assert fd.supports(wide, k64, cross(s_max), version=1)
-    assert not fd.supports(wide, k64, cross(s_max + 4), version=1)
+    def cache(n):  # shapes only: the gate reads no data
+        return torch.empty(1, 4, n, 64, dtype=torch.bfloat16, device="meta")
+
+    assert fd.supports(wide, k64, cache(10 ** 6), version=1)
+    assert fd.supports(wide, cache(t_max), k64, version=1)
+    assert not fd.supports(wide, cache(t_max + 1), k64, version=1)
     with pytest.raises(ValueError, match="no LoRA"):
         fd.prepare_fused_params(step_setup["longitudinal"], 4)
     # the FFN kernel's split-K passes keep its shared memory: 8 x (D + max(D, F)) fp32
@@ -408,7 +412,11 @@ def test_supports_and_prepare(step_setup):
     pytest.param(d, f, g, None, id=f"{d}-{f}-{g}")
     for d, f, g in [(768, 3072, 132), (768, 3072, 114), (32, 64, 132), (32, 64, 114)]] + [
     pytest.param(d, None, g, e, id=f"qkv-{d}-{g}-{e}")
-    for d in (768, 32) for g in (132, 114) for e in (2, 4)])
+    for d in (768, 32) for g in (132, 114) for e in (2, 4)] + [
+    pytest.param(d, kind, g, e, id=f"{kind}-{d}-{g}-{e}")
+    for kind in ("lnq", "v1") for d in (768, 32) for g in (132, 114) for e in (2, 4)] + [
+    pytest.param(b, "cross", g, s, id=f"cross-{b}-{s}-{g}")
+    for b, s in ((8, 2880), (11, 2880), (8, 1), (8, 65), (1, 3073)) for g in (132, 114)])
 def test_ffn_ownership_map_covers_every_unit_once(d, f, grid, itemsize):
     """fused_out_ln_ffn's split-K passes: on a grid of 132 or 114 blocks (the
     H100 SXM's and PCIe's SMs), at the decoder's widths and the tiny
@@ -417,10 +425,59 @@ def test_ffn_ownership_map_covers_every_unit_once(d, f, grid, itemsize):
     where the block has 16, W2's units are cut evenly over the blocks, and
     the slices are a function of the input width and dtype alone. The qkv
     cases (``f`` None): fused_qkv_attn's projection over the [3D, D] weight
-    likewise, each block's outputs its even share of the 3D."""
+    likewise, each block's outputs its even share of the 3D. ``lnq``:
+    fused_out_ln_q's Wo and Wq passes likewise (each block its even share of
+    the D outputs of both); ``v1``: fused_layer_step's six passes (F = 4D).
+    ``cross`` (``d`` the batch, ``itemsize`` S): v1's cross stage deals each
+    (study, head)'s 64-key tiles to its decode_schedule parts, every tile to
+    exactly one (block, warp), a part to one pair of warps of one block, its
+    tiles those of block_tiles, to the pair's two warps in turn, a (study,
+    head)'s parts on different blocks, and the items spread over the blocks
+    evenly (at most one more on a block than on another)."""
 
     def per_block(owned, n):
         return [[u for u in owned if u[0] == blk] for blk in range(n)]
+
+    if f == "cross":
+        b, s = d, itemsize
+        n_split, _ = da.decode_schedule(s, 64)
+        deal = fd.cross_deal(b, 12, s, grid)
+        tiles = -(-s // 64)
+        assert sorted((u, t) for _, _, u, _, t in deal) == [
+            (u, t) for u in range(b * 12) for t in range(tiles)]
+        items, dealt = {}, {}
+        for blk, w, u, p, t in deal:
+            items.setdefault((u, p), set()).add((blk, w % 8))
+            dealt.setdefault((u, p), []).append((t, w // 8))
+        assert all(len(pair) == 1 for pair in items.values())  # a pair of warps an item
+        items = {k: next(iter(pair)) for k, pair in items.items()}
+        assert len(items) == b * 12 * n_split  # more than 8 a block: the pairs take turns
+        rounds = -(-len(items) // (8 * grid))
+        assert max(list(items.values()).count(slot) for slot in set(items.values())) <= rounds
+        parts = da.block_tiles(s, 64)  # the part's tiles, to the pair's warps in turn
+        assert all(got == [(t, j % 2) for j, t in enumerate(parts[p])]
+                   for (_, p), got in dealt.items())
+        for u in range(b * 12):  # a (study, head)'s parts on different blocks
+            assert len({items[(u, p)][0] for p in range(n_split)}) == n_split
+        load = [sum(1 for blk, _ in items.values() if blk == g) for g in range(grid)]
+        assert max(load) - min(load) <= 1 and all(w < 8 for _, w in items.values())
+        return
+    if f in ("lnq", "v1"):
+        units = (fd.lnq_units(d, itemsize, grid) if f == "lnq"
+                 else fd.layer_step_units(d, 4 * d, itemsize, grid))
+        shapes = {"wqkv": (3 * d, d), "wo": (d, d), "wq": (d, d), "wcq": (d, d), "wco": (d, d),
+                  "w1": (4 * d, d), "w2": (d, 4 * d)}
+        for name, owned in units.items():
+            n_out, n_in = shapes[name]
+            ks = fd.pass_slices(n_in, itemsize)
+            assert sorted((o, k) for _, _, o, k in owned) == [
+                (o, k) for o in range(n_out) for k in range(ks)], name
+            for blk, mine in enumerate(per_block(owned, grid)):
+                if name != "w2":  # each block its even share of the outputs
+                    assert {o for _, _, o, _ in mine} == set(
+                        range(n_out * blk // grid, n_out * (blk + 1) // grid)), (name, blk)
+                assert len({w for _, w, _, _ in mine}) == min(16, len(mine)), (name, blk)
+        return
 
     if f is None:
         units = fd.qkv_units(d, itemsize, grid)
@@ -531,8 +588,9 @@ def test_qkv_attn_kernel_matches_plain_on_card(cuda_device, dtype, tol, index):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b", [8, 11])  # 11: a second, ragged chunk of rows
 def test_dense_kernels_match_plain_on_card(cuda_device, dtype, tol, b):
-    """Within tol of the plain versions; the FFN kernel's rows are bit-equal
-    alone, in a batch of 8 and in a batch of 11 (split-K in a fixed order)."""
+    """Within tol of the plain versions; the FFN kernel's rows and
+    fused_out_ln_q's are bit-equal alone, in a batch of 8 and in a batch of
+    11 (split-K in a fixed order)."""
     x = card_operands(cuda_device, dtype, b=b)
     with parity_mode():
         got = fd.fused_out_ln_q(x.hidden, x.res, *x.out_ln_q, 1e-12)
@@ -542,10 +600,16 @@ def test_dense_kernels_match_plain_on_card(cuda_device, dtype, tol, b):
     first8 = fd.fused_out_ln_ffn(x.hidden[:8], x.res[:8], *x.out_ln_ffn, 1e-12)
     alone = torch.cat([fd.fused_out_ln_ffn(x.hidden[i:i + 1], x.res[i:i + 1], *x.out_ln_ffn,
                                            1e-12) for i in range(b)])
+    q8 = fd.fused_out_ln_q(x.hidden[:8], x.res[:8], *x.out_ln_q, 1e-12)
+    q1 = [fd.fused_out_ln_q(x.hidden[i:i + 1], x.res[i:i + 1], *x.out_ln_q, 1e-12)
+          for i in range(b)]
     torch.cuda.synchronize()
     for a, w in ((got[0], want[0]), (got[1], want[1]), (got_ffn, want_ffn)):
         torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
     assert torch.equal(first8, got_ffn[:8]) and torch.equal(alone, got_ffn)
+    for i in range(2):  # fused_out_ln_q's h1 and cq likewise
+        assert torch.equal(q8[i], got[i][:8])
+        assert torch.equal(torch.cat([r[i] for r in q1]), got[i])
 
 
 @pytest.mark.cuda
@@ -620,6 +684,32 @@ def test_layer_step_kernel_matches_plain_on_card(cuda_device, dtype, tol, index)
         torch.testing.assert_close(a[:, :, index].float(), b[:, :, index].float(), rtol=tol,
                                    atol=tol)
         assert torch.equal(a[:, :, others], old[:, :, others])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_step_rows_bit_equal_and_masked_cross_rows_unread_on_card(cuda_device, dtype):
+    """v1's split-K passes and cross parts add in a fixed order: a row's
+    output is the same bits alone, in a batch of 8 and in one of 11; NaN in
+    the K and V rows of masked cross keys (of the studies with an open one)
+    leaves every output bit as it was."""
+    x = card_operands(cuda_device, dtype, b=11)
+    x.cross_mask[3, :64] = 0  # a whole tile of an open slot masked
+    prep = {"wqkv": x.wqkv, "bqkv": x.bqkv, "out_ln_q": x.out_ln_q, "out_ln_ffn": x.out_ln_ffn}
+
+    def run(lo, hi, ck=x.cross_k, cv=x.cross_v):
+        k, v = x.cache_k[lo:hi].clone(), x.cache_v[lo:hi].clone()
+        return fd.fused_layer_step(x.hidden[lo:hi], None, k, v, ck[lo:hi], cv[lo:hi], 128,
+                                   x.key_mask[lo:hi], x.cross_mask[lo:hi], prepared=prep)[0]
+
+    want = run(0, 11)
+    assert torch.equal(run(0, 8), want[:8])
+    assert torch.equal(torch.cat([run(i, i + 1) for i in range(11)]), want)
+    poison = (x.cross_mask == 0)[:, None, :, None]
+    dirty = run(0, 11, x.cross_k.masked_fill(poison, float("nan")),
+                x.cross_v.masked_fill(poison, float("nan")))
+    torch.cuda.synchronize()
+    assert torch.equal(dirty, want)
 
 
 @pytest.mark.cuda

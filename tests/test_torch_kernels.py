@@ -232,6 +232,70 @@ def _split_emulation(q, k, v, mask, scale, scales=None, fused=False):
     return ctx.reshape(b, h * dh).to(q.dtype) if fused else ctx.to(q.dtype)
 
 
+def _v1_cross_emulation(cq, k, v, study):
+    """v1's cross stage (``csrc/fused_layer_step.cu``) in plain torch, fp32:
+    per (study, head) the parts of decode_schedule (its 64-key tiles dealt in
+    turn), a part's tiles to its two warps in turn; a warp's state over the
+    open keys of its tiles only (a masked key's K and V rows are never
+    touched): its maximum m, its sum of e = exp(score - m) and its context
+    sum e v; the two warps' states merged, then the parts' in part order,
+    each rescaled by exp(m - the common maximum), one division. A study with
+    no open key takes every key with score 0 (the uniform softmax)."""
+    b, h, s, dh = k.shape
+    q = cq.float().reshape(b, h, dh)
+    scale = dh ** -0.5
+
+    def keys_of(tiles):
+        return torch.cat([torch.arange(t * 64, min(t * 64 + 64, s)) for t in tiles]) \
+            if len(tiles) else torch.zeros(0, dtype=torch.long)
+
+    def merge(states):  # [(m [h], l [h], c [h, dh])] in order
+        top = torch.stack([m for m, _, _ in states]).amax(0)
+        f = [torch.exp(m - top) for m, _, _ in states]
+        return (top, sum(l * g for (_, l, _), g in zip(states, f)),
+                sum(c * g[:, None] for (_, _, c), g in zip(states, f)))
+
+    out = torch.zeros(b, h, dh)
+    for bi in range(b):
+        dark = not bool((study[bi] != 0).any())
+        parts = []
+        for tiles in da.block_tiles(s, dh):
+            warps = []
+            for sub in range(2):
+                ks = keys_of(list(tiles)[sub::2])
+                ks = ks if dark else ks[study[bi, ks] != 0]
+                sc = (torch.zeros(h, len(ks)) if dark else
+                      torch.einsum("hd,hnd->hn", q[bi], k[bi][:, ks].float()) * scale)
+                m = sc.amax(-1) if len(ks) else torch.full((h,), NEG)
+                e = torch.exp(sc - m[:, None])
+                warps.append((m, e.sum(-1), torch.einsum("hn,hnd->hd", e, v[bi][:, ks].float())))
+            parts.append(merge(warps))
+        _, total, ctx = merge(parts)
+        out[bi] = ctx / total[:, None]
+    return out.reshape(b, h * dh)
+
+
+def _v1_layer_inputs(b, h, t_len, f=256, seed=15):
+    """One decoder layer's operands for fused_layer_step_plain at D = 64 h:
+    hidden, the self caches, an all-open self mask and ``prepared``."""
+    d = 64 * h
+    rs = np.random.RandomState(seed)
+
+    def rn(*shape, scale=0.05):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
+
+    def gain():
+        return 1.0 + rn(d)
+
+    prep = {"wqkv": rn(3 * d, d), "bqkv": rn(3 * d),
+            "out_ln_q": (rn(d, d), rn(d), gain(), rn(d), rn(d, d), rn(d)),
+            "out_ln_ffn": (rn(d, d), rn(d), gain(), rn(d), rn(f, d), rn(f), rn(d, f), rn(d),
+                           gain(), rn(d))}
+    return types.SimpleNamespace(hidden=rn(b, d, scale=1.0), ck=rn(b, h, t_len, 64, scale=1.0),
+                                 cv=rn(b, h, t_len, 64, scale=1.0), prep=prep,
+                                 key_mask=torch.ones(b, t_len, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("m,s,kind,kv", [
     pytest.param(*c, "float", id="-".join(map(str, c))) for c in
     [(4, 37, "random"), (1, 511, "random"), (4, 512, "chunk"), (1, 513, "last"),
@@ -239,8 +303,10 @@ def _split_emulation(q, k, v, mask, scale, scales=None, fused=False):
     pytest.param(*c, "int8", id="q8-" + "-".join(map(str, c))) for c in
     [(4, 37, "random"), (1, 513, "last"), (4, 2880, "chunk")]] + [
     pytest.param(*c, "fused", id="fused-" + "-".join(map(str, c))) for c in
+    [(1, 37, "random"), (1, 2880, "slots"), (1, 3073, "last"), (1, 2880, "dark")]] + [
+    pytest.param(*c, "v1", id="v1-" + "-".join(map(str, c))) for c in
     [(1, 37, "random"), (1, 2880, "slots"), (1, 3073, "last"), (1, 2880, "dark")]])
-def test_split_without_masked_keys_matches_plain(m, s, kind, kv):
+def test_split_without_masked_keys_matches_plain(m, s, kind, kv, monkeypatch):
     """Skipping the masked keys and splitting S is exact: the emulated split
     on K/V whose masked rows are NaN (never read) equals the plain version
     on clean K/V within 1e-5 in fp32, the fully masked row (uniform) too.
@@ -249,7 +315,11 @@ def test_split_without_masked_keys_matches_plain(m, s, kind, kv):
     fused contract (fused_cross_attn): [B, D] rows, the integer study mask
     (``slots``: whole image slots of 576 keys open, as the fused path's;
     ``dark``: every study fully masked), fp32 probs, against
-    fused_cross_attn_plain."""
+    fused_cross_attn_plain. For v1 (``fused_layer_step``, whose cross stage
+    merges the parts' maxima, sums and partial contexts through scratch):
+    a whole layer step of fused_layer_step_plain with its cross-attention
+    replaced by _v1_cross_emulation on the poisoned K/V, against the plain
+    step on clean K/V."""
     q, k, v, _ = _decode_inputs(12, 3, 2, m, s, 64)
     mask = _masked_like_the_paths(13, 3, s, kind)
     q, k, v, mask = t(q), t(k), t(v), t(mask)
@@ -258,6 +328,17 @@ def test_split_without_masked_keys_matches_plain(m, s, kind, kv):
         got = _split_emulation(q, k.masked_fill(poisoned, float("nan")),
                                v.masked_fill(poisoned, float("nan")), mask, 0.125)
         want = da.decode_attention_plain(q, k, v, mask, 0.125)
+    elif kv == "v1":
+        study = (mask != NEG).int()
+        x = _v1_layer_inputs(3, 2, 5)
+        monkeypatch.setattr(fd, "_cross_attn_f32", _v1_cross_emulation)
+        got = fd.fused_layer_step_plain(x.hidden, None, x.ck.clone(), x.cv.clone(),
+                                        k.masked_fill(poisoned, float("nan")),
+                                        v.masked_fill(poisoned, float("nan")), 3, x.key_mask,
+                                        study, 1e-12, x.prep)[0]
+        monkeypatch.undo()
+        want = fd.fused_layer_step_plain(x.hidden, None, x.ck.clone(), x.cv.clone(), k, v, 3,
+                                         x.key_mask, study, 1e-12, x.prep)[0]
     elif kv == "fused":
         rows, study = q.reshape(3, -1), (mask != NEG).int()
         got = _split_emulation(rows, k.masked_fill(poisoned, float("nan")),
