@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
                the card at every shape a main path below gives it (one table,
                main_path_calls, lists them: the multi, single and longitudinal
                calls, self caches 256 to 511 columns wide behind prompts whose
-               pads are masked inside the key range, 8 and 32 rows), fp32 (TF32
+               pads are masked inside the key range, 8 and 32 rows, and the
+               SCST rollout's 2 and 16 rows), fp32 (TF32
                off, <= 1e-5) and bf16 (<= 1e-2), each decode kernel also with
                a fully masked row, the reorder bit-exact at the first, a
                middle and the last column; times of the kernel, the plain
@@ -122,7 +123,25 @@ Phases, each printing one JSON line:
                width (one AdamW update), their launch counts and the
                forward/backward split; then a micro-step against the plain
                path, fp32 and bf16.
-  7. kernels_device - the device time of each decode-attention kernel and of
+  7. scst    - SCST of the longitudinal model at full width with a random
+               CXR-BERT at its published widths (BERT-base, projection 128,
+               vocabulary 30,522 with its own vocab.txt), bf16 on fp32
+               masters, lr 5e-6, an update every step, through make_scst_step
+               -> SCSTTrainer.step: at 1 and 8 studies one untimed step and 3
+               timed ones, each split into encode, the rollout's decode (ms
+               per decode step), the reward and the grad step (the AdamW
+               update apart); studies/s, peak memory, launch counts (21
+               flash_attention per encode, 12 decode_attention per decode
+               step, no other kernel), the sampled tokens that the
+               re-forward's own top-50 would mask; each sampled token
+               inside the top 50 of its step's warped logits; the encoder's
+               parameters and BatchNorm statistics bit-unchanged. Then the
+               step against its plain path: the rollout's logits over both
+               halves, teacher-fed (fp32 <= 1e-3, bf16 <= 0.25), one fp32
+               grad step's loss and decoder gradients (<= 1e-3 of each
+               tensor's largest), and the reward on fixed strings, card
+               against CPU (<= 1e-5).
+  8. kernels_device - the device time of each decode-attention kernel and of
                its library call at every main-path call shape, and of the
                beam reorder and its library calls at every main-path cache
                width (bf16), from torch.profiler; last, because a profiler
@@ -318,6 +337,20 @@ LONGITUDINAL_RUNS = (
 )
 
 
+# SCST (config/train/longitudinal_gen_prompt_cxr-bert.yaml): lr 5e-6 on fp32
+# masters, bf16 compute, the decoder-only mask; mbatch_size 1 (the config's)
+# and 8 (the serving phases' STUDIES); accumulate_steps 1, not the config's 32,
+# so that every step applies an update; one untimed step, then SCST_RUNS timed
+SCST_BATCHES, SCST_LR, SCST_RUNS = (1, 8), 5e-6, 3
+# the previous reports' longest prompt (study 0's) and its 32-token bucket
+SCST_LONGEST, SCST_BUCKET = 104, 128
+# CXR-BERT at the widths of microsoft/BiomedVLP-CXR-BERT-specialized's
+# config.json (BERT-base: 768 wide, 12 layers of 12 heads, intermediate 3,072,
+# 512 positions; vocab_size 30,522, projection_size 128); random weights
+CXRBERT_VOCAB, CXRBERT_PROJECTION, CXRBERT_LAYERS, CXRBERT_POSITIONS = 30522, 128, 12, 512
+CXRBERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
 def main_path_calls(da):
     """What every timed main-path call of this script asks of the kernels:
     {(variant, mode): {"images": image slots per encode, "reorder_t": width of
@@ -344,6 +377,12 @@ def main_path_calls(da):
             "images": STUDIES * SLOTS, "reorder_t": t_len if beams > 1 else None,
             "decode": [(self_kernel, STUDIES * beams, 1, t_len, f"prompt:{bucket}"),
                        (cross_kernel, STUDIES, beams, SLOTS * 576, "slots")]}
+    for b in SCST_BATCHES:  # the SCST rollout: b sampled rows, then b greedy rows
+        paths[("longitudinal", f"scst-b{b}")] = {
+            "images": b * SLOTS, "reorder_t": None,
+            "decode": [("decode_attention", 2 * b, 1, SCST_BUCKET + NEW_TOKENS,
+                        f"rollout:{SCST_BUCKET}"),
+                       ("decode_attention", 2 * b, 1, SLOTS * 576, f"slots:{b}")]}
     return paths
 
 
@@ -353,11 +392,24 @@ def key_mask(torch, kind, b, s):
     nothing masked; ``prefix``: a self cache half written; ``prompt:P``: a
     self cache behind a prompt padded to P columns: each study's pads (from
     its true width to P; study 0 fills the bucket) are masked inside the key
-    range, then 200 written columns, then the unwritten tail."""
+    range, then 200 written columns, then the unwritten tail. ``slots:B`` and
+    ``rollout:P``: the same for the SCST rollout's 2B rows, row i the study
+    i % B."""
     mask = torch.zeros(b, s, device="cuda")
     if kind == "slots":
         for i, n in enumerate(IMAGES_PER_STUDY):
             mask[i, n * 576:] = NEG
+    elif kind.startswith("slots:"):  # the rollout's cross rows: row i is study i % B
+        studies = int(kind.split(":")[1])
+        for i in range(b):
+            mask[i, IMAGES_PER_STUDY[i % studies] * 576:] = NEG
+    elif kind.startswith("rollout:"):  # the rollout's self rows: as prompt:P, row i study i % (b/2)
+        bucket = int(kind.split(":")[1])
+        study = torch.arange(b, device="cuda") % (b // 2)
+        width = torch.where(study == 0, bucket, 4 + (bucket - 4) * study // STUDIES)
+        cols = torch.arange(s, device="cuda")
+        pad = (cols[None, :] >= width[:, None]) & (cols[None, :] < bucket)
+        mask[pad | (cols[None, :] >= bucket + 200)] = NEG
     elif kind == "prefix":
         mask[:, s // 2:] = NEG
     elif kind.startswith("prompt:"):
@@ -2330,6 +2382,355 @@ def train_parity_phase(torch, np, ckpt):
     return out
 
 
+# ----------------------------------------------------------------------- SCST
+def cxrbert_reward(torch, tok, texts, device="cuda"):
+    """A random CXR-BERT at the published widths (CXRBERT_*), seeded, in HF
+    layout, and its vocab.txt: the five specials, the words of ``texts`` and
+    of every ordinary token of the repository tokenizer, then [unused]
+    filler up to the vocabulary size. -> (CXRBERTReward on ``device``, the
+    state dict, its config)."""
+    from cxrmate_torch.reward.cxrbert import (CXRBERTReward, cxrbert_config_from_state_dict,
+                                              load_cxrbert)
+    from cxrmate_torch.tokenizer import WordPieceTokenizer
+
+    special = {tok.vocab[t] for t in tok.all_special_tokens}
+    basic = WordPieceTokenizer({"[UNK]": 0})._split_basic
+    pieces = list(texts) + [tok.decode([i]) for i in range(len(tok)) if i not in special]
+    words = sorted({w for text in pieces for w in basic(text)} - set(CXRBERT_SPECIALS))
+    words = list(CXRBERT_SPECIALS) + words[:CXRBERT_VOCAB - len(CXRBERT_SPECIALS)]
+    words += [f"[unused{i}]" for i in range(CXRBERT_VOCAB - len(words))]
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    vocab = os.path.join(SMOKE_DIR, "cxrbert-vocab.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(words) + "\n")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    d, ff = D_MODEL, D_FF
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * 0.02
+
+    def lin(key, fan_out, fan_in):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = w(fan_out, fan_in), w(fan_out)
+
+    def ln(key):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1.0 + w(d), w(d)
+
+    sd = {"bert.embeddings.word_embeddings.weight": w(CXRBERT_VOCAB, d),
+          "bert.embeddings.position_embeddings.weight": w(CXRBERT_POSITIONS, d),
+          "bert.embeddings.token_type_embeddings.weight": w(2, d)}
+    ln("bert.embeddings.LayerNorm")
+    for layer in range(CXRBERT_LAYERS):
+        p = f"bert.encoder.layer.{layer}"
+        for name in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{name}", d, d)
+        lin(f"{p}.attention.output.dense", d, d)
+        ln(f"{p}.attention.output.LayerNorm")
+        lin(f"{p}.intermediate.dense", ff, d)
+        lin(f"{p}.output.dense", d, ff)
+        ln(f"{p}.output.LayerNorm")
+    sd["cls_projection_head.weight"] = w(CXRBERT_PROJECTION, d)
+    config = cxrbert_config_from_state_dict(sd, {"num_attention_heads": HEADS})
+    model = load_cxrbert(sd, config, device=device)
+    return CXRBERTReward(model, WordPieceTokenizer.from_file(vocab)), sd, config
+
+
+def scst_configs(tok, max_new):
+    """The sample and baseline GenerationConfigs of cli/stages.py:fit_scst."""
+    from cxrmate_torch.generate.decode import GenerationConfig
+
+    common = dict(max_new_tokens=max_new, bos_token_id=tok.bos_token_id,
+                  eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                  mask_token_id=tok.pad_token_id, token_type_sections=(0, 1, 0, 1))
+    return (GenerationConfig(special_token_ids=(tok.bos_token_id, tok.sep_token_id),
+                             do_sample=True, top_k=50, top_p=1.0, temperature=1.0, **common),
+            GenerationConfig(special_token_ids=(tok.vocab["[PMT-SEP]"], tok.bos_token_id,
+                                                tok.sep_token_id), **common))
+
+
+def scst_inputs(np, model, studies):
+    """``studies`` studies of make_pixels, their previous reports (make_prompts,
+    the longest SCST_LONGEST tokens) tokenised with BOS and bucketed to 32 as
+    generate_report buckets them, and synthetic current reports (the labels)
+    -> (pixels, prompt ids, prompt mask, first-token column, findings,
+    impression)."""
+    from cxrmate_torch.models import encoder_decoder as ed
+
+    tok = model.tokenizer
+    prev = make_prompts(np, tok, SCST_LONGEST, SEED + 40)
+    prompt = model.tokenize_prompt(prev[0][:studies], prev[1][:studies], add_bos_token_id=True)
+    ids, mask = ed.bucket_prompt(prompt["input_ids"], prompt["attention_mask"], tok.pad_token_id,
+                                 bucket=32, max_len=model.config.prompt_max_len)
+    if ids.shape[1] != SCST_BUCKET:  # the kernels phase checked this bucket's shapes
+        raise AssertionError(f"scst: prompt bucket {ids.shape[1]}, expected {SCST_BUCKET}")
+    rs = np.random.RandomState(SEED + 41)
+    findings = [synthetic_section(tok, rs, 60) for _ in range(studies)]
+    impression = [synthetic_section(tok, rs, 20) for _ in range(studies)]
+    return (make_pixels(np)[:studies], ids.astype(np.int32), mask.astype(np.int32),
+            prompt["input_ids"].shape[1] - 1, findings, impression)
+
+
+def scst_phase(torch, np, ckpt):
+    """SCST of the longitudinal model at full width through the entry points
+    cli.stages.fit_scst calls: mask_for_stage("scst") -> adamw ->
+    create_train_state -> make_scst_step(bf16) -> SCSTTrainer(...).step with
+    the CXR-BERT reward, at each of SCST_BATCHES studies: one untimed step,
+    then SCST_RUNS timed ones, each split into encode, the rollout's decode,
+    the reward (tokenisation and two BERT forwards, twice) and the grad step
+    (forward, backward, and apart from it the AdamW update); every step's
+    launch counts checked (flash_attention once per CvT layer, decode_attention
+    twice per decoder layer and decode step, no other kernel). The untimed
+    step also checks each sampled token against its step's warped logits (top
+    50), and the encoder's parameters and BatchNorm statistics must be
+    bit-unchanged after the steps. -> {"scst-b1": launches, "scst-b8": ...}
+    of the timed steps."""
+    from cxrmate_torch.generate import decode as decode_mod
+    from cxrmate_torch.generate.logits_process import NEG as WARP_NEG
+    from cxrmate_torch.models import api
+    from cxrmate_torch.models import bert as bert_mod
+    from cxrmate_torch.models import encoder_decoder as ed
+    from cxrmate_torch.train import optim, scst
+    from cxrmate_torch.train import tf_trainer as tt
+
+    model = api.CXRMate.from_hf_checkpoint(ckpt, variant="longitudinal", dtype=torch.float32,
+                                           device="cuda")
+    net, config, tok = model.model, model.config, model.tokenizer
+    layers, depth = config.decoder.num_hidden_layers, sum(config.encoder.depth)
+    texts = scst_inputs(np, model, STUDIES)[4:]
+    reward = cxrbert_reward(torch, tok, texts[0] + texts[1])[0]
+    params = dict(net.named_parameters())
+    mask = optim.mask_for_stage(params, "scst")
+    tx = optim.adamw(SCST_LR, accumulate_steps=1, trainable_mask=mask)
+    state = tt.create_train_state(net, tx)
+    rollout, grad_step = scst.make_scst_step(config, *scst_configs(tok, config.decoder_max_len - 1),
+                                             tx, mask, pad_id=tok.pad_token_id,
+                                             compute_dtype=torch.bfloat16)
+
+    def split_fn(ids):
+        return ed.split_and_decode_sections(
+            ids, [tok.bos_token_id, tok.sep_token_id, tok.eos_token_id], tok)
+
+    trainer = scst.SCSTTrainer(config, rollout, grad_step, reward, split_fn)
+    encoder_before = {k: v.clone() for k, v in net.state_dict().items()
+                      if k.startswith("encoder.")}
+    wrappers = all_wrappers()
+    counts, updates = {}, 0
+
+    def step(inputs, gen, kept=None):
+        px, ids, pmask, col, findings, impression = inputs
+        rec = Recorder()
+        rec.wrap(bert_mod, "bert_step")
+        rec.wrap(ed, "encode_images", timed=True)
+        rec.wrap(trainer, "rollout", keep=True, timed=True)
+        rec.wrap(trainer, "reward_fn", timed=True)
+        rec.wrap(trainer, "grad_step", timed=True)
+        rec.wrap(tx, "update", timed=True)
+        warp, rewarped = decode_mod.warp_logits, []
+        if kept is not None:  # the untimed step: keep the sample half's warped logits
+            decode_mod.warp_logits = lambda *a: kept.append(warp(*a)) or kept[-1]
+        scst.warp_logits = lambda *a: rewarped.append(warp(*a)) or rewarped[-1]
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            _, logs, _ = trainer.step(state, px, ids, pmask, findings, impression, gen,
+                                      prompt_logits_col=col)
+        finally:
+            rec.restore()
+            decode_mod.warp_logits = scst.warp_logits = warp
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = rec.calls["bert_step"]
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        want = dict.fromkeys(wrappers, 0)
+        want.update(flash_attention=depth, decode_attention=2 * layers * steps)
+        if launches != want or not np.isfinite(list(logs.values())).all():
+            raise AssertionError(f"scst step: launches {launches}, expected {want}; logs {logs}")
+        ms = {k: v * 1e3 for k, v in rec.seconds.items()}
+        # sampled tokens (before EOS) that the re-forward's own top-k would
+        # mask, where bf16 rounding ranks them just outside it (the grad step
+        # keeps them; JAX's loss is infinite there)
+        drawn = rec.outputs["rollout"][0][:, ids.shape[1]:].long()
+        masked = rewarped[0].gather(-1, drawn[..., None])[..., 0] == WARP_NEG
+        outside = int((masked & (drawn != tok.pad_token_id)).sum())
+        return {"step_ms": secs * 1e3, "encode_ms": ms["encode_images"],
+                "rollout_ms": ms["rollout"],
+                "decode_ms": ms["rollout"] - ms["encode_images"], "decode_steps": steps,
+                "decode_ms_per_step": (ms["rollout"] - ms["encode_images"]) / steps,
+                "reward_ms": ms["reward_fn"], "grad_step_ms": ms["grad_step"] - ms["update"],
+                "update_ms": ms["update"], "logs": logs, "launches": launches,
+                "sampled_outside_rewarp_top50": outside,
+                "sampled": rec.outputs["rollout"][0], "p_len": ids.shape[1]}
+
+    for b in SCST_BATCHES:
+        inputs = scst_inputs(np, model, b)
+        kept = []
+        warm = step(inputs, torch.Generator(device="cuda").manual_seed(SEED + 42), kept)
+        sampled = warm["sampled"][:, warm["p_len"]:].long()
+        finished = torch.zeros(b, dtype=torch.bool, device="cuda")
+        for k, logits in enumerate(kept[:sampled.shape[1]]):
+            keep = logits > WARP_NEG
+            inside = keep.gather(1, sampled[:, k:k + 1])[:, 0]
+            if not ((inside | finished).all() and (keep.sum(1) >= 50).all()):
+                raise AssertionError(f"scst b{b}: a sampled token at step {k} lies outside the "
+                                     "top 50 of its warped logits")
+            finished |= sampled[:, k] == tok.eos_token_id
+        torch.cuda.reset_peak_memory_stats()
+        runs = [step(inputs, torch.Generator(device="cuda").manual_seed(SEED + 43 + i))
+                for i in range(SCST_RUNS)]
+        peak = torch.cuda.max_memory_allocated()
+        updates += SCST_RUNS + 1
+        med = sorted(runs, key=lambda r: r["step_ms"])[SCST_RUNS // 2]
+        counts[f"scst-b{b}"] = {k: sum(r["launches"][k] for r in runs) for k in wrappers}
+        emit({"phase": "scst", "variant": "longitudinal", "mbatch_size": b,
+              "dtype": "bf16 (fp32 masters)", "lr": SCST_LR, "accumulate_steps": 1,
+              "image_slots": SLOTS, "prompt_width": warm["p_len"], "new_tokens": NEW_TOKENS,
+              "runs": SCST_RUNS, "reported": "median step",
+              **{k: v for k, v in med.items() if k not in ("sampled", "p_len")},
+              "studies_per_s": b / (med["step_ms"] / 1e3),
+              "runs_step_ms": [r["step_ms"] for r in runs],
+              "runs_decode_ms_per_step": [r["decode_ms_per_step"] for r in runs],
+              "runs_sampled_outside_rewarp_top50": [r["sampled_outside_rewarp_top50"]
+                                                    for r in runs],
+              "peak_memory_gb": peak / 1e9,
+              "launches_per_step": {k: v for k, v in med["launches"].items() if v},
+              "sampled_inside_top50_steps": len(kept)})
+    after = net.state_dict()
+    changed = [k for k, v in encoder_before.items() if not torch.equal(after[k], v)]
+    if changed or state.opt_state.count != updates or state.step != updates:
+        raise AssertionError(f"scst: encoder tensors changed {changed[:4]}; "
+                             f"{state.opt_state.count} updates, expected {updates}")
+    del model, net, state, reward, trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def scst_teacher_fed(torch, net, cfgs, px, ids, col, feed):
+    """Encoder states and the rollout's logits over both halves (rows [0, B)
+    with the sample config's token types, [B, 2B) with the baseline's): the
+    prefill's at ``col``, then bert_step fed ``feed`` [2B, P + steps] column by
+    column, as scst_rollout_decode runs them."""
+    from cxrmate_torch.generate import decode as decode_mod
+    from cxrmate_torch.models import bert as bert_mod
+    from cxrmate_torch.models import encoder_decoder as ed
+
+    b, p_len = ids.shape
+    hidden, mask = ed.encode_images(net, px)
+    hidden2, mask2 = torch.cat([hidden, hidden]), torch.cat([mask, mask])
+    halves = [(slice(0, b), cfgs[0]), (slice(b, 2 * b), cfgs[1])]
+    types = torch.cat([ed.token_ids_to_token_type_ids(feed[r, :p_len], c.special_token_ids,
+                                                      c.sections()) for r, c in halves])
+    t_total = feed.shape[1]
+    logits0, cache, _ = decode_mod.prefill(net, cfgs[0], hidden2, mask2, feed[:, :p_len],
+                                           t_total, types)
+    cols = torch.arange(t_total, device="cuda")
+    out = [logits0[:, col]]
+    for i in range(p_len, t_total - 1):
+        key_mask = ((feed != cfgs[0].mask_token_id) & (cols <= i)).int()
+        pos = (key_mask.sum(1) - 1).clamp(min=0)
+        ttype = torch.cat([decode_mod._type_from_present(
+            decode_mod._specials_present(feed[r, :i], c), c) for r, c in halves])
+        logits, cache = bert_mod.bert_step(net.decoder, cache, feed[:, i], ttype, pos, i,
+                                           key_mask, mask2, decode_kernel="")
+        out.append(logits)
+    return hidden, torch.stack(out, 1)
+
+
+def scst_parity_phase(torch, np, ckpt):
+    """The SCST step on the card, kernels against plain versions
+    (plain_kernels()), 2 studies: the rollout's logits over both halves fed
+    the kernel path's own rollout of 16 tokens (scst_teacher_fed), fp32 (TF32
+    off) within PARITY_TOL and bf16 within BF16_PARITY_TOL; one fp32 grad
+    step on those sampled ids and fixed advantages from the encoder states of
+    each path: the loss and each decoder gradient within PARITY_TOL of the
+    tensor's largest (floored at 1e-6 of the largest gradient in the model:
+    gradients that are zero in exact arithmetic sit at rounding level); and
+    the CXR-BERT reward on fixed strings, card against CPU, within 1e-5."""
+    from cxrmate_torch.generate.decode import scst_rollout_decode
+    from cxrmate_torch.models import api
+    from cxrmate_torch.models import encoder_decoder as ed
+    from cxrmate_torch.reward.cxrbert import CXRBERTReward, load_cxrbert
+    from cxrmate_torch.train import optim, scst
+    from cxrmate_torch.train import tf_trainer as tt
+    from cxrmate_torch.utils.precision import parity_mode
+
+    n, steps, advantage = 2, 16, np.array([0.5, -0.25], np.float32)
+    out = {}
+    for name, dtype, tol in (("fp32", torch.float32, PARITY_TOL),
+                             ("bf16", torch.bfloat16, BF16_PARITY_TOL)):
+        with parity_mode():
+            model = api.CXRMate.from_hf_checkpoint(ckpt, variant="longitudinal", dtype=dtype,
+                                                   device="cuda")
+            net, tok = model.model, model.tokenizer
+            cfgs = scst_configs(tok, steps)
+            px, ids, _, col, _, _ = scst_inputs(np, model, n)
+            px = torch.from_numpy(px).to("cuda", dtype)
+            ids = torch.from_numpy(ids).cuda()
+            with torch.no_grad():
+                hidden, enc_mask = ed.encode_images(net, px)
+                sampled, base = scst_rollout_decode(
+                    net, *cfgs, hidden, enc_mask, ids, None,
+                    torch.Generator(device="cuda").manual_seed(SEED + 44), prompt_logits_col=col,
+                    decode_kernel="")
+                feed = torch.cat([sampled, base])
+                h_k, l_k = scst_teacher_fed(torch, net, cfgs, px, ids, col, feed)
+                with plain_kernels():
+                    h_p, l_p = scst_teacher_fed(torch, net, cfgs, px, ids, col, feed)
+            res = {"encoder_max_abs_err": _err(h_k, h_p),
+                   "rollout_logits_max_abs_err": _err(l_k, l_p),
+                   "steps": l_k.shape[1], "rows": feed.shape[0],
+                   "finite": bool(torch.isfinite(l_k.float()).all()), "tolerance": tol}
+            if name == "fp32":
+                start = {k: v.clone() for k, v in net.state_dict().items()}
+                mask = optim.mask_for_stage(dict(net.named_parameters()), "scst")
+                grads = []
+                for plain in (False, True):
+                    net.load_state_dict(start)
+                    tx = optim.adamw(SCST_LR, trainable_mask=mask)
+                    seen = {}
+                    update = tx.update
+                    tx.update = lambda g, *a: seen.update(g) or update(g, *a)
+                    rollout, grad_step = scst.make_scst_step(
+                        model.config, *cfgs, tx, mask, pad_id=tok.pad_token_id)
+                    with plain_kernels() if plain else contextlib.nullcontext():
+                        _, _, hidden, enc_mask = rollout(
+                            net, px, ids, None, torch.Generator(device="cuda").manual_seed(0), col)
+                        _, loss = grad_step(tt.create_train_state(net, tx), hidden, enc_mask,
+                                            ids.shape[1], col, sampled, advantage)
+                    grads.append((float(loss), {k: v.clone() for k, v in seen.items()}))
+                (lk, gk), (lp, gp) = grads
+                big = max(float(g.abs().max()) for g in gp.values())
+                rel = sorted(((_err(gk[k], gp[k]) / max(float(gp[k].abs().max()), 1e-6 * big), k)
+                              for k in gp), reverse=True)
+                res.update(grad_step_loss=lk, grad_step_loss_plain=lp,
+                           grad_step_loss_rel_err=abs(lk - lp) / abs(lp),
+                           grad_max_rel_err=rel[0][0], grad_worst=rel[:3],
+                           grad_median_rel_err=rel[len(rel) // 2][0], grad_tensors=len(gp))
+                del start, grads, gk, gp
+            torch.cuda.synchronize()
+        emit({"phase": "parity", "dtype": name, "variant": "longitudinal", "path": "scst", **res})
+        held = [res["encoder_max_abs_err"], res["rollout_logits_max_abs_err"]]
+        if name == "fp32":
+            held += [res["grad_step_loss_rel_err"], res["grad_max_rel_err"]]
+        if not (res["finite"] and max(held) <= tol):
+            raise AssertionError(f"{name} scst: kernel path disagrees with the plain path: {res}")
+        out[name] = res
+        del model, net
+        torch.cuda.empty_cache()
+    reward, sd, config = cxrbert_reward(torch, tok, [])
+    preds = ["the heart size is normal .", "", " ".join(["stable effusion"] * 300)]
+    labels = [["no acute process ."], ["the lungs are clear ."], ["small left effusion ."]]
+    with parity_mode():
+        on_card = reward(preds, labels)
+    on_cpu = CXRBERTReward(load_cxrbert(sd, config, device="cpu"), reward.tokenizer)(preds, labels)
+    err = float(np.abs(on_card - on_cpu).max())
+    emit({"phase": "parity", "dtype": "fp32", "path": "cxrbert_reward",
+          "card_vs_cpu_max_abs_err": err, "rewards": on_card.tolist(), "tolerance": 1e-5})
+    if not err <= 1e-5:
+        raise AssertionError(f"cxrbert reward: card and CPU differ by {err}")
+    return out
+
+
 def kernels_line(da, k, counts):
     """The summary, bf16 (the serving dtype). One row per kernel and per set
     of shapes a main path gives it: times and bound of one unit of that work
@@ -2473,6 +2874,8 @@ def main() -> int:
         counts["fused_parity"] = fused_parity_phase(torch, np, ckpts["multi"])
         counts["train"] = train_phase(torch, np, ckpts["multi"])["launches"]
         train_parity_phase(torch, np, ckpts["multi"])
+        counts["longitudinal"].update(scst_phase(torch, np, ckpts["longitudinal"]))
+        scst_parity_phase(torch, np, ckpts["longitudinal"])
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     decode_device_phase(torch, da, br, F, kernels)

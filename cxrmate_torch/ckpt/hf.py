@@ -151,7 +151,8 @@ def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarr
     """The JAX package's ``{'params': {'encoder', 'decoder'}, 'batch_stats'}``
     pytree (numpy leaves) -> an HF-layout state dict of numpy arrays, key for
     key and value for value what ``export_encoder_decoder`` writes, the PEFT
-    names of a LoRA decoder included."""
+    names of a LoRA decoder included. A pytree whose ``encoder`` params are
+    missing or empty gives the decoder's keys alone."""
     del dec_cfg  # the mapping reads every layer from the pytree itself
     out: Dict[str, np.ndarray] = {}
 
@@ -164,36 +165,39 @@ def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarr
         out[f"{key}.weight"] = np.asarray(p["scale"])
         out[f"{key}.bias"] = np.asarray(p["bias"])
 
-    enc, stats = variables["params"]["encoder"], variables["batch_stats"]
-    for s in range(enc_cfg.num_stages):
-        st = f"encoder.cvt.encoder.stages.{s}"
-        emb = f"{st}.embedding.convolution_embeddings"
-        sp = enc["stages"][s]
-        out[f"{emb}.projection.weight"] = np.asarray(sp["embed"]["w"]).transpose(3, 2, 0, 1)
-        out[f"{emb}.projection.bias"] = np.asarray(sp["embed"]["b"])
-        put_ln(f"{emb}.normalization", sp["embed"]["ln"])
-        if enc_cfg.cls_token[s]:
-            out[f"{st}.cls_token"] = np.asarray(sp["cls_token"])
-        for l, lp in enumerate(sp["layers"]):
-            ly = f"{st}.layers.{l}"
-            at = f"{ly}.attention.attention"
-            ls = stats["stages"][s]["layers"][l]
-            for name, hf in (("q", "query"), ("k", "key"), ("v", "value")):
-                cp = f"{at}.convolution_projection_{hf}.convolution_projection"
-                out[f"{cp}.convolution.weight"] = (
-                    np.asarray(lp["attn"][f"conv_{name}"]["w"]).transpose(3, 2, 0, 1))
-                put_ln(f"{cp}.normalization", lp["attn"][f"bn_{name}"])
-                out[f"{cp}.normalization.running_mean"] = np.asarray(ls[f"bn_{name}"]["mean"])
-                out[f"{cp}.normalization.running_var"] = np.asarray(ls[f"bn_{name}"]["var"])
-                put_lin(f"{at}.projection_{hf}", lp["attn"][name])
-            put_lin(f"{ly}.attention.output.dense", lp["attn"]["out"])
-            put_lin(f"{ly}.intermediate.dense", lp["mlp"]["fc1"])
-            put_lin(f"{ly}.output.dense", lp["mlp"]["fc2"])
-            put_ln(f"{ly}.layernorm_before", lp["ln_before"])
-            put_ln(f"{ly}.layernorm_after", lp["ln_after"])
-    put_ln("encoder.projection_head.layer_norm", enc["projection_head"]["ln"])
-    out["encoder.projection_head.projection.weight"] = (
-        np.asarray(enc["projection_head"]["proj"]["w"]).T)
+    def put_encoder(enc, stats):
+        for s in range(enc_cfg.num_stages):
+            st = f"encoder.cvt.encoder.stages.{s}"
+            emb = f"{st}.embedding.convolution_embeddings"
+            sp = enc["stages"][s]
+            out[f"{emb}.projection.weight"] = np.asarray(sp["embed"]["w"]).transpose(3, 2, 0, 1)
+            out[f"{emb}.projection.bias"] = np.asarray(sp["embed"]["b"])
+            put_ln(f"{emb}.normalization", sp["embed"]["ln"])
+            if enc_cfg.cls_token[s]:
+                out[f"{st}.cls_token"] = np.asarray(sp["cls_token"])
+            for l, lp in enumerate(sp["layers"]):
+                ly = f"{st}.layers.{l}"
+                at = f"{ly}.attention.attention"
+                ls = stats["stages"][s]["layers"][l]
+                for name, hf in (("q", "query"), ("k", "key"), ("v", "value")):
+                    cp = f"{at}.convolution_projection_{hf}.convolution_projection"
+                    out[f"{cp}.convolution.weight"] = (
+                        np.asarray(lp["attn"][f"conv_{name}"]["w"]).transpose(3, 2, 0, 1))
+                    put_ln(f"{cp}.normalization", lp["attn"][f"bn_{name}"])
+                    out[f"{cp}.normalization.running_mean"] = np.asarray(ls[f"bn_{name}"]["mean"])
+                    out[f"{cp}.normalization.running_var"] = np.asarray(ls[f"bn_{name}"]["var"])
+                    put_lin(f"{at}.projection_{hf}", lp["attn"][name])
+                put_lin(f"{ly}.attention.output.dense", lp["attn"]["out"])
+                put_lin(f"{ly}.intermediate.dense", lp["mlp"]["fc1"])
+                put_lin(f"{ly}.output.dense", lp["mlp"]["fc2"])
+                put_ln(f"{ly}.layernorm_before", lp["ln_before"])
+                put_ln(f"{ly}.layernorm_after", lp["ln_after"])
+        put_ln("encoder.projection_head.layer_norm", enc["projection_head"]["ln"])
+        out["encoder.projection_head.projection.weight"] = (
+            np.asarray(enc["projection_head"]["proj"]["w"]).T)
+
+    if variables["params"].get("encoder"):  # a decoder-only pytree: the decoder's keys
+        put_encoder(variables["params"]["encoder"], variables["batch_stats"])
 
     dec = variables["params"]["decoder"]
     lora = any("lora_a" in layer["self"][n] for layer in dec["layers"] for n in ("q", "k"))

@@ -17,12 +17,16 @@ finished or the width is reached. The self cache has one static width
 way and is not ported). ``use_fused`` sends the steps through the fused
 decoder-layer kernels (:188, :264-271, :298-299). Sampling draws with an explicit ``torch.Generator``;
 its draws are not the JAX package's.
+
+``scst_rollout_decode`` (:412/:446) runs SCST's sampled rollout and its greedy
+baseline in one loop, the baseline rows folded into the batch; it shares
+``generate``'s loop (``_decode``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -73,14 +77,16 @@ def _type_from_present(present: torch.Tensor, gen_cfg: GenerationConfig) -> torc
 
 
 def prefill(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden, encoder_mask,
-            prompt_ids, t_total: int):
+            prompt_ids, t_total: int, prompt_types: Optional[torch.Tensor] = None):
     """Prompt-side ids, a cache of width ``t_total`` and the prefill pass.
+    ``prompt_types`` defaults to ``gen_cfg``'s section rule over the prompt.
     Returns (prefill logits [B, P, V], cache, prompt attention mask [B, P])."""
     dcfg = model.config.decoder
     b, p_len = prompt_ids.shape
     dev = prompt_ids.device
-    prompt_types = ed.token_ids_to_token_type_ids(
-        prompt_ids, gen_cfg.special_token_ids, gen_cfg.sections())
+    if prompt_types is None:
+        prompt_types = ed.token_ids_to_token_type_ids(
+            prompt_ids, gen_cfg.special_token_ids, gen_cfg.sections())
     if gen_cfg.mask_token_id is not None:
         attn_prompt = (prompt_ids != gen_cfg.mask_token_id).to(torch.int32)
         prompt_pos = ed.cumulative_position_ids(attn_prompt)
@@ -94,12 +100,110 @@ def prefill(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden,
     return logits, cache, attn_prompt
 
 
+Select = Callable[[torch.Tensor], Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
+def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
+            encoder_hidden: torch.Tensor, encoder_mask: torch.Tensor, prompt_ids: torch.Tensor,
+            max_new: int, select: Select, *, use_fused: bool = False,
+            prompt_logits_col: Optional[int] = None, decode_kernel: str = "",
+            return_scores: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The decode loop of :func:`generate` and :func:`scst_rollout_decode`.
+
+    The rows split into ``len(cfgs)`` equal blocks; block j takes its token
+    types from ``cfgs[j]``'s specials and sections (over the prompt, and as
+    tokens are decoded), the ids and the mask-token rule from ``cfgs[0]``.
+    ``select(logits [B, V]) -> (tokens [B], the step's scores [B, V] or None)``
+    picks each step's tokens. Returns (sequences [B, P + max_new], scores
+    [B, max_new, V] fp32 with ``return_scores``, else None)."""
+    cfg = cfgs[0]
+    masked_pads = cfg.mask_token_id is not None
+    b, p_len = prompt_ids.shape
+    t_total = p_len + max_new
+    dev = prompt_ids.device
+    n = b // len(cfgs)
+    rows = [slice(j * n, (j + 1) * n) for j in range(len(cfgs))]
+    prompt_types = torch.cat([ed.token_ids_to_token_type_ids(
+        prompt_ids[r], c.special_token_ids, c.sections()) for r, c in zip(rows, cfgs)])
+    fused = use_fused and model.config.lora is None
+    # the fused kernels' per-layer operands, built once, never per step
+    fused_prepared = (prepare_fused_params(model.decoder, model.config.decoder.num_attention_heads)
+                      if fused else None)
+    prefill_logits, cache, attn_prompt = prefill(model, cfg, encoder_hidden, encoder_mask,
+                                                 prompt_ids, t_total, prompt_types)
+    if fused:
+        cross_q8 = None  # the fused path ignores decode_kernel (bert_step warns)
+    else:  # int8 serving decode: quantise the cross cache once, after prefill
+        cache, cross_q8 = bert_mod.maybe_quantize_cross_cache(cache, decode_kernel)
+
+    seq = torch.full((b, t_total), cfg.pad_token_id, dtype=prompt_ids.dtype, device=dev)
+    seq[:, :p_len] = prompt_ids
+    key_mask = torch.zeros(b, t_total, dtype=torch.int32, device=dev)
+    key_mask[:, :p_len] = attn_prompt
+    # specials seen in seq[:, :cur-1]: the current query token is not folded
+    # in yet (HF drops the last column in token_ids_to_token_type_ids_past)
+    present = [_specials_present(prompt_ids[r], c) for r, c in zip(rows, cfgs)]
+    specials = [torch.tensor(c.special_token_ids, device=dev) for c in cfgs]
+    real_count = attn_prompt.sum(dim=1)
+    scores = (torch.zeros(b, max_new, model.config.decoder.vocab_size, device=dev)
+              if return_scores else None)
+
+    def new_key_mask(tok):
+        if masked_pads:
+            return (tok != cfg.mask_token_id).to(torch.int32)
+        return torch.ones(b, dtype=torch.int32, device=dev)
+
+    def put(tok, step_scores, cur):
+        nonlocal real_count
+        seq[:, cur] = tok
+        nm = new_key_mask(tok)
+        key_mask[:, cur] = nm
+        real_count = real_count + nm
+        if return_scores:
+            scores[:, cur - p_len] = step_scores
+
+    first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
+    tok, step_scores = select(prefill_logits[:, first_col])
+    tok = tok.to(seq.dtype)
+    finished = tok == cfg.eos_token_id
+    put(tok, step_scores, p_len)
+
+    cur = p_len + 1  # tokens so far
+    while cur < t_total and not bool(finished.all()):
+        i = cur - 1  # query index = the last appended token
+        present = [p | (seq[r, i - 1, None] == s[None, :])
+                   for p, r, s in zip(present, rows, specials)]
+        types = [_type_from_present(p, c) for p, c in zip(present, cfgs)]
+        ttype = types[0] if len(types) == 1 else torch.cat(types)
+        if masked_pads:
+            pos = torch.clamp(real_count - 1, min=0)
+        else:
+            pos = torch.full((b,), i, dtype=torch.long, device=dev)
+        logits, cache = bert_mod.bert_step(
+            model.decoder, cache, seq[:, i], ttype, pos, i, key_mask, encoder_mask,
+            use_fused=use_fused, fused_prepared=fused_prepared,
+            decode_kernel=decode_kernel, cross_q8=cross_q8)
+        tok, step_scores = select(logits)
+        tok = tok.to(seq.dtype)
+        tok = torch.where(finished, torch.full_like(tok, cfg.pad_token_id), tok)
+        finished = finished | (tok == cfg.eos_token_id)
+        put(tok, step_scores, cur)
+        cur += 1
+    return seq, scores
+
+
+def _draw(warped: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One token per row from softmax(warped)."""
+    return torch.multinomial(torch.softmax(warped, dim=-1), 1, generator=generator)[:, 0]
+
+
 @torch.no_grad()
 def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden: torch.Tensor,
              encoder_mask: torch.Tensor, prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
+             max_new_tokens_pad: Optional[int] = None, return_scores: bool = False,
              use_fused: bool = False, prompt_logits_col: Optional[int] = None,
-             decode_kernel: Optional[str] = None) -> torch.Tensor:
+             decode_kernel: Optional[str] = None):
     """Greedy or sampled decoding (``num_beams == 1``).
 
     Args:
@@ -109,6 +213,11 @@ def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden
         ``prompt_ids != mask_token_id``), as in the JAX package.
       generator: the ``torch.Generator`` (on the model's device) that
         ``gen_cfg.do_sample`` draws from; required when sampling.
+      max_new_tokens_pad: decode this many new tokens instead of
+        ``gen_cfg.max_new_tokens`` (the sequences' width), as in JAX.
+      return_scores: also return each step's scores [B, max_new, V] in fp32:
+        the warped logits when sampling, the logits otherwise (what SCST's
+        sample path keeps); columns after the loop stopped stay 0.
       use_fused: run every decode step's layers through the fused
         decoder-layer kernels (``ops.fused_decode``), greedy or sampled. A
         model with LoRA takes the unfused path all the same; ``decode_kernel``
@@ -121,80 +230,69 @@ def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden
       decode_kernel: decode-attention routing spec, resolved here, once per
         call (``ops.decode_attention.resolve_decode_kernel``; ``None`` reads
         ``CXRMATE_DECODE_KERNEL``).
-    Returns sequences [B, P + max_new_tokens].
+    Returns sequences [B, P + max_new] (and the scores with ``return_scores``).
     """
     if gen_cfg.num_beams != 1:
         raise ValueError("generate is greedy; use generate.beam.beam_search for num_beams > 1")
     if gen_cfg.do_sample and generator is None:
         raise ValueError("do_sample needs a torch.Generator on the model's device")
     del prompt_mask
-    decode_kernel = resolve_decode_kernel(decode_kernel)
-    masked_pads = gen_cfg.mask_token_id is not None
-    b, p_len = prompt_ids.shape
-    max_new = gen_cfg.max_new_tokens
-    t_total = p_len + max_new
-    dev = prompt_ids.device
-    fused = use_fused and model.config.lora is None
-    # the fused kernels' per-layer operands, built once, never per step
-    fused_prepared = (prepare_fused_params(model.decoder, model.config.decoder.num_attention_heads)
-                      if fused else None)
-    prefill_logits, cache, attn_prompt = prefill(model, gen_cfg, encoder_hidden, encoder_mask,
-                                                 prompt_ids, t_total)
-    if fused:
-        cross_q8 = None  # the fused path ignores decode_kernel (bert_step warns)
-    else:  # int8 serving decode: quantise the cross cache once, after prefill
-        cache, cross_q8 = bert_mod.maybe_quantize_cross_cache(cache, decode_kernel)
 
-    seq = torch.full((b, t_total), gen_cfg.pad_token_id, dtype=prompt_ids.dtype, device=dev)
-    seq[:, :p_len] = prompt_ids
-    key_mask = torch.zeros(b, t_total, dtype=torch.int32, device=dev)
-    key_mask[:, :p_len] = attn_prompt
-    # specials seen in seq[:, :cur-1]: the current query token is not folded
-    # in yet (HF drops the last column in token_ids_to_token_type_ids_past)
-    present = _specials_present(prompt_ids, gen_cfg)
-    real_count = attn_prompt.sum(dim=1)
-
-    def select_token(logits):
+    def select(logits):
         logits = logits.float()
         if gen_cfg.do_sample:
             warped = warp_logits(logits, gen_cfg.temperature, gen_cfg.top_k, gen_cfg.top_p)
-            probs = torch.softmax(warped, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0].to(seq.dtype)
-        return torch.argmax(logits, dim=-1).to(seq.dtype)
+            return _draw(warped, generator), warped
+        return torch.argmax(logits, dim=-1), logits
 
-    def new_key_mask(tok):
-        if masked_pads:
-            return (tok != gen_cfg.mask_token_id).to(torch.int32)
-        return torch.ones(b, dtype=torch.int32, device=dev)
+    max_new = gen_cfg.max_new_tokens if max_new_tokens_pad is None else max_new_tokens_pad
+    seq, scores = _decode(model, (gen_cfg,), encoder_hidden, encoder_mask, prompt_ids, max_new,
+                          select, use_fused=use_fused, prompt_logits_col=prompt_logits_col,
+                          decode_kernel=resolve_decode_kernel(decode_kernel),
+                          return_scores=return_scores)
+    return (seq, scores) if return_scores else seq
 
-    first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
-    tok = select_token(prefill_logits[:, first_col])
-    finished = tok == gen_cfg.eos_token_id
-    seq[:, p_len] = tok
-    nm = new_key_mask(tok)
-    key_mask[:, p_len] = nm
-    real_count = real_count + nm
-    specials = torch.tensor(gen_cfg.special_token_ids, device=dev)
 
-    cur = p_len + 1  # tokens so far
-    while cur < t_total and not bool(finished.all()):
-        i = cur - 1  # query index = the last appended token
-        present = present | (seq[:, i - 1, None] == specials[None, :])
-        ttype = _type_from_present(present, gen_cfg)
-        if masked_pads:
-            pos = torch.clamp(real_count - 1, min=0)
-        else:
-            pos = torch.full((b,), i, dtype=torch.long, device=dev)
-        logits, cache = bert_mod.bert_step(
-            model.decoder, cache, seq[:, i], ttype, pos, i, key_mask, encoder_mask,
-            use_fused=use_fused, fused_prepared=fused_prepared,
-            decode_kernel=decode_kernel, cross_q8=cross_q8)
-        tok = select_token(logits)
-        tok = torch.where(finished, torch.full_like(tok, gen_cfg.pad_token_id), tok)
-        finished = finished | (tok == gen_cfg.eos_token_id)
-        seq[:, cur] = tok
-        nm = new_key_mask(tok)
-        key_mask[:, cur] = nm
-        real_count = real_count + nm
-        cur += 1
-    return seq
+@torch.no_grad()
+def scst_rollout_decode(model: ed.EncoderDecoder, cfg_sample: GenerationConfig,
+                        cfg_base: GenerationConfig, encoder_hidden: torch.Tensor,
+                        encoder_mask: torch.Tensor, prompt_ids: torch.Tensor,
+                        prompt_mask: torch.Tensor, generator: torch.Generator, *,
+                        prompt_logits_col: Optional[int] = None,
+                        decode_kernel: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SCST's rollout: the sampled sequences and the greedy baselines in one
+    decode loop, the baseline rows [B, 2B) folded into the batch behind the
+    sampled rows [0, B), over one cross cache of 2B rows.
+
+    The prompt goes in twice; each half takes its token types from its own
+    config (the reference samples with specials ``(BOS, SEP)`` and decodes
+    the baseline with ``(PMT-SEP, BOS, SEP)``). Both configs use the
+    mask-token rule with the same pad/BOS/EOS/mask ids and the same
+    ``max_new_tokens``. The sample half draws from ``generator`` over its rows
+    only, in :func:`generate`'s order: given equal logits it gives what
+    ``generate(do_sample=True)`` gives, and the greedy half what greedy
+    ``generate`` gives. ``prompt_logits_col`` and ``decode_kernel`` as in
+    :func:`generate` (``cross-rowgroup-q8`` quantises the doubled cross cache
+    once). Returns (sampled [B, P + max_new], baseline [B, P + max_new])."""
+    if not (cfg_sample.do_sample and not cfg_base.do_sample):
+        raise ValueError("cfg_sample must sample and cfg_base must be greedy")
+    if cfg_sample.mask_token_id is None or cfg_sample.mask_token_id != cfg_base.mask_token_id:
+        raise ValueError("both configs need the same mask_token_id (the SCST configuration)")
+    for f in ("bos_token_id", "eos_token_id", "pad_token_id", "max_new_tokens"):
+        if getattr(cfg_sample, f) != getattr(cfg_base, f):
+            raise ValueError(f"cfg_sample and cfg_base differ in {f}")
+    del prompt_mask
+    b = prompt_ids.shape[0]
+
+    def select(logits):
+        warped = warp_logits(logits[:b].float(), cfg_sample.temperature, cfg_sample.top_k,
+                             cfg_sample.top_p)
+        greedy = torch.argmax(logits[b:].float(), dim=-1)
+        return torch.cat([_draw(warped, generator), greedy]), None
+
+    seq, _ = _decode(model, (cfg_sample, cfg_base), torch.cat([encoder_hidden, encoder_hidden]),
+                     torch.cat([encoder_mask, encoder_mask]), torch.cat([prompt_ids, prompt_ids]),
+                     cfg_sample.max_new_tokens, select, prompt_logits_col=prompt_logits_col,
+                     decode_kernel=resolve_decode_kernel(decode_kernel))
+    return seq[:b], seq[b:]

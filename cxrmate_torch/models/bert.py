@@ -104,7 +104,8 @@ class _Layer(nn.Module):
         super().__init__()
         d, eps = c.hidden_size, c.layer_norm_eps
         self.attention = _Attention(d, d, eps, lora, **kw)
-        self.crossattention = _Attention(d, c.cross_attention_hidden_size, eps, **kw)
+        if c.add_cross_attention:  # the decoder's; a plain encoder (CXR-BERT) has none
+            self.crossattention = _Attention(d, c.cross_attention_hidden_size, eps, **kw)
         self.intermediate = _Intermediate(d, c.intermediate_size, **kw)
         self.output = _Output(c.intermediate_size, d, eps, **kw)
 

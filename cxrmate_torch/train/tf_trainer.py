@@ -22,10 +22,11 @@ one).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from cxrmate_torch.configs import EncoderDecoderConfig
 from cxrmate_torch.models import encoder_decoder as ed
@@ -69,6 +70,49 @@ def batch_to_device(batch: Dict, device: torch.device, compute_dtype) -> Dict[st
     return out
 
 
+class _Apply(nn.Module):
+    """``fn(model, ...)`` as a module's forward, for ``torch.func.functional_call``."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args, **kwargs):
+        return fn(self.model, *args, **kwargs)
+
+
+def in_compute_dtype(fn: Callable, model: nn.Module, compute_dtype: Optional[torch.dtype],
+                     *args, buffers: bool = False, **kwargs):
+    """``fn(model, *args, **kwargs)`` over copies of the model's parameters
+    (and, with ``buffers``, of its floating buffers) cast to ``compute_dtype``:
+    mixed precision as the JAX steps cast their variables. The fp32 masters
+    are left as they are, and each gradient flows back through its cast
+    (arriving fp32). ``compute_dtype`` None runs on the masters themselves."""
+    if compute_dtype is None:
+        return fn(model, *args, **kwargs)
+    tensors = dict(model.named_parameters())
+    if buffers:
+        tensors.update((n, b) for n, b in model.named_buffers() if b.is_floating_point())
+    cast = {f"model.{n}": t.to(compute_dtype) for n, t in tensors.items()}
+    return torch.func.functional_call(_Apply(model), cast, (fn,) + args, kwargs)
+
+
+def value_and_grad(model: nn.Module, loss_fn: Callable[[], torch.Tensor],
+                   trainable_mask: Optional[Mask] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``loss_fn()`` under autograd -> (the loss, detached; the gradients of
+    the trainable parameters by name). Only those require grad, so the
+    backward holds nothing for a frozen parameter."""
+    params = dict(model.named_parameters())
+    names = [n for n in params if trainable_mask is None or trainable_mask[n]]
+    for n, p in params.items():
+        p.requires_grad_(n in names)
+    with torch.enable_grad():
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, [params[n] for n in names]) if names else ()
+    return loss.detach(), dict(zip(names, grads))
+
+
 def loss_and_grads(model: ed.EncoderDecoder, batch: Dict,
                    generator: Optional[torch.Generator] = None, *, pad_id: int = 4,
                    compute_dtype: Optional[torch.dtype] = None,
@@ -79,35 +123,28 @@ def loss_and_grads(model: ed.EncoderDecoder, batch: Dict,
     place (train mode).
 
     ``compute_dtype`` (e.g. bf16) is mixed precision, as the JAX step's: the
-    master parameters stay fp32 and the forward and backward run on copies
-    cast to ``compute_dtype``, so each gradient flows back through its cast
-    (and arrives fp32); the BatchNorm running statistics enter rounded to
-    ``compute_dtype`` and are stored back fp32 (the JAX step casts them the
-    same way, tf_trainer.py:84 and :108); the loss is computed from fp32
-    logits. ``generator`` None turns dropout and drop-path off (BatchNorm
-    still uses the batch's statistics)."""
-    params = dict(model.named_parameters())
-    names = [n for n in params if trainable_mask is None or trainable_mask[n]]
-    for n, p in params.items():
-        p.requires_grad_(n in names)
-    b = batch_to_device(batch, next(iter(params.values())).device, compute_dtype)
+    forward and backward run on the parameters cast to ``compute_dtype``
+    (:func:`in_compute_dtype`); the BatchNorm running statistics enter
+    rounded to ``compute_dtype`` and are stored back fp32 (the JAX step casts
+    them the same way, tf_trainer.py:84 and :108); the loss is computed from
+    fp32 logits. ``generator`` None turns dropout and drop-path off
+    (BatchNorm still uses the batch's statistics)."""
+    b = batch_to_device(batch, next(model.parameters()).device, compute_dtype)
     kw = dict(decoder_attention_mask=b["decoder_attention_mask"],
               decoder_token_type_ids=b["decoder_token_type_ids"],
               decoder_position_ids=b.get("decoder_position_ids"), train=True,
               generator=generator)
-    with torch.enable_grad():
-        if compute_dtype is None:
-            logits, _ = ed.forward(model, b["pixel_values"], b["decoder_input_ids"], **kw)
-        else:
-            with torch.no_grad():
-                for buf in batch_stats(model.encoder).values():
-                    buf.copy_(buf.to(compute_dtype))
-            cast = {n: p.to(compute_dtype) for n, p in params.items()}
-            logits, _ = torch.func.functional_call(
-                model, cast, (b["pixel_values"], b["decoder_input_ids"]), kw)
-        loss = cross_entropy_ignore_pad(logits, b["label_ids"], pad_id)
-        grads = torch.autograd.grad(loss, [params[n] for n in names]) if names else ()
-    return loss.detach(), dict(zip(names, grads))
+    if compute_dtype is not None:
+        with torch.no_grad():
+            for buf in batch_stats(model.encoder).values():
+                buf.copy_(buf.to(compute_dtype))
+
+    def loss_fn():
+        logits, _ = in_compute_dtype(ed.forward, model, compute_dtype, b["pixel_values"],
+                                     b["decoder_input_ids"], **kw)
+        return cross_entropy_ignore_pad(logits, b["label_ids"], pad_id)
+
+    return value_and_grad(model, loss_fn, trainable_mask)
 
 
 def make_train_step(config: EncoderDecoderConfig, tx: AdamW,

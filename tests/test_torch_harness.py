@@ -68,17 +68,13 @@ def torch_config(vocab: int = VOCAB, variant: str = "multi") -> tcfg.EncoderDeco
         lora=tcfg.LoraConfig(**_LORA) if variant == "longitudinal" else None)
 
 
-@functools.lru_cache(maxsize=None)
-def jax_variables(seed: int = 0, vocab: int = VOCAB, variant: str = "multi"):
-    """The tiny model's JAX variables, numpy leaves."""
-    cfg = jax_config(vocab, variant)
-    enc = init_cvt_variables(jax.random.PRNGKey(seed), cfg.encoder)
-    dec = init_bert_params(jax.random.PRNGKey(seed + 1), cfg.decoder, lora=cfg.lora)
-    variables = {"params": {"encoder": enc["params"], "decoder": dec},
-                 "batch_stats": enc["batch_stats"]}
-    rs = np.random.RandomState(seed + 2)
+def randomise(variables, seed: int):
+    """Numpy leaves, with the BatchNorm running statistics randomised (as
+    tests/oracles.py:146-150) and the biases, norm parameters and ``lora_b``
+    (constants at JAX's init) perturbed, from ``np.random.RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
 
-    def randomise(path, x):
+    def one(path, x):
         x = np.array(x)
         name = str(path[-1].key) if hasattr(path[-1], "key") else ""
         if name == "mean":  # BN running statistics, as tests/oracles.py:146-150
@@ -89,7 +85,18 @@ def jax_variables(seed: int = 0, vocab: int = VOCAB, variant: str = "multi"):
             return (x + rs.normal(0.0, 0.05, x.shape)).astype(x.dtype)
         return x
 
-    return jax.tree_util.tree_map_with_path(randomise, variables)
+    return jax.tree_util.tree_map_with_path(one, variables)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_variables(seed: int = 0, vocab: int = VOCAB, variant: str = "multi"):
+    """The tiny model's JAX variables, numpy leaves."""
+    cfg = jax_config(vocab, variant)
+    enc = init_cvt_variables(jax.random.PRNGKey(seed), cfg.encoder)
+    dec = init_bert_params(jax.random.PRNGKey(seed + 1), cfg.decoder, lora=cfg.lora)
+    variables = {"params": {"encoder": enc["params"], "decoder": dec},
+                 "batch_stats": enc["batch_stats"]}
+    return randomise(variables, seed + 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,9 +132,9 @@ def _shared():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of cxrmate_torch, and chip_smoke.py, loads
-    neither jax nor cxrmate_tpu (checked in a fresh interpreter: this one has
-    JAX loaded)."""
+    """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward
+    among them), and chip_smoke.py, loads neither jax nor cxrmate_tpu (checked
+    in a fresh interpreter: this one has JAX loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cxrmate_torch\n"
@@ -138,7 +145,9 @@ def test_port_imports_no_jax():
         "assert 'cxrmate_torch.generate.logits_process' in names, names\n"
         "assert 'cxrmate_torch.ops.fused_decode' in names, names\n"
         "assert {'cxrmate_torch.train.tf_trainer', 'cxrmate_torch.train.optim'} <= set(names), names\n"
-        "assert len(names) >= 27, names\n"
+        "assert {'cxrmate_torch.train.scst', 'cxrmate_torch.reward.cxrbert',\n"
+        "        'cxrmate_torch.models.bert_encoder', 'cxrmate_torch.tokenizer.wordpiece'} <= set(names), names\n"
+        "assert len(names) >= 32, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
