@@ -141,7 +141,36 @@ Phases, each printing one JSON line:
                grad step's loss and decoder gradients (<= 1e-3 of each
                tensor's largest), and the reward on fixed strings, card
                against CPU (<= 1e-5).
-  8. kernels_device - the device time of each decode-attention kernel and of
+  8. checkpoint - (after train) training checkpoints (ckpt/checkpoints.py) of
+               the multi model at full width, bf16 on fp32 masters, dropout
+               on: 8 micro-steps straight through against 5 micro-steps,
+               save_checkpoint mid-accumulation (AdamW over 4: one update
+               applied, one micro-step accumulated), restore_checkpoint into
+               a train state built anew, and 3 more; every master, BatchNorm
+               buffer, moment and accumulated gradient bit-equal at the end.
+               Three epoch-end saves with monitor values under keep_top_k 1:
+               get_test_ckpt_path picks the best, the rest pruned, last/
+               kept. Save and restore ms, MB on disk, launch counts.
+  9. score   - (after the SCST parity) the test stage below the CLI: the
+               checkpoint get_test_ckpt_path picked restored into a CXRMate
+               (bf16), 8 studies decoded with beam-4 through generate_report
+               (launch counts checked), then 64 studies (those 8 and 56
+               synthetic) through the accumulators of make_metrics(test) for
+               findings and impression: NLG (BLEU, CIDEr, ROUGE-L, METEOR on
+               the host), CheXbert (random BERT-base + 14 heads), CXR-BERT
+               (the SCST phase's random reward model) and BERTScore (random
+               roberta-large cut at layer 17, a synthetic baseline), fp32:
+               each family's compute() ms (median of 3 after one untimed run;
+               the model families at micro-batches of 4 and 16), peak memory,
+               no custom kernel launched inside compute(), two NLG runs'
+               scores and CSV files identical, and the scorers on the card
+               against the CPU on the 8 decoded and 8 synthetic findings
+               (TF32 off: CheXbert logits <= 1e-5 of the largest and its
+               class ids where the CPU's top two are > 1e-4 apart, BERTScore
+               P/R/F1 and CXR-BERT <= 1e-5; BERTScore relative to the value
+               on a row where a text has no token to match, which scores
+               about -1e9 there, as in the JAX package).
+  10. kernels_device - the device time of each decode-attention kernel and of
                its library call at every main-path call shape, and of the
                beam reorder and its library calls at every main-path cache
                width (bf16), from torch.profiler; last, because a profiler
@@ -349,6 +378,29 @@ SCST_LONGEST, SCST_BUCKET = 104, 128
 # 512 positions; vocab_size 30,522, projection_size 128); random weights
 CXRBERT_VOCAB, CXRBERT_PROJECTION, CXRBERT_LAYERS, CXRBERT_POSITIONS = 30522, 128, 12, 512
 CXRBERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+# checkpoints (config/train/multi_tf.yaml, as the train phase): CKPT_STEPS bf16
+# micro-steps straight through against CKPT_SAVE_AT, a save, a restore into a
+# train state built anew and the rest; AdamW accumulating over CKPT_ACCUM, a
+# cut from the config's 8 so that the save holds an applied update and a
+# running accumulation; then three epoch-end saves with these monitor values
+# under keep_top_k 1 (the second is the best)
+CKPT_ACCUM, CKPT_STEPS, CKPT_SAVE_AT = 4, 8, 5
+CKPT_MONITORS = (0.41, 0.47, 0.44)
+CKPT_MONITOR = "val_report_chexbert_f1_macro"
+# scoring (cli/stages.py:test on config/test/multi_tf.yaml): SCORE_STUDIES
+# studies, the decoded batch and synthetic reports, findings and impression;
+# the model metrics in micro-batches of 4 (the config's mbatch_size) and 16;
+# one untimed compute and SCORE_RUNS timed; the card against the CPU on
+# SCORE_PARITY decoded and SCORE_PARITY synthetic findings
+SCORE_STUDIES, SCORE_MBATCH, SCORE_RUNS, SCORE_PARITY = 64, (4, 16), 3, 8
+SCORE_SECTIONS = ("findings", "impression")
+# BERTScore's encoder at roberta-large's published widths (config.json:
+# vocabulary 50,265, 514 positions, one token type, 24 layers of 16 heads,
+# 1,024 wide, intermediate 4,096), cut after layer 17 as the reference scores;
+# random weights; a synthetic rescale baseline in bert-score's file format
+ROBERTA_VOCAB, ROBERTA_POSITIONS, ROBERTA_LAYERS, ROBERTA_LAYER = 50265, 514, 24, 17
+ROBERTA_WIDTH, ROBERTA_HEADS, ROBERTA_FF = 1024, 16, 4096
+ROBERTA_BASELINE = "LAYER,P,R,F\n16,0.8312,0.8309,0.8303\n17,0.8301,0.8298,0.8292\n"
 
 
 def main_path_calls(da):
@@ -377,6 +429,8 @@ def main_path_calls(da):
             "images": STUDIES * SLOTS, "reorder_t": t_len if beams > 1 else None,
             "decode": [(self_kernel, STUDIES * beams, 1, t_len, f"prompt:{bucket}"),
                        (cross_kernel, STUDIES, beams, SLOTS * 576, "slots")]}
+    # the score phase decodes the multi batch with beam-4 from the restored checkpoint
+    paths[("multi", "score")] = dict(paths[("multi", "beam4")])
     for b in SCST_BATCHES:  # the SCST rollout: b sampled rows, then b greedy rows
         paths[("longitudinal", f"scst-b{b}")] = {
             "images": b * SLOTS, "reorder_t": None,
@@ -1627,8 +1681,7 @@ def write_checkpoint(torch, api, tokenizer_path, variant):
             k.startswith("decoder.base_model.model.") and ".lora_B.default." in k for k in sd):
         raise AssertionError("the longitudinal checkpoint lacks PEFT key names")
     path = os.path.join(SMOKE_DIR, f"cxrmate-{variant}-random")
-    save_hf_pretrained_dir(path, sd, model.config)
-    shutil.copy(tokenizer_path, os.path.join(path, "tokenizer.json"))
+    save_hf_pretrained_dir(path, sd, model.config, tok)  # tokenizer.json through tok.save
     return path
 
 
@@ -1672,7 +1725,7 @@ def new_tokens(seqs, eos) -> int:
 
 
 def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample=None,
-          use_fused=None):
+          use_fused=None, reports=None):
     """One report batch along a main path, with every launch count set to 0
     just before it and read just after; checks the counts against what the
     path and the routing spec imply, checks the output, and returns the
@@ -1681,7 +1734,8 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
     generate.decode.generate(use_fused=...) -> split_and_decode_sections
     (generate_report has no use_fused argument, as in the JAX package): with
     it each of the four fused kernels runs layers x steps times and
-    decode_attention not once, without it the other way round."""
+    decode_attention not once, without it the other way round. ``reports``:
+    a dict that receives the reports ("findings", "impression")."""
     from cxrmate_torch.generate import decode as decode_mod
     from cxrmate_torch.models import api
     from cxrmate_torch.models import bert as bert_mod
@@ -1752,6 +1806,8 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
         raise AssertionError(f"{mode}: sequences {seqs.shape} out of range")
     ntok = new_tokens(seqs[:, p_len:], tok.eos_token_id)
     enc_s = rec.seconds["encode_images"]
+    if reports is not None:
+        reports.update(findings=list(findings), impression=list(impression))
     return {"seconds": secs, "studies_per_s": STUDIES / secs, "new_tokens_per_s": ntok / secs,
             "new_tokens": ntok, "encode_s": enc_s, "decode_s": secs - enc_s,
             "decode_ms_per_step": (secs - enc_s) / steps * 1e3, "decode_steps": steps,
@@ -2383,6 +2439,38 @@ def train_parity_phase(torch, np, ckpt):
 
 
 # ----------------------------------------------------------------------- SCST
+def random_encoder(torch, seed, prefix, vocab, positions, types, layers, d, ff):
+    """A seeded random BERT-style encoder's state dict on the card under HF's
+    names behind ``prefix``: weights and biases N(0, 0.02), norm scales 1 +
+    N(0, 0.02). -> (the state dict, the draw of further tensors from the
+    same generator)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * 0.02
+
+    def lin(key, fan_out, fan_in):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = w(fan_out, fan_in), w(fan_out)
+
+    def ln(key):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1.0 + w(d), w(d)
+
+    sd = {f"{prefix}embeddings.word_embeddings.weight": w(vocab, d),
+          f"{prefix}embeddings.position_embeddings.weight": w(positions, d),
+          f"{prefix}embeddings.token_type_embeddings.weight": w(types, d)}
+    ln(f"{prefix}embeddings.LayerNorm")
+    for layer in range(layers):
+        p = f"{prefix}encoder.layer.{layer}"
+        for name in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{name}", d, d)
+        lin(f"{p}.attention.output.dense", d, d)
+        ln(f"{p}.attention.output.LayerNorm")
+        lin(f"{p}.intermediate.dense", ff, d)
+        lin(f"{p}.output.dense", d, ff)
+        ln(f"{p}.output.LayerNorm")
+    return sd, w
+
+
 def cxrbert_reward(torch, tok, texts, device="cuda"):
     """A random CXR-BERT at the published widths (CXRBERT_*), seeded, in HF
     layout, and its vocab.txt: the five specials, the words of ``texts`` and
@@ -2403,32 +2491,9 @@ def cxrbert_reward(torch, tok, texts, device="cuda"):
     vocab = os.path.join(SMOKE_DIR, "cxrbert-vocab.txt")
     with open(vocab, "w", encoding="utf-8") as f:
         f.write("\n".join(words) + "\n")
-    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
-    d, ff = D_MODEL, D_FF
-
-    def w(*shape):
-        return torch.randn(*shape, generator=g, device="cuda") * 0.02
-
-    def lin(key, fan_out, fan_in):
-        sd[f"{key}.weight"], sd[f"{key}.bias"] = w(fan_out, fan_in), w(fan_out)
-
-    def ln(key):
-        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1.0 + w(d), w(d)
-
-    sd = {"bert.embeddings.word_embeddings.weight": w(CXRBERT_VOCAB, d),
-          "bert.embeddings.position_embeddings.weight": w(CXRBERT_POSITIONS, d),
-          "bert.embeddings.token_type_embeddings.weight": w(2, d)}
-    ln("bert.embeddings.LayerNorm")
-    for layer in range(CXRBERT_LAYERS):
-        p = f"bert.encoder.layer.{layer}"
-        for name in ("query", "key", "value"):
-            lin(f"{p}.attention.self.{name}", d, d)
-        lin(f"{p}.attention.output.dense", d, d)
-        ln(f"{p}.attention.output.LayerNorm")
-        lin(f"{p}.intermediate.dense", ff, d)
-        lin(f"{p}.output.dense", d, ff)
-        ln(f"{p}.output.LayerNorm")
-    sd["cls_projection_head.weight"] = w(CXRBERT_PROJECTION, d)
+    sd, w = random_encoder(torch, SEED + 50, "bert.", CXRBERT_VOCAB, CXRBERT_POSITIONS, 2,
+                           CXRBERT_LAYERS, D_MODEL, D_FF)
+    sd["cls_projection_head.weight"] = w(CXRBERT_PROJECTION, D_MODEL)
     config = cxrbert_config_from_state_dict(sd, {"num_attention_heads": HEADS})
     model = load_cxrbert(sd, config, device=device)
     return CXRBERTReward(model, WordPieceTokenizer.from_file(vocab)), sd, config
@@ -2731,6 +2796,428 @@ def scst_parity_phase(torch, np, ckpt):
     return out
 
 
+# ----------------------------------------------------------------- checkpoints
+def ckpt_dir_mb(path) -> float:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files) / 2**20
+
+
+def checkpoint_phase(torch, np, ckpt):
+    """Save, select and resume training checkpoints (ckpt/checkpoints.py) on
+    the multi model of the train phase, bf16 on fp32 masters, dropout on, the
+    train phase's batch: CKPT_STEPS micro-steps straight through; then
+    CKPT_SAVE_AT micro-steps, save_checkpoint mid-accumulation, a train state
+    built anew from the HF directory, restore_checkpoint into it and the rest,
+    each micro-step's dropout from train_generator(0, micro-step). After the
+    last micro-step every master, BatchNorm buffer, moment and accumulated
+    gradient must be bit-equal between the two runs (cuDNN held to its
+    deterministic algorithms for both). Then three epoch-end saves with
+    CKPT_MONITORS under keep_top_k 1: get_test_ckpt_path picks the best, the
+    others are pruned, last/ holds the latest. Every micro-step's launch
+    counts checked (each flash_attention_grad kernel once per CvT layer).
+    -> the launches and the directory the score phase restores from."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.models import api
+    from cxrmate_torch.train import optim
+    from cxrmate_torch.train import tf_trainer as tt
+
+    wrappers = all_wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    batch = None
+
+    def fresh():
+        model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=torch.float32,
+                                               device="cuda")
+        net, config, tok = model.model, model.config, model.tokenizer
+        mask = optim.mask_for_stage(dict(net.named_parameters()), "multi")
+        tx = optim.adamw(TRAIN_LR, accumulate_steps=CKPT_ACCUM, trainable_mask=mask)
+        step = tt.make_train_step(config, tx, mask, pad_id=tok.pad_token_id,
+                                  compute_dtype=torch.bfloat16)
+        return tt.create_train_state(net, tx), step, model
+
+    def run(state, step, micro_steps):
+        want = dict.fromkeys(wrappers, 0)
+        want.update(dict.fromkeys(FLASH_GRAD, sum(state.model.config.encoder.depth)))
+        for i in micro_steps:
+            for fn in wrappers.values():
+                fn.launches = 0
+            state, loss = step(state, batch, tt.train_generator(0, i))
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            if counts != want or not np.isfinite(float(loss)):
+                raise AssertionError(f"checkpoint micro-step {i}: launches {counts}, expected "
+                                     f"{want}; loss {float(loss)}")
+            for k, v in counts.items():
+                launches[k] += v
+        return state
+
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, step, model = fresh()
+        batch = train_batch(np, model.tokenizer, model.config)
+        straight = run(straight, step, range(CKPT_STEPS))
+        state, step, _ = fresh()
+        state = run(state, step, range(CKPT_SAVE_AT))
+        opt = state.opt_state
+        if not (opt.count == 1 and opt.mini_step == CKPT_SAVE_AT % CKPT_ACCUM and opt.acc):
+            raise AssertionError(f"checkpoint: saved at count {opt.count}, mini_step "
+                                 f"{opt.mini_step}: not mid-accumulation")
+        trial = os.path.join(SMOKE_DIR, "resume", "trial_0")
+        path, save_ms = timed(ck.save_checkpoint, trial, state, 0, step=CKPT_SAVE_AT,
+                              n_batches=CKPT_SAVE_AT, global_step=CKPT_SAVE_AT,
+                              mbatch_size=len(TRAIN_IMAGES), world_size=1)
+        mb = ckpt_dir_mb(path)
+        del state, step, opt
+        torch.cuda.empty_cache()
+        resumed, step, _ = fresh()
+        resumed, restore_ms = timed(ck.restore_checkpoint, path, resumed)
+        info = ck.checkpoint_resume_info(path)
+        last = os.path.join(trial, "checkpoints", "last")
+        if info["global_step"] != CKPT_SAVE_AT or resumed.step != CKPT_SAVE_AT or \
+                ck.resolve_resume(trial, resume_last=True) != last:
+            raise AssertionError(f"checkpoint: resume info {info}, step {resumed.step}")
+        resumed = run(resumed, step, range(CKPT_SAVE_AT, CKPT_STEPS))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    differ, compared = [], 0
+    pairs = list(zip(straight.model.state_dict().items(), resumed.model.state_dict().items()))
+    for name in ("mu", "nu", "acc"):
+        a, b = getattr(straight.opt_state, name), getattr(resumed.opt_state, name)
+        pairs += [((f"{name}:{k}", a[k]), (f"{name}:{k}", b[k])) for k in a]
+    for (ka, a), (kb, b) in pairs:
+        compared += 1
+        if ka != kb or not torch.equal(a, b):
+            differ.append(ka)
+    counters = [(s.step, s.opt_state.count, s.opt_state.mini_step) for s in (straight, resumed)]
+    if differ or counters[0] != counters[1] or counters[0] != (CKPT_STEPS, 2, 0):
+        raise AssertionError(f"checkpoint: the resumed run differs from the straight run in "
+                             f"{len(differ)} of {compared} tensors ({differ[:6]}); "
+                             f"step, count, mini_step {counters}")
+    shutil.rmtree(os.path.dirname(trial))
+    selection = os.path.join(SMOKE_DIR, "selection", "trial_0")
+    select_ms = []
+    for epoch, value in enumerate(CKPT_MONITORS):
+        select_ms.append(timed(ck.save_checkpoint, selection, resumed, epoch,
+                               monitor_value=value, monitor=CKPT_MONITOR, keep_top_k=1)[1])
+    best = int(np.argmax(CKPT_MONITORS))
+    best_tag = f"epoch={best}-{CKPT_MONITOR}={CKPT_MONITORS[best]:.6f}"
+    picked = ck.get_test_ckpt_path(selection)
+    left = sorted(os.listdir(os.path.join(selection, "checkpoints")))
+    last = os.path.join(selection, "checkpoints", "last")
+    if picked != os.path.join(selection, "checkpoints", best_tag) or left != sorted(
+            [best_tag, "index.json", "last"]) or ck.last_checkpoint_epoch(selection) != \
+            len(CKPT_MONITORS) - 1 or not os.path.exists(os.path.join(last, ck.STATE_FILE)):
+        raise AssertionError(f"checkpoint selection: picked {picked}, left {left}")
+    res = {"phase": "checkpoint", "variant": "multi", "dtype": "bf16 (fp32 masters)",
+           "studies": len(TRAIN_IMAGES), "image_slots": SLOTS, "accumulate_steps": CKPT_ACCUM,
+           "micro_steps": CKPT_STEPS, "saved_after_micro_step": CKPT_SAVE_AT,
+           "bit_equal_after_resume": True, "tensors_compared": compared,
+           "save_ms": save_ms, "restore_ms": restore_ms, "mb_on_disk": mb,
+           "selection_save_ms": select_ms, "monitor_values": list(CKPT_MONITORS),
+           "test_ckpt": os.path.basename(picked), "left_after_top1": left,
+           "launches_per_micro_step": {k: sum(straight.model.config.encoder.depth)
+                                       for k in FLASH_GRAD},
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(res)
+    del straight, resumed, model, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "exp_dir": selection}
+
+
+# ----------------------------------------------------------------------- score
+def chexbert_state_dict(torch):
+    """A random CheXbert at the published widths (BERT-base, the CXR-BERT
+    vocabulary's 30,522 rows, 512 positions) under the Stanford checkpoint's
+    names: module.bert.* and module.linear_heads.{0..13}."""
+    from cxrmate_torch.eval.chexbert import HEAD_CLASSES
+
+    sd, w = random_encoder(torch, SEED + 60, "module.bert.", CXRBERT_VOCAB, CXRBERT_POSITIONS, 2,
+                           CXRBERT_LAYERS, D_MODEL, D_FF)
+    for i, n in enumerate(HEAD_CLASSES):
+        sd[f"module.linear_heads.{i}.weight"] = w(n, D_MODEL)
+        sd[f"module.linear_heads.{i}.bias"] = w(n)
+    return sd
+
+
+def roberta_files(tok) -> str:
+    """A roberta-large-style directory for RobertaBPETokenizer: vocab.json
+    (<s> <pad> </s> <unk>, the repository tokenizer's tokens, <mask>; the
+    embedding table keeps the published row count), its merges.txt, and
+    the synthetic baseline file. -> the directory."""
+    path = os.path.join(SMOKE_DIR, "roberta")
+    os.makedirs(path, exist_ok=True)
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for t, _ in sorted(tok.vocab.items(), key=lambda kv: kv[1]):
+        vocab.setdefault(t, len(vocab))
+    vocab["<mask>"] = len(vocab)
+    if len(vocab) > ROBERTA_VOCAB:
+        raise AssertionError(f"roberta vocabulary of {len(vocab)}")
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in tok.merges))
+    with open(os.path.join(path, "roberta-large.tsv"), "w") as f:
+        f.write(ROBERTA_BASELINE)
+    return path
+
+
+def score_reports(np, tok, decoded):
+    """SCORE_STUDIES studies: the decoded batch's reports, then synthetic ones
+    (synthetic_section, about 60 findings and 20 impression tokens); labels
+    synthetic alike; distinct study ids."""
+    rs = np.random.RandomState(SEED + 80)
+    extra = SCORE_STUDIES - len(decoded["findings"])
+    reports = {"findings": decoded["findings"] + [synthetic_section(tok, rs, 60)
+                                                  for _ in range(extra)],
+               "impression": decoded["impression"] + [synthetic_section(tok, rs, 20)
+                                                      for _ in range(extra)],
+               "label_findings": [synthetic_section(tok, rs, 60) for _ in range(SCORE_STUDIES)],
+               "label_impression": [synthetic_section(tok, rs, 20)
+                                    for _ in range(SCORE_STUDIES)],
+               "study_ids": [50_000_000 + i for i in range(SCORE_STUDIES)]}
+    return reports
+
+
+def make_score_metrics(exp_dir, families, scorers, mbatch):
+    """The accumulators of cli/stages.py:make_metrics(split="test") for both
+    sections: COCONLGMetrics (bleu, cider, rouge, meteor with the default
+    synonym module), CheXbertMetrics, CXRBERTMetric and BERTScoreMetric;
+    only those of ``families``."""
+    from cxrmate_torch.eval import bertscore as bs
+    from cxrmate_torch.eval import metrics as em
+
+    out = {}
+    for section in SCORE_SECTIONS:
+        split = f"test_{section}"
+        if "nlg" in families:
+            out[f"{split}_nlg"] = em.COCONLGMetrics(
+                split, exp_dir, False, metrics=("bleu", "cider", "rouge", "meteor"),
+                meteor_synonyms=scorers["synonyms"])
+        if "chexbert" in families:
+            out[f"{split}_chexbert"] = em.CheXbertMetrics(split, exp_dir, False,
+                                                          scorers["chexbert"], mbatch)
+        if "cxr-bert" in families:
+            out[f"{split}_cxr-bert"] = em.CXRBERTMetric(split, exp_dir, False,
+                                                        scorers["cxr-bert"], mbatch)
+        if "bertscore" in families:
+            out[f"{split}_bertscore"] = bs.BERTScoreMetric(split, exp_dir, False,
+                                                           scorers["bertscore"], mbatch)
+    return out
+
+
+def score_run(torch, exp_dir, families, scorers, mbatch, reports):
+    """Feed the accumulators as cli/stages.py:evaluate does (labels as
+    one-item lists, STUDIES studies an update), then compute() each:
+    -> ({family: ms over both sections}, {metric_key: score})."""
+    metrics = make_score_metrics(exp_dir, families, scorers, mbatch)
+    ids = reports["study_ids"]
+    for start in range(0, SCORE_STUDIES, STUDIES):
+        part = slice(start, start + STUDIES)
+        for name, metric in metrics.items():
+            section = "findings" if "findings" in name else "impression"
+            metric.update(reports[section][part],
+                          [[j] for j in reports[f"label_{section}"][part]], study_ids=ids[part])
+    ms, scores = dict.fromkeys(families, 0.0), {}
+    for name, metric in metrics.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = metric.compute(0)
+        torch.cuda.synchronize()
+        ms[name.rsplit("_", 1)[1]] += (time.perf_counter() - t0) * 1e3
+        scores.update({f"{name}_{k}": v for k, v in out.items()})
+    return ms, scores
+
+
+def csv_texts(exp_dir, subdir):
+    folder = os.path.join(exp_dir, subdir)
+    return sorted(open(os.path.join(folder, f)).read() for f in os.listdir(folder))
+
+
+def score_parity(torch, np, scorers, sds, reports):
+    """fp32 (TF32 off): the scorers on the card against the same scorers on
+    the CPU, on SCORE_PARITY decoded findings and SCORE_PARITY synthetic ones
+    against their labels."""
+    from cxrmate_torch.eval import bertscore as bs
+    from cxrmate_torch.eval import chexbert as cx
+    from cxrmate_torch.reward.cxrbert import CXRBERTReward, load_cxrbert
+    from cxrmate_torch.utils.precision import parity_mode
+
+    rows = list(range(SCORE_PARITY)) + list(range(STUDIES, STUDIES + SCORE_PARITY))
+    preds = [reports["findings"][i] for i in rows]
+    labels = [reports["label_findings"][i] for i in rows]
+    chex_card, wp = scorers["chexbert_model"], scorers["cxr-bert"].tokenizer
+    tok = wp([cx.normalize_report(r) for r in preds + labels], padding="longest",
+             truncation=True, max_length=512)
+
+    def logits(model, device):
+        with torch.no_grad():
+            return [l.float().cpu() for l in cx.chexbert_logits(
+                model, torch.from_numpy(tok["input_ids"]).long().to(device),
+                torch.from_numpy(tok["attention_mask"]).to(device))]
+
+    def bertscore(scorer):
+        return scorer.score(preds, labels)
+
+    with parity_mode():
+        card = (logits(chex_card, "cuda"), bertscore(scorers["bertscore"]),
+                scorers["cxr-bert"](preds, [[l] for l in labels]))
+        torch.cuda.synchronize()
+    cpu_chex = cx.load_chexbert({k: v.cpu() for k, v in sds["chexbert"].items()}, device="cpu")
+    rob = scorers["bertscore"]
+    cpu_rob = bs.BERTScorer(bs.load_roberta({k: v.cpu() for k, v in sds["roberta"].items()},
+                                            ROBERTA_HEADS, device="cpu"), rob.tokenizer,
+                            num_layers=rob.num_layers, roberta_positions=True,
+                            baseline=rob.baseline)
+    cxr_sd, cxr_cfg = sds["cxr-bert"]
+    cpu_cxr = CXRBERTReward(load_cxrbert({k: v.cpu() for k, v in cxr_sd.items()}, cxr_cfg,
+                                         device="cpu"), wp)
+    cpu = (logits(cpu_chex, "cpu"), bertscore(cpu_rob), cpu_cxr(preds, [[l] for l in labels]))
+    big = max(float(l.abs().max()) for l in cpu[0])
+    chex_err = max(_err(a, b) for a, b in zip(card[0], cpu[0]))
+    ids_differ = 0
+    for a, b in zip(card[0], cpu[0]):
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+        ids_differ += int(((a.argmax(-1) != b.argmax(-1)) & clear).sum())
+    # a text with no token to match besides <s> and </s> (an empty report)
+    # scores about -1e9 against the other, as in the JAX package (the -1e9
+    # mask of _greedy_match_f1): those rows are held relative to the value
+    matchable = [rob.tokenizer(t)["attention_mask"].sum(1) > 2 for t in (preds, labels)]
+    both = matchable[0] & matchable[1]
+    bs_err = {k: float((np.abs(card[1][k] - cpu[1][k])
+                        / np.where(both, 1.0, np.maximum(1.0, np.abs(cpu[1][k])))).max())
+              for k in ("precision", "recall", "f1")}
+    cxr_err = float(np.abs(card[2] - cpu[2]).max())
+    res = {"chexbert_logits_max_abs_err": chex_err, "chexbert_largest_logit": big,
+           "chexbert_ids_differ_where_clear": ids_differ,
+           **{f"bertscore_{k}_max_err": v for k, v in bs_err.items()},
+           "rows": len(rows), "bertscore_rows_without_a_token_to_match": int((~both).sum()),
+           "bertscore_f1_card": card[1]["f1"].tolist(),
+           "bertscore_recall_card": card[1]["recall"].tolist(),
+           "cxr_bert_similarity_max_abs_err": cxr_err,
+           "tolerance": {"chexbert": "1e-5 of the largest logit",
+                         "bertscore": "1e-5; relative to the value on a row without a token "
+                                      "to match", "cxr_bert": 1e-5}}
+    if not (chex_err <= 1e-5 * big and ids_differ == 0 and max(bs_err.values()) <= 1e-5
+            and cxr_err <= 1e-5):
+        raise AssertionError(f"score: the card and the CPU disagree: {res}")
+    return res
+
+
+def score_phase(torch, np, ckpt, trial):
+    """The test stage below the CLI (cli/stages.py:test) on the card: the
+    checkpoint that get_test_ckpt_path picks under ``trial`` restored into a
+    CXRMate (bf16), one beam-4 batch of 8 studies through generate_report
+    (launch counts checked), then the scorers of make_metrics(split="test")
+    over SCORE_STUDIES studies and both sections, fed as evaluate feeds them:
+    NLG (on the host), CheXbert (random BERT-base and heads), CXR-BERT (the
+    SCST phase's random reward model) and BERTScore (random roberta-large cut
+    at layer 17, a synthetic baseline), all fp32. Each family's compute() ms
+    over both sections, median of SCORE_RUNS after an untimed run, the model
+    families at each of SCORE_MBATCH; no custom kernel launched inside
+    compute(); the NLG scores and CSV files of two runs identical; the card
+    against the CPU (score_parity). -> the decode's launch counts."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.eval import bertscore as bs
+    from cxrmate_torch.eval import chexbert as cx
+    from cxrmate_torch.eval.meteor import default_synonyms
+    from cxrmate_torch.models import api
+
+    path = ck.get_test_ckpt_path(trial)
+    model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=torch.bfloat16,
+                                           device="cuda")
+    bias = model.model.decoder.cls.predictions.bias.clone()
+    t0 = time.perf_counter()
+    ck.restore_model(path, model.model)
+    restore_s = time.perf_counter() - t0
+    if torch.equal(bias, model.model.decoder.cls.predictions.bias):
+        raise AssertionError("score: the restored checkpoint left the weights as they were")
+    decoded = {}
+    fig = drive(model, make_pixels(np), "score", 4, sum(model.config.encoder.depth),
+                model.config.decoder.num_hidden_layers, reports=decoded)
+    tok = model.tokenizer
+    del model
+    torch.cuda.empty_cache()
+
+    reports = score_reports(np, tok, decoded)
+    texts = [t for k in ("findings", "impression", "label_findings", "label_impression")
+             for t in reports[k]]
+    reward, cxr_sd, cxr_cfg = cxrbert_reward(torch, tok, texts)
+    chex_sd = chexbert_state_dict(torch)
+    chex = cx.load_chexbert(chex_sd, device="cuda")
+    rob_sd = random_encoder(torch, SEED + 70, "roberta.", ROBERTA_VOCAB, ROBERTA_POSITIONS, 1,
+                            ROBERTA_LAYERS, ROBERTA_WIDTH, ROBERTA_FF)[0]
+    rob_dir = roberta_files(tok)
+    rob = bs.load_roberta(rob_sd, ROBERTA_HEADS, device="cuda")
+    baseline = bs.load_rescale_baseline(os.path.join(rob_dir, "roberta-large.tsv"),
+                                        ROBERTA_LAYER)
+    synonyms = default_synonyms()
+    scorers = {"synonyms": synonyms, "chexbert_model": chex,
+               "chexbert": lambda texts: cx.chexbert_predict(chex, reward.tokenizer, texts),
+               "cxr-bert": reward,
+               "bertscore": bs.BERTScorer(rob, bs.RobertaBPETokenizer.from_dir(rob_dir),
+                                          num_layers=ROBERTA_LAYER, roberta_positions=True,
+                                          baseline=baseline)}
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing, scores, nlg_runs = {}, {}, []
+    plans = [("nlg", SCORE_MBATCH[0], ("nlg",))] + [
+        (f"mbatch{m}", m, ("chexbert", "cxr-bert", "bertscore")) for m in SCORE_MBATCH]
+    for label, mbatch, families in plans:
+        runs = []
+        for r in range(1 + SCORE_RUNS):
+            exp = os.path.join(SMOKE_DIR, "score", f"{label}-run{r}")
+            ms, out = score_run(torch, exp, families, scorers, mbatch, reports)
+            runs.append(ms)
+            scores.update(out)
+            if label == "nlg" and r < 2:
+                nlg_runs.append((out, csv_texts(exp, "nlg_scores")))
+        for fam in families:
+            timed = sorted(run[fam] for run in runs[1:])
+            timing[f"{fam}_ms" if fam == "nlg" else f"{fam}_ms_mbatch{mbatch}"] = \
+                timed[SCORE_RUNS // 2]
+            timing[f"{fam}_runs_ms" if fam == "nlg" else f"{fam}_runs_ms_mbatch{mbatch}"] = timed
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    inside = {k: fn.launches for k, fn in wrappers.items()}
+    if any(inside.values()):
+        raise AssertionError(f"score: custom kernels launched inside compute(): {inside}")
+    if nlg_runs[0] != nlg_runs[1] or len(nlg_runs[0][1]) != len(SCORE_SECTIONS):
+        raise AssertionError("score: two NLG compute() runs differ")
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"score: scores {scores}")
+    parity = score_parity(torch, np, {**scorers}, {"chexbert": chex_sd, "roberta": rob_sd,
+                                                   "cxr-bert": (cxr_sd, cxr_cfg)}, reports)
+    emit({"phase": "score", "variant": "multi", "checkpoint": os.path.basename(path),
+          "checkpoint_restore_s": restore_s, "decode": "beam-4, bf16",
+          "decode_seconds": fig["seconds"], "decode_launches": fig["launches"],
+          "decoded_words": {k: [len(t.split()) for t in decoded[k]] for k in SCORE_SECTIONS},
+          "studies": SCORE_STUDIES, "decoded_studies": STUDIES, "sections": SCORE_SECTIONS,
+          "dtype": "fp32", "mbatch_sizes": SCORE_MBATCH, "runs": SCORE_RUNS,
+          "reported": "median of the timed runs, ms over both sections",
+          "meteor_synonyms": type(synonyms).__name__,
+          "bertscore_baseline": baseline, "roberta_layers_run": ROBERTA_LAYER,
+          **timing, "peak_memory_gb": peak / 1e9,
+          "launches_inside_compute": inside, "nlg_two_runs_identical": True,
+          "scores": {k: v for k, v in scores.items() if k.endswith(
+              ("bleu_4", "meteor", "rouge", "cider", "f1_macro", "similarity", "_f1"))},
+          "parity_fp32": parity})
+    del reward, chex, rob, scorers
+    torch.cuda.empty_cache()
+    return fig["launches"]
+
+
 def kernels_line(da, k, counts):
     """The summary, bf16 (the serving dtype). One row per kernel and per set
     of shapes a main path gives it: times and bound of one unit of that work
@@ -2796,8 +3283,8 @@ def kernels_line(da, k, counts):
     # whose launches are parity_step_launches)
     r = bf["fused"]["fused_layer_step"]
     b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
-    runs = [counts["train"]] + [run for variant in ("multi", "longitudinal", "single")
-                                for run in counts[variant].values()]
+    runs = [counts["train"], counts["checkpoint"]] + [
+        run for variant in ("multi", "longitudinal", "single") for run in counts[variant].values()]
     source, replaces = KERNELS["fused_layer_step"]
     out.append({"name": "fused_layer_step[no path: function only]", "route": "cuda",
                 "source": source, "replaces": replaces,
@@ -2812,11 +3299,13 @@ def kernels_line(da, k, counts):
     for kernel in FLASH_GRAD:  # one training micro-step: 21 calls at three shapes
         r = bf["flash_grad"][kernel]
         b, by = bound_ms(r["bytes"], r["flops"], "bf16")
-        launches = counts["train"][kernel]
-        if launches <= 0:
-            raise AssertionError(f"{kernel}: not launched on the training main path")
+        # the train phase's timed micro-steps and the checkpoint phase's (both runs)
+        launches = counts["train"][kernel] + counts["checkpoint"][kernel]
+        if counts["train"][kernel] <= 0 or counts["checkpoint"][kernel] <= 0:
+            raise AssertionError(f"{kernel}: not launched on a training main path")
         source, replaces = KERNELS[kernel]
-        row = {"name": f"{kernel}[multi train]", "route": "cuda", "source": source,
+        row = {"name": f"{kernel}[multi train, multi checkpoint]", "route": "cuda",
+               "source": source,
                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
                "library_ms": r["library_ms"],
@@ -2873,9 +3362,12 @@ def main() -> int:
         parity_phase(torch, np, ckpts)
         counts["fused_parity"] = fused_parity_phase(torch, np, ckpts["multi"])
         counts["train"] = train_phase(torch, np, ckpts["multi"])["launches"]
+        saved = checkpoint_phase(torch, np, ckpts["multi"])
+        counts["checkpoint"] = saved["launches"]
         train_parity_phase(torch, np, ckpts["multi"])
         counts["longitudinal"].update(scst_phase(torch, np, ckpts["longitudinal"]))
         scst_parity_phase(torch, np, ckpts["longitudinal"])
+        counts["multi"]["score"] = score_phase(torch, np, ckpts["multi"], saved["exp_dir"])
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     decode_device_phase(torch, da, br, F, kernels)

@@ -52,10 +52,12 @@ def load_hf_pretrained_dir(path: str) -> Dict[str, torch.Tensor]:
     raise FileNotFoundError(f"no {WEIGHTS_BIN} or {WEIGHTS_SAFETENSORS} under {path}")
 
 
-def save_hf_pretrained_dir(path: str, state_dict: Dict[str, torch.Tensor], config) -> None:
+def save_hf_pretrained_dir(path: str, state_dict: Dict[str, torch.Tensor], config,
+                           tokenizer=None) -> None:
     """Write ``pytorch_model.bin`` and a ``config.json`` with the nested
-    encoder/decoder fields that ``models.api.config_from_hf_dir`` reads. The
-    caller adds ``tokenizer.json``."""
+    encoder/decoder fields that ``models.api.config_from_hf_dir`` reads, and
+    with a ``tokenizer`` its ``tokenizer.json`` (``ByteLevelBPETokenizer.save``):
+    a directory that ``CXRMate.from_hf_checkpoint`` loads."""
     os.makedirs(path, exist_ok=True)
     torch.save({k: v.detach().cpu().contiguous() for k, v in state_dict.items()},
                os.path.join(path, WEIGHTS_BIN))
@@ -86,6 +88,8 @@ def save_hf_pretrained_dir(path: str, state_dict: Dict[str, torch.Tensor], confi
     }
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf, f, indent=1)
+    if tokenizer is not None:
+        tokenizer.save(os.path.join(path, "tokenizer.json"))
 
 
 PEFT_PREFIX = "decoder.base_model.model."

@@ -1,5 +1,5 @@
-"""Plain (bidirectional) BERT encoder: the backbone of the CXR-BERT reward and,
-later, of the CheXbert labeler and BERTScore.
+"""Plain (bidirectional) BERT encoder: the backbone of the CXR-BERT reward, the
+CheXbert labeler and BERTScore.
 
 The port of ``cxrmate_tpu/models/bert_encoder.py``. :class:`BertEncoderModel`
 holds HF ``BertModel``'s parameters under HF's names (``bert.embeddings.*``,
@@ -63,8 +63,11 @@ def bert_encoder_state(sd: Mapping, prefix: str = "bert.") -> Dict[str, torch.Te
 def bert_encoder_forward(model: BertEncoderModel, input_ids: torch.Tensor,
                          attention_mask: Optional[torch.Tensor] = None,
                          token_type_ids: Optional[torch.Tensor] = None,
-                         position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """-> last hidden state [B, L, D] (inference: no dropout)."""
+                         position_ids: Optional[torch.Tensor] = None,
+                         num_layers: Optional[int] = None) -> torch.Tensor:
+    """-> last hidden state [B, L, D] (inference: no dropout); with
+    ``num_layers``, the hidden state after that many layers (BERTScore's cut,
+    ``cxrmate_tpu/eval/bertscore.py:23 bert_hidden_states``)."""
     c = model.config
     b, l = input_ids.shape
     if attention_mask is None:
@@ -73,7 +76,7 @@ def bert_encoder_forward(model: BertEncoderModel, input_ids: torch.Tensor,
         position_ids = torch.arange(l, device=input_ids.device).expand(b, l)
     mask = padding_additive_mask(attention_mask)  # [B, 1, 1, L]: bidirectional
     hidden = bert_embed(model, input_ids, token_type_ids, position_ids)
-    for layer in model.bert.encoder.layer:
+    for layer in list(model.bert.encoder.layer)[:num_layers]:
         hidden = _sublayer(layer.attention, hidden, hidden, mask, c)
         hidden = _mlp(layer, hidden)
     return hidden

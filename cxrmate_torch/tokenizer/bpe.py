@@ -3,7 +3,7 @@
 Copy of ``cxrmate_tpu/tokenizer/bpe.py:61 ByteLevelBPETokenizer`` (HF
 ``tokenizers`` BPE + ByteLevel pre-tokenizer and decoder, specials
 ``[UNK][BOS][EOS][SEP][PAD][MASK]`` plus the ``bpe_prompt`` extras), reading
-HF ``tokenizer.json``. Only the Python encoder: no native fast path. Encoding
+and writing HF ``tokenizer.json``. Only the Python encoder: no native fast path. Encoding
 needs the ``regex`` package, imported at first use; decoding does not.
 """
 
@@ -54,8 +54,9 @@ class ByteLevelBPETokenizer:
     """HF-compatible byte-level BPE with added special tokens.
 
     The surface the serving path uses: ``encode``, the batch call with
-    longest padding and truncation, ``decode(skip_special_tokens=True)``,
-    ``bos/eos/sep/pad/mask`` token ids and ``additional_special_tokens``.
+    longest padding and truncation, ``decode(skip_special_tokens=True)`` and
+    ``batch_decode``, ``bos/eos/sep/pad/mask`` token ids and
+    ``additional_special_tokens``; ``save`` writes ``tokenizer.json``.
     """
 
     def __init__(
@@ -242,6 +243,9 @@ class ByteLevelBPETokenizer:
                         buf.extend(ch.encode("utf-8"))
         return buf.decode("utf-8", errors="replace")
 
+    def batch_decode(self, batch_ids, skip_special_tokens: bool = True) -> List[str]:
+        return [self.decode(ids, skip_special_tokens) for ids in batch_ids]
+
     def __call__(self, texts: Sequence[str], padding: str = "longest", truncation: bool = False,
                  max_length: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Batch encode with longest (or ``"max_length"``) padding and
@@ -289,3 +293,39 @@ class ByteLevelBPETokenizer:
             additional_special_tokens=additional,
             unk_token=model.get("unk_token"),
         )
+
+    def save(self, path: str) -> None:
+        """Write an HF-compatible ``tokenizer.json`` (``path`` a file, or a
+        directory to write it into), as ``cxrmate_tpu/tokenizer/bpe.py:319``
+        writes it."""
+        if os.path.isdir(path) or path.endswith(os.sep):
+            os.makedirs(path, exist_ok=True)
+            path = os.path.join(path, "tokenizer.json")
+        added = [{"id": self.vocab[t], "content": t, "single_word": False, "lstrip": False,
+                  "rstrip": False, "normalized": False, "special": True}
+                 for t in self.all_special_tokens]
+        byte_level = {"add_prefix_space": False, "trim_offsets": True, "use_regex": True}
+        data = {
+            "version": "1.0",
+            "truncation": None,
+            "padding": None,
+            "added_tokens": added,
+            "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", **byte_level},
+            "post_processor": None,
+            "decoder": {"type": "ByteLevel", **byte_level, "add_prefix_space": True},
+            "model": {
+                "type": "BPE",
+                "dropout": None,
+                "unk_token": self.unk_token,
+                "continuing_subword_prefix": None,
+                "end_of_word_suffix": None,
+                "fuse_unk": False,
+                "byte_fallback": False,
+                "ignore_merges": False,
+                "vocab": self.vocab,
+                "merges": [list(m) for m in self.merges],
+            },
+        }
+        with open(path, "w") as f:
+            json.dump(data, f, ensure_ascii=False)

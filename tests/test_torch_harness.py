@@ -132,9 +132,10 @@ def _shared():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward
-    among them), and chip_smoke.py, loads neither jax nor cxrmate_tpu (checked
-    in a fresh interpreter: this one has JAX loaded)."""
+    """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward,
+    the scorers and the checkpoints among them), and chip_smoke.py, loads
+    neither jax nor cxrmate_tpu, nor pandas or safetensors, which the card's
+    machine lacks (checked in a fresh interpreter: this one has JAX loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cxrmate_torch\n"
@@ -147,8 +148,13 @@ def test_port_imports_no_jax():
         "assert {'cxrmate_torch.train.tf_trainer', 'cxrmate_torch.train.optim'} <= set(names), names\n"
         "assert {'cxrmate_torch.train.scst', 'cxrmate_torch.reward.cxrbert',\n"
         "        'cxrmate_torch.models.bert_encoder', 'cxrmate_torch.tokenizer.wordpiece'} <= set(names), names\n"
-        "assert len(names) >= 32, names\n"
+        "assert {'cxrmate_torch.eval.' + m for m in ('ptb', 'nlg', 'stem', 'meteor', 'spice',\n"
+        "        'metrics', 'chexbert', 'bertscore')} <= set(names), names\n"
+        "assert 'cxrmate_torch.ckpt.checkpoints' in names, names\n"
+        "assert len(names) >= 42, names\n"
         "assert not bad, bad\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('pandas', 'safetensors'))\n"
+        "assert not heavy, heavy\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
