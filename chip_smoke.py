@@ -170,7 +170,32 @@ Phases, each printing one JSON line:
                P/R/F1 and CXR-BERT <= 1e-5; BERTScore relative to the value
                on a row where a text has no token to match, which scores
                about -1e9 there, as in the JAX package).
-  10. kernels_device - the device time of each decode-attention kernel and of
+  10. data    - (after score) the data pipeline (cxrmate_torch/data) feeding
+               the test stage: the port's JPEG decoder held bit for bit to
+               PIL's pixels of the committed fixtures
+               (cxrmate_torch/tools/jpeg_fixtures); a MIMIC-CXR-JPG-layout
+               tree of 24 studies of 12 subjects (two a day apart, 5, 4, 3,
+               2, 1 images in turn: 74 gray 3,056 x 2,544 JPEGs from the
+               port's encoder at quality 75, the merged CSV from the port's
+               table) and build_synthetic_dataset at its defaults; the
+               codec's decode, resize + crop and cache put/get ms on one
+               thread; build_merged_index -> filter_split -> StudyDataset ->
+               batch_iterator (8 studies, 5 slots) epochs with the cache off,
+               cold and warm at 0 and 5 threads (images/s; every epoch's
+               batches equal); device_normalize_gray_u8 on the card
+               bit-equal to the host path in bf16, device_preprocess within
+               1e-5 of the CPU (fp32, TF32 off); then the test stage: the
+               score phase's restored multi model, beam-4 in bf16, the
+               batches from memory, then file-fed through a Prefetcher (5
+               threads) with the cache off, cold and warm: studies/s, the
+               wait on the Prefetcher and host-to-device ms per batch, each
+               batch on the card bit-equal to the CPU's, the same token ids
+               as from memory, launch counts; one PreviousReportDataset
+               batch (ground-truth prompts) through the longitudinal model;
+               one training micro-step fed by make_train_loader_transform
+               (21 launches of each flash_attention_grad kernel); peak
+               device memory.
+  11. kernels_device - the device time of each decode-attention kernel and of
                its library call at every main-path call shape, and of the
                beam reorder and its library calls at every main-path cache
                width (bf16), from torch.profiler; last, because a profiler
@@ -401,6 +426,15 @@ SCORE_SECTIONS = ("findings", "impression")
 ROBERTA_VOCAB, ROBERTA_POSITIONS, ROBERTA_LAYERS, ROBERTA_LAYER = 50265, 514, 24, 17
 ROBERTA_WIDTH, ROBERTA_HEADS, ROBERTA_FF = 1024, 16, 4096
 ROBERTA_BASELINE = "LAYER,P,R,F\n16,0.8312,0.8309,0.8303\n17,0.8301,0.8298,0.8292\n"
+# the data pipeline (cxrmate_torch/data) on a MIMIC-CXR-JPG-layout tree:
+# DATA_SUBJECTS subjects of two studies a day apart with DATA_IMAGES images
+# per study in turn (24 studies, 74 JPEGs), each gray DATA_HW, the portrait
+# size of MIMIC-CXR-JPG's PA views, written by the port's encoder at quality
+# 75; batches of STUDIES studies padded to SLOTS images, DATA_WORKERS decode
+# threads under a Prefetcher; DATA_TIMED images decoded one at a time for the
+# codec's own times
+DATA_SUBJECTS, DATA_IMAGES, DATA_HW = 12, (5, 4, 3, 2, 1), (3056, 2544)
+DATA_WORKERS, DATA_TIMED, DATA_SIZE = 5, 24, 384
 
 
 def main_path_calls(da):
@@ -429,8 +463,10 @@ def main_path_calls(da):
             "images": STUDIES * SLOTS, "reorder_t": t_len if beams > 1 else None,
             "decode": [(self_kernel, STUDIES * beams, 1, t_len, f"prompt:{bucket}"),
                        (cross_kernel, STUDIES, beams, SLOTS * 576, "slots")]}
-    # the score phase decodes the multi batch with beam-4 from the restored checkpoint
+    # the score phase decodes the multi batch with beam-4 from the restored
+    # checkpoint, and so does the data phase its batches loaded from JPEG files
     paths[("multi", "score")] = dict(paths[("multi", "beam4")])
+    paths[("multi", "data")] = dict(paths[("multi", "beam4")])
     for b in SCST_BATCHES:  # the SCST rollout: b sampled rows, then b greedy rows
         paths[("longitudinal", f"scst-b{b}")] = {
             "images": b * SLOTS, "reorder_t": None,
@@ -1725,7 +1761,7 @@ def new_tokens(seqs, eos) -> int:
 
 
 def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample=None,
-          use_fused=None, reports=None):
+          use_fused=None, reports=None, sequences=None):
     """One report batch along a main path, with every launch count set to 0
     just before it and read just after; checks the counts against what the
     path and the routing spec imply, checks the output, and returns the
@@ -1735,7 +1771,8 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
     (generate_report has no use_fused argument, as in the JAX package): with
     it each of the four fused kernels runs layers x steps times and
     decode_attention not once, without it the other way round. ``reports``:
-    a dict that receives the reports ("findings", "impression")."""
+    a dict that receives the reports ("findings", "impression");
+    ``sequences``: a list that receives the call's token ids."""
     from cxrmate_torch.generate import decode as decode_mod
     from cxrmate_torch.models import api
     from cxrmate_torch.models import bert as bert_mod
@@ -1808,6 +1845,8 @@ def drive(model, px, mode, beams, depth, layers, spec=None, prompts=None, sample
     enc_s = rec.seconds["encode_images"]
     if reports is not None:
         reports.update(findings=list(findings), impression=list(impression))
+    if sequences is not None:
+        sequences.append(seqs)
     return {"seconds": secs, "studies_per_s": STUDIES / secs, "new_tokens_per_s": ntok / secs,
             "new_tokens": ntok, "encode_s": enc_s, "decode_s": secs - enc_s,
             "decode_ms_per_step": (secs - enc_s) / steps * 1e3, "decode_steps": steps,
@@ -3218,6 +3257,361 @@ def score_phase(torch, np, ckpt, trial):
     return fig["launches"]
 
 
+def check_jpeg_fixtures(np):
+    """The port's decoder on the committed fixture JPEGs against the pixels
+    PIL decoded from them (cxrmate_torch/tools/make_jpeg_fixtures.py), bit
+    for bit, without PIL. -> the number of files."""
+    import glob
+
+    from cxrmate_torch.data import native
+
+    jpgs = sorted(glob.glob(os.path.join(REPO, "cxrmate_torch", "tools", "jpeg_fixtures", "*.jpg")))
+    if len(jpgs) < 6:
+        raise AssertionError(f"data: {len(jpgs)} JPEG fixtures")
+    for p in jpgs:
+        want = np.load(p[:-4] + ".npy")
+        got = native.load_jpeg(p)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"data: the decoder differs from PIL on {os.path.basename(p)}")
+    return len(jpgs)
+
+
+def write_data_tree(np, root, tok):
+    """A MIMIC-CXR-JPG-layout tree under ``root``: DATA_SUBJECTS subjects of
+    two studies a day apart, DATA_IMAGES images per study in turn, each a
+    gray DATA_HW image (smooth structure: a random 13 x 11 field upscaled;
+    plus noise from the seed) written by the port's encoder at quality 75,
+    eight at a time; synthetic findings and impressions from the repository
+    tokenizer; the merged CSV written by the port's table. -> (dataset_dir,
+    the image root, the JPEG paths)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cxrmate_torch.data import native
+    from cxrmate_torch.data.index import mimic_cxr_image_path
+    from cxrmate_torch.data.table import Table
+
+    dataset_dir = os.path.join(root, "datasets")
+    files = os.path.join(dataset_dir, "physionet.org", "files", "mimic-cxr-jpg", "2.0.0", "files")
+    rs = np.random.RandomState(SEED + 80)
+    h, w = DATA_HW
+    noise = rs.randint(-10, 11, size=(h + 64, w + 64)).astype(np.int16)
+    rows, jobs = [], []
+    for s in range(DATA_SUBJECTS):
+        subject = 10000032 + s
+        for k in range(2):
+            study = 50000000 + 2 * s + k
+            findings = synthetic_section(tok, rs, 40)
+            impression = synthetic_section(tok, rs, 12)
+            for d in range(DATA_IMAGES[(2 * s + k) % len(DATA_IMAGES)]):
+                dicom = f"{study}-{d}"
+                jobs.append((mimic_cxr_image_path(files, subject, study, dicom),
+                             int(rs.randint(0, 2**31 - 1))))
+                rows.append(dict(dicom_id=dicom, study_id=study, subject_id=subject, split="test",
+                                 findings=findings, impression=impression,
+                                 StudyDate=21500101 + k, StudyTime=120000.0 + s))
+
+    def write(job):
+        path, seed = job
+        r = np.random.RandomState(seed)
+        field = r.randint(40, 216, size=(13, 11)).astype(np.uint8)
+        img = native.resize_bilinear(field, (w, h)).astype(np.int16)
+        dy, dx = r.randint(0, 64, 2)
+        img += noise[dy:dy + h, dx:dx + w]
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        native.save_jpeg(path, np.clip(img, 0, 255).astype(np.uint8), 75)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    merged = os.path.join(dataset_dir, "mimic_cxr_merged", "splits_reports_metadata.csv")
+    os.makedirs(os.path.dirname(merged), exist_ok=True)
+    Table.from_rows(rows).to_csv(merged)
+    return dataset_dir, files, [p for p, _ in jobs]
+
+
+def same_batches(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np_equal(x["images"], y["images"]) and x["study_ids"] == y["study_ids"]
+        and x["findings"] == y["findings"] for x, y in zip(a, b))
+
+
+def np_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and (a == b).all()
+
+
+def data_codec_numbers(np, paths):
+    """One thread: decode, resize + crop, cache put and get of DATA_TIMED
+    images, median ms each; MB of the sources and of the cache entries."""
+    import tempfile
+
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data import native
+
+    decode, resize, put, get, src_mb, entry_mb = [], [], [], [], [], []
+    with tempfile.TemporaryDirectory(dir=SMOKE_DIR) as cache:
+        for i, p in enumerate(paths[:DATA_TIMED]):
+            with open(p, "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            a = native.decode(data, p)
+            t1 = time.perf_counter()
+            crop = di.center_crop(di.resize_shortest_edge(a, DATA_SIZE)[:, :, None], DATA_SIZE)[:, :, 0]
+            t2 = time.perf_counter()
+            cf = os.path.join(cache, f"{i:02d}", "entry.npy")
+            di._cache_put(cf, crop)
+            t3 = time.perf_counter()
+            back = di._cache_get(cf)
+            t4 = time.perf_counter()
+            if back is None or not np_equal(back, crop):
+                raise AssertionError(f"data: the cache entry of {p} reads back otherwise")
+            decode.append(t1 - t0)
+            resize.append(t2 - t1)
+            put.append(t3 - t2)
+            get.append(t4 - t3)
+            src_mb.append(len(data) / 1e6)
+            entry_mb.append(os.path.getsize(cf) / 1e6)
+    med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3  # noqa: E731
+    return {"decode_ms_per_image": med(decode), "decode_ms_runs": [x * 1e3 for x in decode],
+            "resize_crop_ms_per_image": med(resize), "cache_put_ms": med(put),
+            "cache_get_ms": med(get), "source_mb_per_image": sum(src_mb) / len(src_mb),
+            "cache_entry_mb": sum(entry_mb) / len(entry_mb), "timed_images": len(decode)}
+
+
+def data_loader_epochs(np, df, files, n_images):
+    """Epochs of the eval loader over the tree's studies through
+    batch_iterator (STUDIES a batch, SLOTS images): the cache off, cold and
+    warm, at 0 and DATA_WORKERS threads. Every epoch's batches must equal
+    the first (cache off, one thread: the batches built on the CPU).
+    -> (those batches, images/s per epoch)."""
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data import pipeline as dp
+    from cxrmate_torch.data.datasets import StudyDataset
+
+    rates, reference = {}, None
+    for label, workers, cache in (("off", 0, None), ("off", DATA_WORKERS, None),
+                                  ("cold", 0, "c0"), ("warm", 0, "c0"),
+                                  ("cold", DATA_WORKERS, "c5"), ("warm", DATA_WORKERS, "c5")):
+        cache_dir = os.path.join(SMOKE_DIR, "data", "cache-" + cache) if cache else None
+        ds = StudyDataset(df, files, di.make_eval_loader_transform(DATA_SIZE, cache_dir=cache_dir))
+        t0 = time.perf_counter()
+        batches = list(dp.batch_iterator(ds, STUDIES, max_images=SLOTS, num_workers=workers))
+        rates[f"{label}_{workers}_threads"] = n_images / (time.perf_counter() - t0)
+        if reference is None:
+            reference = batches
+        elif not same_batches(batches, reference):
+            raise AssertionError(f"data: the {label}-cache epoch at {workers} threads differs")
+    return reference, rates
+
+
+def data_device_ops(torch, np, paths):
+    """device_normalize_gray_u8 on the card against the host normalize_chw
+    path cast to bf16 (bit-equal), and device_preprocess on the card against
+    the CPU in fp32, TF32 off (<= 1e-5), on two full-size decoded images;
+    their times on the card."""
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data import native
+    from cxrmate_torch.utils.precision import parity_mode
+
+    crops = np.stack([di.center_crop(di.resize_shortest_edge(native.load_jpeg(p), DATA_SIZE)
+                                     [:, :, None], DATA_SIZE)[:, :, 0] for p in paths[:SLOTS]])
+    u8 = torch.from_numpy(crops).cuda()
+    got = di.device_normalize_gray_u8(u8)
+    host = torch.from_numpy(np.stack([di.normalize_chw(di.to_rgb(c)) for c in crops]))
+    if not torch.equal(got.cpu(), host.to(torch.bfloat16)):
+        raise AssertionError("data: device_normalize_gray_u8 differs from the host path in bf16")
+    norm_ms = time_ms([lambda: di.device_normalize_gray_u8(u8)], reps=10)
+    full = torch.from_numpy(np.stack([di.to_rgb(native.load_jpeg(p)) for p in paths[:2]]))
+    with parity_mode():
+        dev = full.cuda()
+        on_card = di.device_preprocess(dev, DATA_SIZE)
+        err = float((on_card.cpu() - di.device_preprocess(full, DATA_SIZE)).abs().max())
+        pre_ms = time_ms([lambda: di.device_preprocess(dev, DATA_SIZE)], reps=5)
+    if not err <= 1e-5:
+        raise AssertionError(f"data: device_preprocess card against CPU {err} > 1e-5")
+    return {"device_normalize_gray_u8": {"images": SLOTS, "bit_equal_to_host_bf16": True,
+                                         "ms": norm_ms},
+            "device_preprocess": {"input": list(full.shape), "output": list(on_card.shape),
+                                  "max_abs_err_card_vs_cpu_fp32": err, "tolerance": 1e-5,
+                                  "ms": pre_ms}}
+
+
+def data_phase(torch, np, ckpts, trial):
+    """The data pipeline (cxrmate_torch/data) feeding the test stage on the
+    card: the decoder held to the fixtures; a MIMIC-CXR-JPG-layout tree
+    (write_data_tree) and build_synthetic_dataset at its defaults;
+    build_merged_index -> filter_split -> StudyDataset with
+    make_eval_loader_transform (the cache off, then cold, then warm) ->
+    batch_iterator(STUDIES, SLOTS, DATA_WORKERS threads) in a Prefetcher ->
+    generate_report beam-4 in bf16 on the multi model restored as the score
+    phase restores it, beside the same batches from memory (same token ids);
+    each batch on the card bit-equal to the batch built on the CPU; one
+    PreviousReportDataset batch (ground-truth prompts) through the
+    longitudinal model's generate_report; one training micro-step fed by
+    make_train_loader_transform (flash_attention_grad). Launch counts of
+    every call checked. -> {"multi": launches of the multi calls, "train":
+    the micro-step's launches}."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data import index as dx
+    from cxrmate_torch.data import pipeline as dp
+    from cxrmate_torch.data.datasets import PreviousReportDataset, StudyDataset
+    from cxrmate_torch.data.synthetic import build_synthetic_dataset
+    from cxrmate_torch.models import api
+    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
+    from cxrmate_torch.train import optim
+    from cxrmate_torch.train import tf_trainer as tt
+
+    root = os.path.join(SMOKE_DIR, "data")
+    os.makedirs(root, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"phase": "data", "fixtures_bit_equal_to_pil": check_jpeg_fixtures(np)}
+    model = api.CXRMate.from_hf_checkpoint(ckpts["multi"], variant="multi", dtype=torch.bfloat16,
+                                           device="cuda")
+    ck.restore_model(ck.get_test_ckpt_path(trial), model.model)
+    tok = model.tokenizer
+    t0 = time.perf_counter()
+    dataset_dir, files, paths = write_data_tree(np, root, tok)
+    res["tree"] = {"studies": 2 * DATA_SUBJECTS, "images": len(paths), "hw": list(DATA_HW),
+                   "quality": 75, "write_s": time.perf_counter() - t0,
+                   "mb_on_disk": sum(os.path.getsize(p) for p in paths) / 1e6}
+    t0 = time.perf_counter()
+    syn = build_synthetic_dataset(os.path.join(root, "synthetic"))
+    syn_files = os.path.join(syn["dataset_dir"], "physionet.org", "files", "mimic-cxr-jpg",
+                             "2.0.0", "files")
+    syn_ds = StudyDataset(dx.filter_split(dx.build_merged_index(syn["dataset_dir"]), "train"),
+                          syn_files, di.make_eval_loader_transform(DATA_SIZE))
+    syn_batches = list(dp.batch_iterator(syn_ds, STUDIES, max_images=SLOTS))
+    syn_tok = ByteLevelBPETokenizer.from_file(syn["tokenizer_dir"])
+    text = syn_batches[0]["findings"][0]
+    if len(syn_ds) != 16 or syn_batches[0]["images"].shape != (STUDIES, SLOTS, 3, DATA_SIZE,
+                                                              DATA_SIZE) \
+            or not all(np.isfinite(b["images"]).all() for b in syn_batches):
+        raise AssertionError(f"data: build_synthetic_dataset's tree does not load "
+                             f"({len(syn_ds)} studies, {syn_batches[0]['images'].shape})")
+    if syn_tok.decode(syn_tok.encode(text)) != text or "[PMT-SEP]" not in syn_tok.vocab:
+        raise AssertionError("data: build_synthetic_dataset's tokenizer does not round-trip")
+    res["synthetic_dataset_s"] = time.perf_counter() - t0
+    res.update(data_codec_numbers(np, paths))
+
+    df = dx.filter_split(dx.build_merged_index(dataset_dir), "test")
+    reference, rates = data_loader_epochs(np, df, files, len(paths))
+    res["loader_images_per_s"] = rates
+    res.update(data_device_ops(torch, np, paths))
+
+    layers, depth = model.config.decoder.num_hidden_layers, sum(model.config.encoder.depth)
+    launches = {}
+
+    def feed(batches, label):
+        """STUDIES-study batches through drive: -> (seconds, waits, h2d, seqs)."""
+        waits, h2d, seqs, figs = [], [], [], []
+        it = iter(batches)
+        t_start = time.perf_counter()
+        for i in range(len(reference)):
+            t0 = time.perf_counter()
+            batch = next(it)
+            waits.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            px = torch.from_numpy(batch["images"]).to("cuda")
+            torch.cuda.synchronize()
+            h2d.append(time.perf_counter() - t0)
+            if not torch.equal(px.cpu(), torch.from_numpy(reference[i]["images"])):
+                raise AssertionError(f"data {label}: batch {i} on the card differs from the CPU's")
+            fig = drive(model, px, f"data-{label}", 4, depth, layers, sequences=seqs)
+            figs.append(fig)
+            for k, v in fig["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if next(it, None) is not None:
+            raise AssertionError(f"data {label}: more batches than the reference")
+        return time.perf_counter() - t_start, waits, h2d, seqs, figs
+
+    model.generate_report(reference[0]["images"], num_beams=4)  # warm-up, untimed
+    secs, _, h2d, mem_seqs, figs = feed(reference, "in-memory")
+    studies = 2 * DATA_SUBJECTS
+    stage = {"in_memory": {"studies_per_s": studies / secs, "seconds": secs,
+                           "h2d_ms_per_batch": [x * 1e3 for x in h2d],
+                           "generate_s": [f["seconds"] for f in figs]}}
+    for mode, cache in (("off", None), ("cold", "stage"), ("warm", "stage")):
+        cache_dir = os.path.join(root, "cache-" + cache) if cache else None
+        ds = StudyDataset(df, files, di.make_eval_loader_transform(DATA_SIZE, cache_dir=cache_dir))
+        pf = dp.Prefetcher(dp.batch_iterator(ds, STUDIES, max_images=SLOTS,
+                                             num_workers=DATA_WORKERS))
+        try:
+            secs, waits, h2d, seqs, figs = feed(pf, f"cache-{mode}")
+        finally:
+            pf.close()
+        if len(seqs) != len(mem_seqs) or not all(np_equal(a, b) for a, b in zip(seqs, mem_seqs)):
+            raise AssertionError(f"data: file-fed beam-4 (cache {mode}) differs from in-memory")
+        stage[f"file_fed_cache_{mode}"] = {
+            "studies_per_s": studies / secs, "seconds": secs,
+            "prefetch_wait_ms_per_batch": [x * 1e3 for x in waits],
+            "h2d_ms_per_batch": [x * 1e3 for x in h2d],
+            "generate_s": [f["seconds"] for f in figs]}
+    res["test_stage"] = stage
+    res["h2d_mb_per_batch"] = reference[0]["images"].nbytes / 1e6
+    res["token_ids_file_fed_equal_in_memory"] = True
+    res["multi_launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+
+    model = api.CXRMate.from_hf_checkpoint(ckpts["longitudinal"], variant="longitudinal",
+                                           dtype=torch.bfloat16, device="cuda")
+    pds = PreviousReportDataset(df, dx.build_merged_index(dataset_dir), files,
+                                di.make_eval_loader_transform(
+                                    DATA_SIZE, cache_dir=os.path.join(root, "cache-stage")))
+    batch = next(iter(dp.batch_iterator(pds, STUDIES, max_images=SLOTS,
+                                        num_workers=DATA_WORKERS)))
+    prompts = (batch["previous_findings"], batch["previous_impression"])
+    if sum(p is not None for p in prompts[0]) != STUDIES // 2:
+        raise AssertionError(f"data: previous reports {prompts[0]}")
+    fig = drive(model, torch.from_numpy(batch["images"]).to("cuda"), "data-longitudinal", 4,
+                depth, layers, prompts=prompts)
+    res["longitudinal"] = {"studies": STUDIES, "with_previous_report": STUDIES // 2,
+                           "prompt_width": fig["prompt_width"], "seconds": fig["seconds"],
+                           "launches": {k: v for k, v in fig["launches"].items() if v}}
+    del model
+    torch.cuda.empty_cache()
+
+    model = api.CXRMate.from_hf_checkpoint(ckpts["multi"], variant="multi", dtype=torch.float32,
+                                           device="cuda")
+    net, config = model.model, model.config
+    mask = optim.mask_for_stage(dict(net.named_parameters()), "multi")
+    tx = optim.adamw(TRAIN_LR, accumulate_steps=TRAIN_ACCUM, trainable_mask=mask)
+    state = tt.create_train_state(net, tx)
+    step = tt.make_train_step(config, tx, mask, pad_id=tok.pad_token_id,
+                              compute_dtype=torch.bfloat16)
+    load = di.make_train_loader_transform(DATA_SIZE, seed=SEED,
+                                          cache_dir=os.path.join(root, "cache-stage"))
+    ds = StudyDataset(df, files, load)
+    t0 = time.perf_counter()
+    b = next(iter(dp.batch_iterator(ds, len(TRAIN_IMAGES), max_images=SLOTS, shuffle=True,
+                                    seed=SEED, num_workers=DATA_WORKERS)))
+    load_s = time.perf_counter() - t0
+    batch = tt.build_tf_batch(tok, config, b["images"], b["findings"], b["impression"])
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch, tt.train_generator(0, 0))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    train = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0)
+    want.update(dict.fromkeys(FLASH_GRAD, depth))
+    if train != want or not np.isfinite(float(loss)):
+        raise AssertionError(f"data: train micro-step launches {train} (expected {want}), "
+                             f"loss {float(loss)}")
+    res["train_micro_step"] = {"studies": len(TRAIN_IMAGES), "load_s": load_s,
+                               "first_step_s_of_a_fresh_state": step_s,
+                               "loss": float(loss), "launches": {k: v for k, v in train.items() if v}}
+    del model, net, state
+    torch.cuda.synchronize()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    emit(res)
+    return {"multi": launches, "train": train}
+
+
 def kernels_line(da, k, counts):
     """The summary, bf16 (the serving dtype). One row per kernel and per set
     of shapes a main path gives it: times and bound of one unit of that work
@@ -3283,7 +3677,7 @@ def kernels_line(da, k, counts):
     # whose launches are parity_step_launches)
     r = bf["fused"]["fused_layer_step"]
     b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
-    runs = [counts["train"], counts["checkpoint"]] + [
+    runs = [counts["train"], counts["checkpoint"], counts["data_train"]] + [
         run for variant in ("multi", "longitudinal", "single") for run in counts[variant].values()]
     source, replaces = KERNELS["fused_layer_step"]
     out.append({"name": "fused_layer_step[no path: function only]", "route": "cuda",
@@ -3299,12 +3693,14 @@ def kernels_line(da, k, counts):
     for kernel in FLASH_GRAD:  # one training micro-step: 21 calls at three shapes
         r = bf["flash_grad"][kernel]
         b, by = bound_ms(r["bytes"], r["flops"], "bf16")
-        # the train phase's timed micro-steps and the checkpoint phase's (both runs)
-        launches = counts["train"][kernel] + counts["checkpoint"][kernel]
-        if counts["train"][kernel] <= 0 or counts["checkpoint"][kernel] <= 0:
+        # the train phase's timed micro-steps, the checkpoint phase's (both
+        # runs) and the data phase's micro-step fed from JPEG files
+        runs = (counts["train"], counts["checkpoint"], counts["data_train"])
+        launches = sum(run[kernel] for run in runs)
+        if any(run[kernel] <= 0 for run in runs):
             raise AssertionError(f"{kernel}: not launched on a training main path")
         source, replaces = KERNELS[kernel]
-        row = {"name": f"{kernel}[multi train, multi checkpoint]", "route": "cuda",
+        row = {"name": f"{kernel}[multi train, multi checkpoint, multi data]", "route": "cuda",
                "source": source,
                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
@@ -3368,6 +3764,8 @@ def main() -> int:
         counts["longitudinal"].update(scst_phase(torch, np, ckpts["longitudinal"]))
         scst_parity_phase(torch, np, ckpts["longitudinal"])
         counts["multi"]["score"] = score_phase(torch, np, ckpts["multi"], saved["exp_dir"])
+        data = data_phase(torch, np, ckpts, saved["exp_dir"])
+        counts["multi"]["data"], counts["data_train"] = data["multi"], data["train"]
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     decode_device_phase(torch, da, br, F, kernels)

@@ -1,4 +1,4 @@
-from cxrmate_torch.tokenizer.bpe import ByteLevelBPETokenizer
+from cxrmate_torch.tokenizer.bpe import ByteLevelBPETokenizer, train_bpe
 from cxrmate_torch.tokenizer.wordpiece import WordPieceTokenizer
 
-__all__ = ["ByteLevelBPETokenizer", "WordPieceTokenizer"]
+__all__ = ["ByteLevelBPETokenizer", "WordPieceTokenizer", "train_bpe"]

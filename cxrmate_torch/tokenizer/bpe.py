@@ -3,15 +3,19 @@
 Copy of ``cxrmate_tpu/tokenizer/bpe.py:61 ByteLevelBPETokenizer`` (HF
 ``tokenizers`` BPE + ByteLevel pre-tokenizer and decoder, specials
 ``[UNK][BOS][EOS][SEP][PAD][MASK]`` plus the ``bpe_prompt`` extras), reading
-and writing HF ``tokenizer.json``. Only the Python encoder: no native fast path. Encoding
-needs the ``regex`` package, imported at first use; decoding does not.
+and writing HF ``tokenizer.json``, and ``train_bpe``, the copy of
+``cxrmate_tpu/tokenizer/train.py``. Only the Python encoder: no native fast
+path. Encoding and training need the ``regex`` package, imported at first
+use; decoding does not.
 """
 
 from __future__ import annotations
 
 import functools
+import heapq
 import json
 import os
+from collections import Counter, defaultdict
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -329,3 +333,116 @@ class ByteLevelBPETokenizer:
         }
         with open(path, "w") as f:
             json.dump(data, f, ensure_ascii=False)
+
+
+def train_bpe(
+    texts: Iterable[str],
+    vocab_size: int = 30000,
+    min_frequency: int = 0,
+    special_tokens: Sequence[str] = ("[UNK]", "[BOS]", "[EOS]", "[SEP]", "[PAD]", "[MASK]"),
+    additional_special_tokens: Sequence[str] = (),
+) -> ByteLevelBPETokenizer:
+    """Train a byte-level BPE tokenizer: the port's copy of
+    ``cxrmate_tpu/tokenizer/train.py:25 train_bpe`` (HF ``tokenizers``' BPE
+    trainer: the pair of highest count first, ties to the smallest ``(left_id,
+    right_id)``). ``additional_special_tokens`` are appended to the vocab after
+    training (as the `bpe_prompt` tokenizer gained ``[NPF][NPI][PMT][PMT-SEP]``)."""
+    b2u = bytes_to_unicode()
+    split = _byte_level_split_re()
+
+    # 1. Pre-tokenize and count words (byte-level mapped).
+    word_counts: Counter = Counter()
+    for text in texts:
+        for m in split.finditer(text):
+            word_counts["".join(b2u[b] for b in m.group().encode("utf-8"))] += 1
+
+    # 2. Vocab starts with the specials, then the sorted alphabet.
+    vocab: Dict[str, int] = {}
+    for tok in special_tokens:
+        vocab.setdefault(tok, len(vocab))
+    alphabet = sorted({ch for w in word_counts for ch in w})
+    for ch in alphabet:
+        vocab.setdefault(ch, len(vocab))
+
+    # 3. Represent each distinct word as a list of symbol ids.
+    words: List[List[int]] = []
+    counts: List[int] = []
+    for w, c in word_counts.items():
+        words.append([vocab[ch] for ch in w])
+        counts.append(c)
+
+    # 4. Count adjacent pairs and where they occur.
+    pair_counts: Dict[Tuple[int, int], int] = defaultdict(int)
+    pair_words: Dict[Tuple[int, int], set] = defaultdict(set)
+    for wi, w in enumerate(words):
+        c = counts[wi]
+        for a, b in zip(w, w[1:]):
+            pair_counts[(a, b)] += c
+            pair_words[(a, b)].add(wi)
+
+    # Lazy max-heap keyed by (-count, pair): HF breaks count ties on the smallest pair.
+    heap = [(-c, p) for p, c in pair_counts.items() if c > 0]
+    heapq.heapify(heap)
+
+    id_to_token = {i: t for t, i in vocab.items()}
+    merges: List[Tuple[str, str]] = []
+    min_frequency = max(min_frequency, 1)
+
+    while len(vocab) < vocab_size and heap:
+        neg, pair = heapq.heappop(heap)
+        current = pair_counts.get(pair, 0)
+        if current != -neg:
+            if current > 0:
+                heapq.heappush(heap, (-current, pair))
+            continue
+        if current < min_frequency:
+            break
+
+        a, b = pair
+        new_token = id_to_token[a] + id_to_token[b]
+        new_id = vocab.setdefault(new_token, len(vocab))
+        id_to_token[new_id] = new_token
+        merges.append((id_to_token[a], id_to_token[b]))
+
+        # Apply the merge in every word containing the pair: subtract the word's old
+        # pair counts, rebuild the word, add the new ones.
+        touched: Dict[Tuple[int, int], int] = defaultdict(int)
+        for wi in list(pair_words[pair]):
+            w = words[wi]
+            c = counts[wi]
+            if len(w) < 2:
+                continue
+            for p in zip(w, w[1:]):
+                touched[p] -= c
+            out: List[int] = []
+            i, n = 0, len(w)
+            while i < n:
+                if i + 1 < n and w[i] == a and w[i + 1] == b:
+                    out.append(new_id)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            words[wi] = out
+            for p in zip(out, out[1:]):
+                touched[p] += c
+                pair_words[p].add(wi)
+
+        for p, delta in touched.items():
+            if delta == 0:
+                continue
+            nc = pair_counts.get(p, 0) + delta
+            pair_counts[p] = nc
+            if nc > 0 and p != pair:
+                heapq.heappush(heap, (-nc, p))
+        pair_counts[pair] = 0
+
+    for tok in additional_special_tokens:
+        vocab.setdefault(tok, len(vocab))
+
+    return ByteLevelBPETokenizer(
+        vocab=vocab,
+        merges=merges,
+        special_tokens=list(special_tokens),
+        additional_special_tokens=list(additional_special_tokens),
+    )

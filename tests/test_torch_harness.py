@@ -133,9 +133,10 @@ def _shared():
 
 def test_port_imports_no_jax():
     """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward,
-    the scorers and the checkpoints among them), and chip_smoke.py, loads
-    neither jax nor cxrmate_tpu, nor pandas or safetensors, which the card's
-    machine lacks (checked in a fresh interpreter: this one has JAX loaded)."""
+    the scorers, the checkpoints and the data pipeline among them), and
+    chip_smoke.py, loads neither jax nor cxrmate_tpu, nor pandas, PIL or
+    safetensors, which the port must not need (checked in a fresh
+    interpreter: this one has JAX loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cxrmate_torch\n"
@@ -151,9 +152,11 @@ def test_port_imports_no_jax():
         "assert {'cxrmate_torch.eval.' + m for m in ('ptb', 'nlg', 'stem', 'meteor', 'spice',\n"
         "        'metrics', 'chexbert', 'bertscore')} <= set(names), names\n"
         "assert 'cxrmate_torch.ckpt.checkpoints' in names, names\n"
-        "assert len(names) >= 42, names\n"
+        "assert {'cxrmate_torch.data.' + m for m in ('table', 'index', 'datasets', 'pipeline',\n"
+        "        'image', 'synthetic', 'native')} <= set(names), names\n"
+        "assert len(names) >= 50, names\n"
         "assert not bad, bad\n"
-        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('pandas', 'safetensors'))\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('pandas', 'PIL', 'safetensors'))\n"
         "assert not heavy, heavy\n"
         "print(len(names))\n"
     )
