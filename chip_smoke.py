@@ -195,7 +195,28 @@ Phases, each printing one JSON line:
                one training micro-step fed by make_train_loader_transform
                (21 launches of each flash_attention_grad kernel); peak
                device memory.
-  11. kernels_device - the device time of each decode-attention kernel and of
+  11. cli     - (after data) the train/test CLI, cxrmate_torch.cli.stages.main
+               on the repository's configs at full width: a MIMIC-CXR-JPG-
+               layout tree of 10 subjects (4 train, 2 validate, 4 test; two
+               studies each, 5, 4, 3, 2, 1 images in turn) and a zoo holding
+               the main phases' random multi and longitudinal checkpoints as
+               aehrc/cxrmate-multi-tf and aehrc/cxrmate-tf, the repository
+               tokenizer and build_synthetic_cxrbert's CXR-BERT: --train
+               config/train/multi_tf.yaml (2 bf16 micro-steps, one AdamW
+               update, greedy validation in fp32, a checkpoint); --test
+               config/test/multi_tf.yaml on its best checkpoint (beam-4 over 8
+               studies, fp32); --train longitudinal_gt_prompt_tf.yaml and
+               longitudinal_gen_prompt_cxr-bert.yaml (SCST) with
+               fast_dev_run; the test again as `python -m
+               cxrmate_torch.cli.stages` in a subprocess. Each run's launch
+               counts against what its encodes, decode steps and beam
+               searches imply, no plain version run, losses finite,
+               metrics.jsonl with the JAX package's keys, the test's token
+               ids equal across the two test runs and to restore_model +
+               _decode_step_outputs; wall seconds, ms per micro-step, decode
+               and save seconds, MB written, peak memory; whether yaml and
+               transformers import there; the TF32 settings.
+  12. kernels_device - the device time of each decode-attention kernel and of
                its library call at every main-path call shape, and of the
                beam reorder and its library calls at every main-path cache
                width (bf16), from torch.profiler; last, because a profiler
@@ -3276,14 +3297,14 @@ def check_jpeg_fixtures(np):
     return len(jpgs)
 
 
-def write_data_tree(np, root, tok):
-    """A MIMIC-CXR-JPG-layout tree under ``root``: DATA_SUBJECTS subjects of
-    two studies a day apart, DATA_IMAGES images per study in turn, each a
-    gray DATA_HW image (smooth structure: a random 13 x 11 field upscaled;
-    plus noise from the seed) written by the port's encoder at quality 75,
-    eight at a time; synthetic findings and impressions from the repository
-    tokenizer; the merged CSV written by the port's table. -> (dataset_dir,
-    the image root, the JPEG paths)."""
+def write_data_tree(np, root, tok, splits=("test",) * DATA_SUBJECTS):
+    """A MIMIC-CXR-JPG-layout tree under ``root``: one subject per entry of
+    ``splits`` (its split), each with two studies a day apart, DATA_IMAGES
+    images per study in turn, each a gray DATA_HW image (smooth structure: a
+    random 13 x 11 field upscaled; plus noise from the seed) written by the
+    port's encoder at quality 75, eight at a time; synthetic findings and
+    impressions from the repository tokenizer; the merged CSV written by the
+    port's table. -> (dataset_dir, the image root, the JPEG paths)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from cxrmate_torch.data import native
@@ -3296,7 +3317,7 @@ def write_data_tree(np, root, tok):
     h, w = DATA_HW
     noise = rs.randint(-10, 11, size=(h + 64, w + 64)).astype(np.int16)
     rows, jobs = [], []
-    for s in range(DATA_SUBJECTS):
+    for s, split in enumerate(splits):
         subject = 10000032 + s
         for k in range(2):
             study = 50000000 + 2 * s + k
@@ -3306,7 +3327,7 @@ def write_data_tree(np, root, tok):
                 dicom = f"{study}-{d}"
                 jobs.append((mimic_cxr_image_path(files, subject, study, dicom),
                              int(rs.randint(0, 2**31 - 1))))
-                rows.append(dict(dicom_id=dicom, study_id=study, subject_id=subject, split="test",
+                rows.append(dict(dicom_id=dicom, study_id=study, subject_id=subject, split=split,
                                  findings=findings, impression=impression,
                                  StudyDate=21500101 + k, StudyTime=120000.0 + s))
 
@@ -3612,12 +3633,276 @@ def data_phase(torch, np, ckpts, trial):
     return {"multi": launches, "train": train}
 
 
+# the CLI (cxrmate_torch.cli.stages.main) on a MIMIC-CXR-JPG-layout tree
+# (write_data_tree) of one subject per entry: 4 train, 2 validate, 4 test, two
+# studies each (DATA_IMAGES images a study in turn, DATA_HW gray); the
+# repository's configs with the overrides of CLI_RUNS; the JAX package's keys
+# of a validation line of metrics.jsonl (no CheXbert in the zoo: NLG only)
+CLI_SPLITS = ("train",) * 4 + ("validate",) * 2 + ("test",) * 4
+CLI_RUNS = (
+    ("fit_multi", "--train", "train/multi_tf.yaml",
+     ["warm_start_name=aehrc/cxrmate-multi-tf", "max_epochs=1", "mbatch_size=4",
+      "accumulated_mbatch_size=8"]),
+    ("test_multi", "--test", "test/multi_tf.yaml", ["test_ckpt_name=null"]),
+    ("fit_gt_prompt", "--train", "train/longitudinal_gt_prompt_tf.yaml", ["fast_dev_run=true"]),
+    ("fit_scst", "--train", "train/longitudinal_gen_prompt_cxr-bert.yaml",
+     ["warm_start_name=aehrc/cxrmate-tf", "fast_dev_run=true"]),
+)
+CLI_VAL_KEYS = {"epoch"} | {f"val_report_nlg_{k}" for k in (
+    "num_study_ids", "bleu_1", "bleu_2", "bleu_3", "bleu_4", "rouge", "cider")}
+CLI_LOG_KEYS = ({"epoch", "step", "train_loss"}, {"epoch", "scst_loss", "reward", "baseline"},
+                CLI_VAL_KEYS, CLI_VAL_KEYS | {"step"})
+
+
+def read_ids_csv(path) -> dict:
+    import csv
+
+    with open(path) as f:
+        return {int(r["study_id"]): json.loads(r["report_ids"]) for r in csv.DictReader(f)}
+
+
+def cli_phase(torch, np, ckpts):
+    """The train/test CLI on the card: cxrmate_torch.cli.stages.main(argv),
+    in this process, on the repository's configs, at full width, with the
+    zoo (ckpt_zoo_dir) holding the main phases' seeded random multi and
+    longitudinal checkpoints as aehrc/cxrmate-multi-tf and aehrc/cxrmate-tf,
+    the repository tokenizer and build_synthetic_cxrbert's tiny CXR-BERT
+    (no CheXbert or roberta-large: their metrics are skipped with a warning
+    and checkpoints ranked by an NLG surrogate, as the JAX package does
+    offline). Runs (CLI_RUNS): fit of the multi model (2 bf16 micro-steps on
+    fp32 masters, one AdamW update, greedy validation of 4 studies in fp32, a
+    checkpoint); its test (the best checkpoint, beam-4 over the 8 test
+    studies, fp32); the gt_prompt stage warm-started from the multi checkpoint
+    (fast_dev_run: no LoRA in it, so nothing trains, as in JAX); SCST of the
+    longitudinal model (fast_dev_run: one step and generated-prompt
+    validations); then the test again as `python -m cxrmate_torch.cli.stages`
+    in a subprocess. Every launch count is set to 0 just before a run and
+    read just after, against the counts its encodes, decode steps and beam
+    searches imply; no plain version runs; losses finite; metrics.jsonl with
+    the JAX package's keys; the test's token ids equal to the subprocess's
+    and to restore_model + _decode_step_outputs in this process. -> the
+    launches of each run."""
+    import importlib.util
+    import io
+    import warnings
+
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.cli import config as cli_config
+    from cxrmate_torch.cli import stages
+    from cxrmate_torch.data.pipeline import batch_iterator
+    from cxrmate_torch.data.synthetic import build_synthetic_cxrbert
+    from cxrmate_torch.models import bert as bert_mod
+    from cxrmate_torch.models import encoder_decoder as ed
+    from cxrmate_torch.ops import beam_reorder as br
+    from cxrmate_torch.ops import decode_attention as da
+    from cxrmate_torch.ops import flash_attention as fa
+    from cxrmate_torch.ops import fused_decode as fd
+    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
+    from cxrmate_torch.train import scst as scst_mod
+    from cxrmate_torch.train import tf_trainer as tt
+
+    root = os.path.join(SMOKE_DIR, "cli")
+    zoo = os.path.join(root, "checkpoints")
+    os.makedirs(os.path.join(zoo, "aehrc"))
+    os.symlink(ckpts["multi"], os.path.join(zoo, "aehrc", "cxrmate-multi-tf"))
+    os.symlink(ckpts["longitudinal"], os.path.join(zoo, "aehrc", "cxrmate-tf"))
+    tok_dir = os.path.join(zoo, "mimic-cxr-tokenizers", "bpe_prompt")
+    os.makedirs(tok_dir)
+    shutil.copy(os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json"),
+                tok_dir)
+    build_synthetic_cxrbert(zoo)
+    t0 = time.perf_counter()
+    dataset_dir, _, paths = write_data_tree(np, root, ByteLevelBPETokenizer.from_file(tok_dir),
+                                            CLI_SPLITS)
+    exp = os.path.join(root, "experiments")
+    common = [f"exp_dir={exp}", f"dataset_dir={dataset_dir}", f"ckpt_zoo_dir={zoo}"]
+    res = {"phase": "cli", "tree": {"subjects": len(CLI_SPLITS), "studies": 2 * len(CLI_SPLITS),
+                                    "images": len(paths), "write_s": time.perf_counter() - t0},
+           "yaml_importable": importlib.util.find_spec("yaml") is not None,
+           "transformers_importable": importlib.util.find_spec("transformers") is not None,
+           "tf32": {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}}
+
+    calls, secs, undo = {}, {}, []
+
+    def patch(owner, name, key=lambda a, kw: None, timed=None, result=None):
+        """Count (and with ``timed``, time, synchronised) the calls of
+        ``owner.name`` under ``key(args, kwargs)`` or its name."""
+        fn = getattr(owner, name)
+
+        def wrapped(*a, **kw):
+            k = key(a, kw) or name
+            calls[k] = calls.get(k, 0) + 1
+            if timed:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            out = fn(*a, **kw)
+            if timed:
+                torch.cuda.synchronize()
+                secs.setdefault(timed(a, kw), []).append(time.perf_counter() - t)
+            return result(out) if result else out
+
+        setattr(owner, name, wrapped)
+        undo.append((owner, name, fn))
+
+    def timed_step(step):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            secs.setdefault("micro_step", []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    patch(ed, "encode_images", key=lambda a, kw: "encode_train" if (
+        a[2] if len(a) > 2 else kw.get("train", False)) else "encode_eval")
+    patch(bert_mod, "bert_step",
+          key=lambda a, kw: "beam_step" if kw.get("deferred_write") else "decode_step")
+    patch(stages, "beam_search")
+    patch(stages, "_decode_step_outputs",
+          timed=lambda a, kw: "test_decode" if a[5] > 1 else "val_decode")
+    patch(tt, "make_train_step", result=timed_step)
+    patch(scst_mod.SCSTTrainer, "step", timed=lambda a, kw: "scst_step")
+    patch(ck, "save_checkpoint", timed=lambda a, kw: "save")
+    for mod in (fa, da, br, fd):
+        for name in [n for n in vars(mod) if n.endswith("_plain")]:
+            patch(mod, name, key=lambda a, kw: "plain")
+    wrappers = all_wrappers()
+
+    def expected(c, task, encoder_trains):
+        """The launches that ``c``'s encodes, decode steps and beam searches
+        imply at ``task``'s widths (CvT-21: 21 attention layers; 6 decoder
+        layers: a self and a cross call each per step)."""
+        mcfg = stages.build_model_config(task, 1)
+        depth, layers = sum(mcfg.encoder.depth), mcfg.decoder.num_hidden_layers
+        want = dict.fromkeys(wrappers, 0)
+        train = depth * c.get("encode_train", 0)
+        want.update(flash_attention=depth * c.get("encode_eval", 0),
+                    flash_attention_fwd_lse=train,
+                    flash_attention_bwd_dq=train if encoder_trains else 0,
+                    flash_attention_bwd_dkv=train if encoder_trains else 0,
+                    decode_attention=2 * layers * (c.get("decode_step", 0)
+                                                   + c.get("beam_step", 0)),
+                    beam_reorder_write=layers * (c.get("beam_step", 0)
+                                                 + c.get("beam_search", 0)))
+        return want
+
+    launches, out, argvs = {}, {}, {}
+    try:
+        for name, mode, config, overrides in CLI_RUNS:
+            argv = [mode, "--config", os.path.join(REPO, "config", config)] + overrides + common
+            argvs[name] = argv
+            calls.clear()
+            secs.clear()
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            printed = io.StringIO()
+            t = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, \
+                    contextlib.redirect_stdout(printed):
+                warnings.simplefilter("always")
+                stages.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = {k: fn.launches for k, fn in wrappers.items()}
+            task = cli_config.parse_args(argv)
+            want = expected(calls, task, encoder_trains=name == "fit_multi")
+            if got != want or calls.get("plain", 0):
+                raise AssertionError(f"cli {name}: launches {got}, expected {want} from "
+                                     f"{calls}")
+            tdir = task.exp_dir_trial
+            log = []
+            if mode == "--train":
+                with open(os.path.join(tdir, "metrics.jsonl")) as f:
+                    log = [json.loads(line) for line in f]
+                losses = [r[k] for r in log for k in ("train_loss", "scst_loss") if k in r]
+                if not losses or not np.isfinite(losses).all() or \
+                        any(set(r) not in CLI_LOG_KEYS for r in log):
+                    raise AssertionError(f"cli {name}: metrics.jsonl {log}")
+            launches[name] = got
+            out[name] = {
+                "wall_s": wall, "launches": {k: v for k, v in got.items() if v},
+                "encodes": {k: calls.get(k, 0) for k in ("encode_eval", "encode_train")},
+                "decode_steps": calls.get("decode_step", 0),
+                "beam_steps": calls.get("beam_step", 0),
+                "ms_per_micro_step": [x * 1e3 for x in secs.get("micro_step", [])],
+                "scst_step_s": secs.get("scst_step", []),
+                "val_decode_s": secs.get("val_decode", []),
+                "test_decode_s": secs.get("test_decode", []),
+                "checkpoint_save_s": secs.get("save", []),
+                "checkpoints_mb": ckpt_dir_mb(os.path.join(tdir, "checkpoints")),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "metrics_lines": len(log),
+                "losses": [r.get("train_loss", r.get("scst_loss")) for r in log
+                           if "train_loss" in r or "scst_loss" in r],
+                "printed_lines": len(printed.getvalue().splitlines()),
+                "warnings": sorted({str(w.message)[:90] for w in caught})}
+        # the test's token ids: restore_model + _decode_step_outputs here
+        argv = argvs["test_multi"]
+        task = cli_config.parse_args(argv)
+        csvs = glob_csvs(task.exp_dir_trial)
+        ids_run = read_ids_csv(csvs[-1])
+        tok = stages.load_tokenizer(task)
+        config = stages.build_model_config(task, len(tok))
+        best = ck.get_test_ckpt_path(task.exp_dir_trial, task.monitor_mode)
+        model = ck.restore_model(best, stages.init_variables(task, config))
+        ds = stages.make_datasets(task, "test", train=False)
+        rows = min(task.eval_decode_rows // task.num_test_beams, len(ds))
+        ids_here = {}
+        for batch in batch_iterator(ds, rows, sort_key=ds.image_counts()):
+            seqs, _, _ = stages._decode_step_outputs(task, config, tok, model, batch,
+                                                     task.num_test_beams, pad_rows=rows)
+            ids_here.update({int(s): list(map(int, r)) for s, r in zip(batch["study_ids"], seqs)})
+        del model
+        if calls.get("plain", 0):
+            raise AssertionError("cli: a plain version ran on the card")
+    finally:
+        for owner, name, fn in reversed(undo):
+            setattr(owner, name, fn)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cxrmate_torch.cli.stages"] + argv, cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                          timeout=600)
+    out["test_multi_subprocess"] = {"wall_s": time.perf_counter() - t, "rc": proc.returncode,
+                                    "printed_lines": len(proc.stdout.splitlines())}
+    if proc.returncode != 0 or "test_report_nlg_bleu_1: " not in proc.stdout:
+        raise AssertionError(f"cli: python -m cxrmate_torch.cli.stages --test: rc "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    new = [p for p in glob_csvs(task.exp_dir_trial) if p not in csvs]
+    ids_sub = read_ids_csv(new[-1]) if new else {}
+    if not (len(ids_run) == 2 * CLI_SPLITS.count("test") and ids_run == ids_sub == ids_here):
+        raise AssertionError(f"cli: test token ids differ (run {len(ids_run)}, subprocess "
+                             f"{len(ids_sub)}, in-process {len(ids_here)} studies)")
+    for kernel in ("flash_attention", "decode_attention", "beam_reorder_write") + FLASH_GRAD:
+        if sum(run[kernel] for run in launches.values()) <= 0:
+            raise AssertionError(f"cli: {kernel} not launched by any run")
+    # the gates above held: the same ids from the run, the subprocess and
+    # restore_model + _decode_step_outputs; no plain version ran
+    res.update(runs=out, test_studies_with_equal_token_ids=len(ids_run), plain_calls=0)
+    emit(res)
+    return launches
+
+
+def glob_csvs(exp_dir_trial):
+    """The test stage's token-id CSVs, oldest first."""
+    import glob
+
+    return sorted(glob.glob(os.path.join(exp_dir_trial, "generated_report_ids", "*.csv")),
+                  key=os.path.getmtime)
+
+
 def kernels_line(da, k, counts):
     """The summary, bf16 (the serving dtype). One row per kernel and per set
     of shapes a main path gives it: times and bound of one unit of that work
     (one encode for flash; one decode step for the others: LAYERS times the
     path's calls to the kernel), beside the launches of the timed main-path
-    calls that ran the kernel at exactly those shapes."""
+    calls that ran the kernel at exactly those shapes; and on every row of a
+    kernel, the launches of the kernel in the cli phase's runs at all their
+    shapes and dtypes (cli_phase_launches_all_shapes)."""
     bf = k["bf16"]
     rows = {}  # (kernel, shapes) -> [paths, launches, [(result, times per unit)]]
 
@@ -3678,7 +3963,8 @@ def kernels_line(da, k, counts):
     r = bf["fused"]["fused_layer_step"]
     b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
     runs = [counts["train"], counts["checkpoint"], counts["data_train"]] + [
-        run for variant in ("multi", "longitudinal", "single") for run in counts[variant].values()]
+        run for variant in ("multi", "longitudinal", "single", "cli")
+        for run in counts[variant].values()]
     source, replaces = KERNELS["fused_layer_step"]
     out.append({"name": "fused_layer_step[no path: function only]", "route": "cuda",
                 "source": source, "replaces": replaces,
@@ -3713,6 +3999,10 @@ def kernels_line(da, k, counts):
     if {r["source"] for r in out} != {src for src, _ in KERNELS.values()} or \
             {r["name"].split("[")[0] for r in out} != set(KERNELS):
         raise AssertionError("a kernel is missing from the summary")
+    for row in out:  # the cli phase's runs, fp32 decodes and bf16 training, every shape
+        kernel = row["name"].split("[")[0]
+        row["cli_phase_launches_all_shapes"] = sum(run.get(kernel, 0)
+                                                   for run in counts["cli"].values())
     return {"kernels": out}
 
 
@@ -3766,6 +4056,7 @@ def main() -> int:
         counts["multi"]["score"] = score_phase(torch, np, ckpts["multi"], saved["exp_dir"])
         data = data_phase(torch, np, ckpts, saved["exp_dir"])
         counts["multi"]["data"], counts["data_train"] = data["multi"], data["train"]
+        counts["cli"] = cli_phase(torch, np, ckpts)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     decode_device_phase(torch, da, br, F, kernels)

@@ -1,7 +1,8 @@
 """HF checkpoint directories: load a state dict, and carry JAX parameters across.
 
 ``load_hf_pretrained_dir`` reads ``pytorch_model.bin`` (or ``model.safetensors``
-when the ``safetensors`` package imports), unwrapping a wrapped state dict.
+when the ``safetensors`` package imports), unwrapping a wrapped state dict;
+``load_torch_checkpoint`` reads a checkpoint file (a Lightning ``.ckpt``).
 ``state_dict_from_jax`` is the
 port's own numpy-only copy of ``cxrmate_tpu/ckpt/hf_convert.py:178
 export_encoder_decoder``: the JAX package's parameter pytree -> the torch-layout
@@ -29,6 +30,27 @@ WEIGHTS_BIN = "pytorch_model.bin"
 WEIGHTS_SAFETENSORS = "model.safetensors"
 
 
+def _unwrap(blob):
+    for key in ("state_dict", "model_state_dict"):
+        if isinstance(blob, dict) and key in blob:
+            return blob[key]
+    return blob
+
+
+def load_torch_checkpoint(path: str) -> Dict:
+    """The state dict of a torch checkpoint file (``.ckpt``, ``.pth``,
+    ``.bin``), on the CPU, unwrapped from ``state_dict`` (Lightning) or
+    ``model_state_dict`` (CheXbert): the file form of
+    ``cxrmate_tpu/ckpt/orbax_io.py:315 load_torch_checkpoint``.
+
+    It loads with ``weights_only=False``, as the JAX package does: the file
+    is one the user's config names (a warm start's Lightning ``.ckpt``), and
+    Lightning pickles more than tensors (hyper-parameters, loop state), which
+    the safe loader refuses. Unpickling runs code, so pass only files you
+    trust."""
+    return _unwrap(torch.load(path, map_location="cpu", weights_only=False))
+
+
 def load_hf_pretrained_dir(path: str) -> Dict[str, torch.Tensor]:
     """State dict of an HF checkpoint directory, on the CPU. A
     ``pytorch_model.bin`` that keeps its state dict under ``state_dict``
@@ -36,11 +58,7 @@ def load_hf_pretrained_dir(path: str) -> Dict[str, torch.Tensor]:
     ``cxrmate_tpu/ckpt/orbax_io.py:315 load_torch_checkpoint`` does."""
     bin_path = os.path.join(path, WEIGHTS_BIN)
     if os.path.exists(bin_path):
-        blob = torch.load(bin_path, map_location="cpu", weights_only=True)
-        for key in ("state_dict", "model_state_dict"):
-            if isinstance(blob, dict) and key in blob:
-                return blob[key]
-        return blob
+        return _unwrap(torch.load(bin_path, map_location="cpu", weights_only=True))
     st_path = os.path.join(path, WEIGHTS_SAFETENSORS)
     if os.path.exists(st_path):
         try:

@@ -133,9 +133,9 @@ def _shared():
 
 def test_port_imports_no_jax():
     """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward,
-    the scorers, the checkpoints and the data pipeline among them), and
-    chip_smoke.py, loads neither jax nor cxrmate_tpu, nor pandas, PIL or
-    safetensors, which the port must not need (checked in a fresh
+    the scorers, the checkpoints, the data pipeline and the CLI among them),
+    and chip_smoke.py, loads neither jax nor cxrmate_tpu, nor yaml, pandas,
+    PIL or safetensors, which the port must not need (checked in a fresh
     interpreter: this one has JAX loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -154,9 +154,11 @@ def test_port_imports_no_jax():
         "assert 'cxrmate_torch.ckpt.checkpoints' in names, names\n"
         "assert {'cxrmate_torch.data.' + m for m in ('table', 'index', 'datasets', 'pipeline',\n"
         "        'image', 'synthetic', 'native')} <= set(names), names\n"
+        "assert {'cxrmate_torch.cli.config', 'cxrmate_torch.cli.stages',\n"
+        "        'cxrmate_torch.cli.yaml_subset'} <= set(names), names\n"
         "assert len(names) >= 50, names\n"
         "assert not bad, bad\n"
-        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('pandas', 'PIL', 'safetensors'))\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('yaml', 'pandas', 'PIL', 'safetensors'))\n"
         "assert not heavy, heavy\n"
         "print(len(names))\n"
     )
