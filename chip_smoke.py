@@ -231,6 +231,7 @@ kernel at those shapes.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -3661,69 +3662,22 @@ def read_ids_csv(path) -> dict:
         return {int(r["study_id"]): json.loads(r["report_ids"]) for r in csv.DictReader(f)}
 
 
-def cli_phase(torch, np, ckpts):
-    """The train/test CLI on the card: cxrmate_torch.cli.stages.main(argv),
-    in this process, on the repository's configs, at full width, with the
-    zoo (ckpt_zoo_dir) holding the main phases' seeded random multi and
-    longitudinal checkpoints as aehrc/cxrmate-multi-tf and aehrc/cxrmate-tf,
-    the repository tokenizer and build_synthetic_cxrbert's tiny CXR-BERT
-    (no CheXbert or roberta-large: their metrics are skipped with a warning
-    and checkpoints ranked by an NLG surrogate, as the JAX package does
-    offline). Runs (CLI_RUNS): fit of the multi model (2 bf16 micro-steps on
-    fp32 masters, one AdamW update, greedy validation of 4 studies in fp32, a
-    checkpoint); its test (the best checkpoint, beam-4 over the 8 test
-    studies, fp32); the gt_prompt stage warm-started from the multi checkpoint
-    (fast_dev_run: no LoRA in it, so nothing trains, as in JAX); SCST of the
-    longitudinal model (fast_dev_run: one step and generated-prompt
-    validations); then the test again as `python -m cxrmate_torch.cli.stages`
-    in a subprocess. Every launch count is set to 0 just before a run and
-    read just after, against the counts its encodes, decode steps and beam
-    searches imply; no plain version runs; losses finite; metrics.jsonl with
-    the JAX package's keys; the test's token ids equal to the subprocess's
-    and to restore_model + _decode_step_outputs in this process. -> the
-    launches of each run."""
-    import importlib.util
-    import io
-    import warnings
-
+def patch_cli_calls(torch, calls, secs, undo):
+    """Count the calls the launch gates of the CLI's runs read: encodes
+    (train or eval mode), decode and beam steps, beam searches, plain
+    versions of the kernels; time (synchronised) the decodes of
+    ``_decode_step_outputs``, every training micro-step, SCST steps and
+    checkpoint saves. ``undo`` collects what ``restore_calls`` puts back."""
     from cxrmate_torch.ckpt import checkpoints as ck
-    from cxrmate_torch.cli import config as cli_config
     from cxrmate_torch.cli import stages
-    from cxrmate_torch.data.pipeline import batch_iterator
-    from cxrmate_torch.data.synthetic import build_synthetic_cxrbert
     from cxrmate_torch.models import bert as bert_mod
     from cxrmate_torch.models import encoder_decoder as ed
     from cxrmate_torch.ops import beam_reorder as br
     from cxrmate_torch.ops import decode_attention as da
     from cxrmate_torch.ops import flash_attention as fa
     from cxrmate_torch.ops import fused_decode as fd
-    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
     from cxrmate_torch.train import scst as scst_mod
     from cxrmate_torch.train import tf_trainer as tt
-
-    root = os.path.join(SMOKE_DIR, "cli")
-    zoo = os.path.join(root, "checkpoints")
-    os.makedirs(os.path.join(zoo, "aehrc"))
-    os.symlink(ckpts["multi"], os.path.join(zoo, "aehrc", "cxrmate-multi-tf"))
-    os.symlink(ckpts["longitudinal"], os.path.join(zoo, "aehrc", "cxrmate-tf"))
-    tok_dir = os.path.join(zoo, "mimic-cxr-tokenizers", "bpe_prompt")
-    os.makedirs(tok_dir)
-    shutil.copy(os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json"),
-                tok_dir)
-    build_synthetic_cxrbert(zoo)
-    t0 = time.perf_counter()
-    dataset_dir, _, paths = write_data_tree(np, root, ByteLevelBPETokenizer.from_file(tok_dir),
-                                            CLI_SPLITS)
-    exp = os.path.join(root, "experiments")
-    common = [f"exp_dir={exp}", f"dataset_dir={dataset_dir}", f"ckpt_zoo_dir={zoo}"]
-    res = {"phase": "cli", "tree": {"subjects": len(CLI_SPLITS), "studies": 2 * len(CLI_SPLITS),
-                                    "images": len(paths), "write_s": time.perf_counter() - t0},
-           "yaml_importable": importlib.util.find_spec("yaml") is not None,
-           "transformers_importable": importlib.util.find_spec("transformers") is not None,
-           "tf32": {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}}
-
-    calls, secs, undo = {}, {}, []
 
     def patch(owner, name, key=lambda a, kw: None, timed=None, result=None):
         """Count (and with ``timed``, time, synchronised) the calls of
@@ -3768,25 +3722,92 @@ def cli_phase(torch, np, ckpts):
     for mod in (fa, da, br, fd):
         for name in [n for n in vars(mod) if n.endswith("_plain")]:
             patch(mod, name, key=lambda a, kw: "plain")
+    return patch
+
+
+def restore_calls(undo):
+    for owner, name, fn in reversed(undo):
+        setattr(owner, name, fn)
+
+
+def expected_launches(stages, wrappers, c, task, encoder_trains):
+    """The launches that the counted calls ``c`` (encodes, decode steps and
+    beam searches) imply at ``task``'s widths (CvT-21: 21 attention layers;
+    6 decoder layers: a self and a cross call each per step)."""
+    mcfg = stages.build_model_config(task, 1)
+    depth, layers = sum(mcfg.encoder.depth), mcfg.decoder.num_hidden_layers
+    want = dict.fromkeys(wrappers, 0)
+    train = depth * c.get("encode_train", 0)
+    want.update(flash_attention=depth * c.get("encode_eval", 0),
+                flash_attention_fwd_lse=train,
+                flash_attention_bwd_dq=train if encoder_trains else 0,
+                flash_attention_bwd_dkv=train if encoder_trains else 0,
+                decode_attention=2 * layers * (c.get("decode_step", 0)
+                                               + c.get("beam_step", 0)),
+                beam_reorder_write=layers * (c.get("beam_step", 0)
+                                             + c.get("beam_search", 0)))
+    return want
+
+
+def cli_phase(torch, np, ckpts):
+    """The train/test CLI on the card: cxrmate_torch.cli.stages.main(argv),
+    in this process, on the repository's configs, at full width, with the
+    zoo (ckpt_zoo_dir) holding the main phases' seeded random multi and
+    longitudinal checkpoints as aehrc/cxrmate-multi-tf and aehrc/cxrmate-tf,
+    the repository tokenizer and build_synthetic_cxrbert's tiny CXR-BERT
+    (no CheXbert or roberta-large: their metrics are skipped with a warning
+    and checkpoints ranked by an NLG surrogate, as the JAX package does
+    offline). Runs (CLI_RUNS): fit of the multi model (2 bf16 micro-steps on
+    fp32 masters, one AdamW update, greedy validation of 4 studies in fp32, a
+    checkpoint); its test (the best checkpoint, beam-4 over the 8 test
+    studies, fp32); the gt_prompt stage warm-started from the multi checkpoint
+    (fast_dev_run: no LoRA in it, so nothing trains, as in JAX); SCST of the
+    longitudinal model (fast_dev_run: one step and generated-prompt
+    validations); then the test again as `python -m cxrmate_torch.cli.stages`
+    in a subprocess. Every launch count is set to 0 just before a run and
+    read just after, against the counts its encodes, decode steps and beam
+    searches imply; no plain version runs; losses finite; metrics.jsonl with
+    the JAX package's keys; the test's token ids equal to the subprocess's
+    and to restore_model + _decode_step_outputs in this process. -> the
+    launches of each run."""
+    import importlib.util
+    import warnings
+
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.cli import config as cli_config
+    from cxrmate_torch.cli import stages
+    from cxrmate_torch.data.pipeline import batch_iterator
+    from cxrmate_torch.data.synthetic import build_synthetic_cxrbert
+    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
+
+    root = os.path.join(SMOKE_DIR, "cli")
+    zoo = os.path.join(root, "checkpoints")
+    os.makedirs(os.path.join(zoo, "aehrc"))
+    os.symlink(ckpts["multi"], os.path.join(zoo, "aehrc", "cxrmate-multi-tf"))
+    os.symlink(ckpts["longitudinal"], os.path.join(zoo, "aehrc", "cxrmate-tf"))
+    tok_dir = os.path.join(zoo, "mimic-cxr-tokenizers", "bpe_prompt")
+    os.makedirs(tok_dir)
+    shutil.copy(os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json"),
+                tok_dir)
+    build_synthetic_cxrbert(zoo)
+    t0 = time.perf_counter()
+    dataset_dir, _, paths = write_data_tree(np, root, ByteLevelBPETokenizer.from_file(tok_dir),
+                                            CLI_SPLITS)
+    exp = os.path.join(root, "experiments")
+    common = [f"exp_dir={exp}", f"dataset_dir={dataset_dir}", f"ckpt_zoo_dir={zoo}"]
+    res = {"phase": "cli", "tree": {"subjects": len(CLI_SPLITS), "studies": 2 * len(CLI_SPLITS),
+                                    "images": len(paths), "write_s": time.perf_counter() - t0},
+           "yaml_importable": importlib.util.find_spec("yaml") is not None,
+           "transformers_importable": importlib.util.find_spec("transformers") is not None,
+           "tf32": {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}}
+
+    calls, secs, undo = {}, {}, []
+    patch_cli_calls(torch, calls, secs, undo)
     wrappers = all_wrappers()
 
     def expected(c, task, encoder_trains):
-        """The launches that ``c``'s encodes, decode steps and beam searches
-        imply at ``task``'s widths (CvT-21: 21 attention layers; 6 decoder
-        layers: a self and a cross call each per step)."""
-        mcfg = stages.build_model_config(task, 1)
-        depth, layers = sum(mcfg.encoder.depth), mcfg.decoder.num_hidden_layers
-        want = dict.fromkeys(wrappers, 0)
-        train = depth * c.get("encode_train", 0)
-        want.update(flash_attention=depth * c.get("encode_eval", 0),
-                    flash_attention_fwd_lse=train,
-                    flash_attention_bwd_dq=train if encoder_trains else 0,
-                    flash_attention_bwd_dkv=train if encoder_trains else 0,
-                    decode_attention=2 * layers * (c.get("decode_step", 0)
-                                                   + c.get("beam_step", 0)),
-                    beam_reorder_write=layers * (c.get("beam_step", 0)
-                                                 + c.get("beam_search", 0)))
-        return want
+        return expected_launches(stages, wrappers, c, task, encoder_trains)
 
     launches, out, argvs = {}, {}, {}
     try:
@@ -3860,8 +3881,7 @@ def cli_phase(torch, np, ckpts):
         if calls.get("plain", 0):
             raise AssertionError("cli: a plain version ran on the card")
     finally:
-        for owner, name, fn in reversed(undo):
-            setattr(owner, name, fn)
+        restore_calls(undo)
     torch.cuda.empty_cache()
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "cxrmate_torch.cli.stages"] + argv, cwd=REPO,
@@ -3884,7 +3904,461 @@ def cli_phase(torch, np, ckpts):
     # restore_model + _decode_step_outputs; no plain version ran
     res.update(runs=out, test_studies_with_equal_token_ids=len(ids_run), plain_calls=0)
     emit(res)
-    return launches
+    return launches, {"dataset_dir": dataset_dir, "ckpt_zoo_dir": zoo,
+                      "image_cache_dir": os.path.join(exp, ".image_cache")}
+
+
+# the multiprocess phase: the CLI's runs on 2 ranks (gloo: both on the one
+# card) against the same runs in one process, and a world-1 NCCL group.
+# The 2-rank train and test runs force static widths and image slots; the
+# one-process runs are given the same (static_tf_pad, pad_images=max).
+MP_FIT = ["warm_start_name=aehrc/cxrmate-multi-tf", "max_epochs=1", "mbatch_size=4",
+          "accumulated_mbatch_size=8", "static_tf_pad=true", "pad_images=max"]
+# SCST in fp32: both runs then sample the same tokens, so its loss, reward,
+# baseline and update are gated like the fit's (in bf16 a rank's rollout
+# rounds its logits otherwise and samples other reports)
+MP_SCST = ["warm_start_name=aehrc/cxrmate-tf", "fast_dev_run=true", "mbatch_size=2",
+           "accumulated_mbatch_size=2", "precision=32"]
+# cuDNN's TF32 (PyTorch's default: on) in the fp32 pairs, the test's and
+# SCST's, in both runs: off. The encoder's convolutions at a rank's batch and
+# at one process's may run other cuDNN engines, whose TF32 roundings (2^-11)
+# reach the decoder through cross-attention. With TF32, SCST's first moments
+# read 4.0e-5 to 1.4e-3 apart over the decoder (cross-attention's tensors
+# 2.6e-4 where the whole read 1.1e-4); without it 3.9e-6, evenly over the
+# decoder's tensors (H100, 700 W; tools/mp_tf32). The bf16 fit keeps the
+# default.
+MP_FP32_CUDNN_TF32 = False
+# bf16 compute: the ranks' GEMMs hold half the rows of one process's and may
+# round differently at every layer (bf16's unit roundoff is 2^-8 = 3.9e-3);
+# the loss, a mean over some 300 labels, read within 6.4e-5 relative (H100,
+# 700 W), is held within 1e-3
+MP_LOSS_RTOL = 1e-3
+# fp32 SCST (rtol, atol), from the readings on the H100 at 700 W: the loss
+# 3.8e-6 relative apart, the reward (the mean advantage, near 0) 3e-8 and
+# the baseline 6e-8 absolute
+MP_SCST_LOSS_TOL = (1e-4, 0.0)
+MP_SCST_REWARD_TOL = (1e-5, 1e-6)
+# AdamW's first moments (the accumulated gradients, which carry their size):
+# the relative L2 difference over the encoder's tensors and over the
+# decoder's, by the compute dtype. Not per tensor: a gradient that is zero
+# in exact arithmetic is only rounding in both runs (CvT's stage-0
+# layernorm_before.bias feeds BatchNorm, which removes it, and key biases,
+# which softmax ignores: 0.9-1.5 apart), where the parts read 2.4e-2
+# (encoder) and 1.1e-2 (decoder) in bf16, 3.9e-6 in fp32 with cuDNN's TF32
+# off (H100, 700 W). A gradient off by a scale, or missing a rank's stripe,
+# is off by 0.5 or more.
+MP_MU_RTOL = {"bf16": 1e-1, "fp32": 1e-3}
+# AdamW's first update is about lr * sign(g): an element whose gradient is
+# within rounding of 0 may move the other way (held within 2 lr); such sign
+# flips between the runs' accumulated gradients stay below this share of the
+# elements (a gradient that is not all-reduced, half the batch's, flips far more)
+MP_FLIP_SHARE = 0.05
+MP_TIMEOUT = 480  # seconds a launch of the ranks may take
+
+
+def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
+    """One rank of the multiprocess phase, started by torch.distributed.run:
+    ``cli.stages.main(argv)`` with the calls of the launch gates counted,
+    the training micro-steps and the gradient all-reduces timed
+    (synchronised), then a JSON file ``rank{RANK}.json`` in ``out_dir``.
+    ``cudnn_tf32``: the process's ``torch.backends.cudnn.allow_tf32``."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+    sys.path.insert(0, REPO)
+    from cxrmate_torch.cli import stages
+    from cxrmate_torch.utils import dist
+
+    calls, secs, undo = {}, {}, []
+    patch_cli_calls(torch, calls, secs, undo)
+    reduces, info, bn_ms = [], {}, {"forward": [], "backward": []}
+    flat_sum, init = dist.all_reduce_sum, stages.initialize_if_needed
+    bn_fwd, bn_bwd = dist._AllReduceSum.forward, dist._AllReduceSum.backward
+
+    def timed_sum(tensors):
+        tensors = list(tensors)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = flat_sum(tensors)
+        torch.cuda.synchronize()
+        reduces.append(((time.perf_counter() - t) * 1e3,
+                        sum(x.numel() * x.element_size() for x in tensors) / 1e6))
+        return out
+
+    def timed_bn(fn, way):
+        # BatchNorm's differentiable all-reduces (the global batch's moments),
+        # both ways, synchronised
+        def run(ctx, tensor):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(ctx, tensor)
+            torch.cuda.synchronize()
+            bn_ms[way].append((time.perf_counter() - t) * 1e3)
+            return out
+        return staticmethod(run)
+
+    def joined(device):
+        out = init(device)
+        info.update(backend=torch.distributed.get_backend(),
+                    world=torch.distributed.get_world_size(),
+                    device=str(torch.device("cuda", torch.cuda.current_device())))
+        return out
+
+    dist.all_reduce_sum = timed_sum
+    dist._AllReduceSum.forward = timed_bn(bn_fwd, "forward")
+    dist._AllReduceSum.backward = timed_bn(bn_bwd, "backward")
+    stages.initialize_if_needed = joined
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    stages.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    grads = [r for r in reduces if r[1] > 1.0]  # the flat gradient buffer, not the counts
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, **info, "wall_s": wall, "calls": calls,
+                   "launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "ms_per_micro_step": [x * 1e3 for x in secs.get("micro_step", [])],
+                   "grad_all_reduce_ms": [r[0] for r in grads],
+                   "grad_all_reduce_mb": [r[1] for r in grads],
+                   "other_all_reduces": len(reduces) - len(grads),
+                   "batch_norm_all_reduce_ms": {k: sum(v) for k, v in bn_ms.items()},
+                   "batch_norm_all_reduces": {k: len(v) for k, v in bn_ms.items()},
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
+    restore_calls(undo)
+    return 0
+
+
+def run_ranks(nproc, argv, out_dir, cudnn_tf32=True):
+    """``nproc`` ranks of this script's ``--mp-rank`` mode through
+    ``multihost.launch_ranks`` (``python -m torch.distributed.run``): a failed
+    rank fails the launch (torchrun stops the others), and a launch past
+    MP_TIMEOUT is stopped with all its ranks. ``cudnn_tf32``: the ranks'
+    ``torch.backends.cudnn.allow_tf32``. -> (wall s, each rank's JSON)."""
+    from cxrmate_torch.parallel.multihost import launch_ranks
+
+    os.makedirs(out_dir)
+    t = time.perf_counter()
+    mode = ["--mp-rank", out_dir] + ([] if cudnn_tf32 else ["--no-cudnn-tf32"]) + ["--"]
+    log = launch_ranks(nproc, [os.path.join(REPO, "chip_smoke.py")] + mode + argv, MP_TIMEOUT,
+                       env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+    wall = time.perf_counter() - t
+    with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
+        f.write(log)
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return wall, ranks
+
+
+def run_in_process(torch, argv, cudnn_tf32=True):
+    """``cli.stages.main(argv)`` here, its calls counted, under
+    ``torch.backends.cudnn.allow_tf32 = cudnn_tf32`` (restored after) ->
+    (wall s, calls, secs, launches, peak GB)."""
+    import warnings
+
+    from cxrmate_torch.cli import stages
+
+    calls, secs, undo = {}, {}, []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    patch_cli_calls(torch, calls, secs, undo)
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+            warnings.simplefilter("ignore")
+            stages.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        restore_calls(undo)
+    return (time.perf_counter() - t, calls, secs,
+            {k: fn.launches for k, fn in wrappers.items()},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def train_losses(trial, keys=("train_loss", "scst_loss")):
+    """Every logged value of ``keys`` in the run's metrics, in order."""
+    with open(os.path.join(trial, "metrics.jsonl")) as f:
+        return [r[k] for r in map(json.loads, f) for k in keys if k in r]
+
+
+def compare_checkpoints(torch, np, got_path, want_path, lr, mu_rtol):
+    """Rank 0's checkpoint against one process's after one AdamW update.
+    The first moments by MP_MU_RTOL (``mu_rtol``). The
+    parameters within rtol 1e-4, atol 1e-6 where both accumulated
+    gradients (the first moments) share a sign and are at least 1e-6, else
+    within 2 lr (see MP_FLIP_SHARE). BatchNorm's running statistics within
+    rtol 1e-3, atol 1e-5: they are fp32, but the batch moments come from bf16
+    activations, which may differ between the runs by a bf16 rounding
+    (2^-8), and enter the statistics scaled by the momentum 0.1.
+    -> (worst key and how far beyond its tolerance, largest loose
+    difference, share of elements whose gradients differ in sign, the
+    first moments' readings)."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+
+    a, b = (torch.load(os.path.join(p, ck.STATE_FILE), map_location="cpu", weights_only=True)
+            for p in (got_path, want_path))
+    count = b["opt_state"]["count"]
+    if a["opt_state"]["count"] != count or count != 1 or list(a["model"]) != list(b["model"]):
+        raise AssertionError(f"multiprocess: checkpoints of {a['opt_state']['count']} and "
+                             f"{count} updates, or other parameter sets")
+    mus = {k: (a["opt_state"]["mu"][k].double().numpy(), m.double().numpy())
+           for k, m in b["opt_state"]["mu"].items()}
+
+    def rel_l2(keys):
+        return float(np.sqrt(sum(float(np.square(mus[k][0] - mus[k][1]).sum()) for k in keys)
+                             / max(sum(float(np.square(mus[k][1]).sum()) for k in keys), 1e-300)))
+
+    parts = {}
+    for k in mus:
+        parts.setdefault(k.split(".")[0], []).append(k)
+    moments = {"rel_l2": {part: rel_l2(keys) for part, keys in parts.items()},
+               "tensor_rel_l2_worst": max(((k, rel_l2([k])) for k in mus), key=lambda kv: kv[1])}
+    if max(moments["rel_l2"].values()) > mu_rtol:
+        raise AssertionError(f"multiprocess: first moments past {mu_rtol}: {moments}")
+    worst, loose = ("", -np.inf), 0.0
+    flips = elements = 0
+    for k, y in b["model"].items():
+        if not y.is_floating_point():
+            continue
+        x, y = a["model"][k].float().numpy(), y.float().numpy()
+        diff = np.abs(x - y)
+        free = np.zeros(diff.shape, bool)
+        rtol, atol = 1e-4, 1e-6
+        if k.endswith(("running_mean", "running_var")):
+            rtol, atol = 1e-3, 1e-5
+        elif k in b["opt_state"]["mu"]:
+            ga, gb = a["opt_state"]["mu"][k].numpy() / 0.1, b["opt_state"]["mu"][k].numpy() / 0.1
+            flip = np.sign(ga) != np.sign(gb)
+            flips, elements = flips + int(flip.sum()), elements + flip.size
+            free = flip | (np.minimum(np.abs(ga), np.abs(gb)) < 1e-6)
+        if free.any():
+            loose = max(loose, float(diff[free].max()))
+        if (~free).any():
+            over = float((diff[~free] - (atol + rtol * np.abs(y[~free]))).max())
+            worst = max(worst, (k, over), key=lambda kv: kv[1])
+    if worst[1] > 0 or loose > 2 * lr or flips > MP_FLIP_SHARE * elements:
+        raise AssertionError(f"multiprocess: checkpoints past their tolerances ({worst[0]} "
+                             f"by {worst[1]}; loose {loose} against 2 lr = {2 * lr}; {flips} "
+                             f"of {elements} gradient signs differ)")
+    return worst, loose, flips / elements, moments
+
+
+def report_rows(trial, subdir):
+    """A CSV's header and its rows in study order (the ranks' rows arrive in
+    rank order, one process's in decode order)."""
+    import csv
+    import glob
+
+    (path,) = glob.glob(os.path.join(trial, subdir, "*.csv"))
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.reader(f))
+    key = rows[0].index("study_id")
+    return [rows[0]] + sorted(rows[1:], key=lambda r: int(r[key]))
+
+
+def check_draws(torch):
+    """On the card, with CUDA generators: the port's sampling draw
+    (exponentials, argmax of p / q) is ``torch.multinomial(p, 1)``'s bit for
+    bit, and a RowStripe's draw of sampling, dropout and drop-path (CvT's
+    fold of 5 images a study) is the world-1 draw's rows."""
+    from cxrmate_torch.generate.decode import _draw
+    from cxrmate_torch.models.cvt import _drop_path
+    from cxrmate_torch.ops.layers import RowStripe, dropout
+
+    def gen(seed=7):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    x = torch.randn(16, 4720, device="cuda", generator=gen(1)) * 3
+    want = torch.multinomial(torch.softmax(x, dim=-1), 1, generator=gen())[:, 0]
+    whole = _draw(x, gen())
+    h = torch.randn(16 * 5, 96, 64, device="cuda", dtype=torch.bfloat16, generator=gen(2))
+    out = {"sample_equals_multinomial": bool(torch.equal(whole, want))}
+    for name, fn, t, k in (("sample", _draw, x, 1),
+                           ("dropout", lambda a, g: dropout(a, 0.1, g), h, 5),
+                           ("drop_path", lambda a, g: _drop_path(a, 0.1, g), h, 5)):
+        full = fn(t, gen())
+        out[f"{name}_stripes_equal"] = all(
+            torch.equal(fn(t[k * lo:k * hi], RowStripe(gen(), lo, hi, 16)), full[k * lo:k * hi])
+            for lo, hi in ((0, 8), (8, 16), (3, 11)))
+    if not all(out.values()):
+        raise AssertionError(f"multiprocess: draws {out}")
+    return out
+
+
+def multiprocess_phase(torch, np, tree):
+    """The CLI on two ranks of one process group, both on the one card
+    (gloo: NCCL takes one rank a device), launched as a user launches them
+    (python -m torch.distributed.run ... cli.stages), at full width on the
+    cli phase's JPEG tree, against the same runs in this process:
+      * --train of config/train/multi_tf.yaml (a global batch of 4, 2 a rank,
+        2 micro-steps, one AdamW update): the loss within MP_LOSS_RTOL, rank
+        0's checkpoint by compare_checkpoints (first moments by MP_MU_RTOL);
+      * --test of config/test/multi_tf.yaml on the one-process fit's best
+        checkpoint (fp32, beam-4): global batches of 8 studies, 4 a rank,
+        against one process's batches of 4 (each rank decodes one of them):
+        token ids and the generated reports equal;
+      * --train of the SCST config in fp32 (fast_dev_run, 2 studies, 1 a
+        rank): scst_loss, reward and baseline within MP_SCST_*_TOL, rank 0's
+        checkpoint by compare_checkpoints;
+      * --train of the multi config with fast_dev_run as a world-1 NCCL group:
+        one micro-step's gradient all-reduce through NCCL.
+    The fp32 pairs (test, SCST) turn cuDNN's TF32 off in both runs
+    (MP_FP32_CUDNN_TF32). Each rank's launches as its own encodes, decode
+    steps and beam searches imply (printed per rank and summed). -> the
+    launches of each run, summed over its ranks."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.cli import config as cli_config
+    from cxrmate_torch.cli import stages
+
+    root = os.path.join(SMOKE_DIR, "mp")
+    common = [f"{k}={v}" for k, v in tree.items()]
+    wrappers = all_wrappers()
+
+    def argv(mode, config, overrides, name):
+        return ([mode, "--config", os.path.join(REPO, "config", config)] + overrides + common
+                + [f"exp_dir={os.path.join(root, name)}"])
+
+    def check_ranks(name, args, ranks, encoder_trains):
+        task = cli_config.parse_args(args)
+        for r in ranks:
+            want = expected_launches(stages, wrappers, r["calls"], task, encoder_trains)
+            if r["launches"] != want or r["calls"].get("plain", 0):
+                raise AssertionError(f"multiprocess {name} rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {want} from {r['calls']}")
+        return task, {k: sum(r["launches"][k] for r in ranks) for k in wrappers}
+
+    def rank_view(ranks):
+        return [{"rank": r["rank"], "backend": r["backend"], "device": r["device"],
+                 "wall_s": r["wall_s"], "launches": {k: v for k, v in r["launches"].items() if v},
+                 "encodes": {k: r["calls"].get(k, 0) for k in ("encode_eval", "encode_train")},
+                 "decode_steps": r["calls"].get("decode_step", 0),
+                 "beam_steps": r["calls"].get("beam_step", 0),
+                 "ms_per_micro_step": r["ms_per_micro_step"],
+                 "grad_all_reduce_ms": r["grad_all_reduce_ms"],
+                 "grad_all_reduce_mb": r["grad_all_reduce_mb"],
+                 "batch_norm_all_reduces": r["batch_norm_all_reduces"],
+                 "batch_norm_all_reduce_ms": r["batch_norm_all_reduce_ms"],
+                 "batch_norm_share_of_micro_steps": (
+                     sum(r["batch_norm_all_reduce_ms"].values())
+                     / max(sum(r["ms_per_micro_step"]), 1e-9)),
+                 "peak_memory_gb": r["peak_memory_gb"]} for r in ranks]
+
+    def one(wall, calls, secs, launches, peak):
+        return {"wall_s": wall, "launches": {k: v for k, v in launches.items() if v},
+                "ms_per_micro_step": [x * 1e3 for x in secs.get("micro_step", [])],
+                "peak_memory_gb": peak}
+
+    res, counts = {"phase": "multiprocess", "draws": check_draws(torch)}, {}
+    try:
+        # --train: one process, then two ranks
+        fit1 = argv("--train", "train/multi_tf.yaml", MP_FIT, "fit_1")
+        ref = run_in_process(torch, fit1)
+        fit2 = argv("--train", "train/multi_tf.yaml", MP_FIT, "fit_2")
+        wall, ranks = run_ranks(2, fit2, os.path.join(root, "ranks_fit"))
+        task, counts["fit_2"] = check_ranks("fit", fit2, ranks, encoder_trains=True)
+        ref_task = cli_config.parse_args(fit1)
+        l1, l2 = train_losses(ref_task.exp_dir_trial), train_losses(task.exp_dir_trial)
+        res["fit"] = {"one_process": one(*ref),
+                      "two_ranks": {"wall_s": wall, "ranks": rank_view(ranks)},
+                      "losses": {"one_process": l1, "two_ranks": l2}}
+        if not (len(l1) == len(l2) >= 1 and np.allclose(l2, l1, rtol=MP_LOSS_RTOL, atol=0)):
+            raise AssertionError(f"multiprocess fit: losses {l2} on 2 ranks, {l1} in one process")
+        worst, loose, flips, moments = compare_checkpoints(
+            torch, np, ck.last_checkpoint(task.exp_dir_trial),
+            ck.last_checkpoint(ref_task.exp_dir_trial), ref_task.lr, MP_MU_RTOL["bf16"])
+        info = ck.checkpoint_resume_info(ck.last_checkpoint(task.exp_dir_trial))
+        if info["world_size"] != 2 or info["global_schedule"] is not True:
+            raise AssertionError(f"multiprocess fit: checkpoint marker {info}")
+        res["fit"]["checkpoint"] = {"closest_to_tolerance": worst, "largest_loose_diff": loose,
+                                    "gradient_sign_flip_share": flips, "lr": ref_task.lr,
+                                    "first_moments": moments}
+        res["fit"]["loss_rel_diff"] = max(abs(x - y) / abs(y) for x, y in zip(l2, l1))
+
+        # --test of the one-process fit's best checkpoint
+        best = ck.get_test_ckpt_path(ref_task.exp_dir_trial, ref_task.monitor_mode)
+        test1 = argv("--test", "test/multi_tf.yaml",
+                     ["test_ckpt_name=null", f"test_ckpt_path={best}", "eval_decode_rows=16"],
+                     "test_1")
+        ref = run_in_process(torch, test1, cudnn_tf32=MP_FP32_CUDNN_TF32)
+        test2 = argv("--test", "test/multi_tf.yaml",
+                     ["test_ckpt_name=null", f"test_ckpt_path={best}", "eval_decode_rows=32"],
+                     "test_2")
+        wall, ranks = run_ranks(2, test2, os.path.join(root, "ranks_test"),
+                                cudnn_tf32=MP_FP32_CUDNN_TF32)
+        task, counts["test_2"] = check_ranks("test", test2, ranks, encoder_trains=False)
+        trial1 = cli_config.parse_args(test1).exp_dir_trial
+        ids1 = read_ids_csv(glob_csvs(trial1)[-1])
+        ids2 = read_ids_csv(glob_csvs(task.exp_dir_trial)[-1])
+        if not (len(ids1) == 2 * CLI_SPLITS.count("test") and ids1 == ids2) or \
+                report_rows(trial1, "generated_reports") != \
+                report_rows(task.exp_dir_trial, "generated_reports"):
+            raise AssertionError(f"multiprocess test: token ids or reports differ ({len(ids2)} "
+                                 f"studies on 2 ranks, {len(ids1)} in one process)")
+        res["test"] = {"cudnn_tf32": MP_FP32_CUDNN_TF32, "one_process": one(*ref),
+                       "two_ranks": {"wall_s": wall, "ranks": rank_view(ranks)},
+                       "studies_with_equal_token_ids": len(ids1)}
+
+        # SCST, fast_dev_run, fp32
+        scst1 = argv("--train", "train/longitudinal_gen_prompt_cxr-bert.yaml", MP_SCST, "scst_1")
+        ref = run_in_process(torch, scst1, cudnn_tf32=MP_FP32_CUDNN_TF32)
+        scst2 = argv("--train", "train/longitudinal_gen_prompt_cxr-bert.yaml", MP_SCST, "scst_2")
+        wall, ranks = run_ranks(2, scst2, os.path.join(root, "ranks_scst"),
+                                cudnn_tf32=MP_FP32_CUDNN_TF32)
+        task, counts["scst_2"] = check_ranks("scst", scst2, ranks, encoder_trains=False)
+        scst_ref = cli_config.parse_args(scst1)
+        logs = {key: (train_losses(scst_ref.exp_dir_trial, (key,)),
+                      train_losses(task.exp_dir_trial, (key,)))
+                for key in ("scst_loss", "reward", "baseline")}
+        res["scst"] = {"cudnn_tf32": MP_FP32_CUDNN_TF32, "one_process": one(*ref),
+                       "two_ranks": {"wall_s": wall, "ranks": rank_view(ranks)},
+                       "logs": {k: {"one_process": a, "two_ranks": b} for k, (a, b) in logs.items()}}
+        for key, (rtol, atol) in (("scst_loss", MP_SCST_LOSS_TOL), ("reward", MP_SCST_REWARD_TOL),
+                                  ("baseline", MP_SCST_REWARD_TOL)):
+            l1, l2 = logs[key]
+            if not (len(l1) == len(l2) == 1 and np.allclose(l2, l1, rtol=rtol, atol=atol)):
+                raise AssertionError(f"multiprocess scst: {key} {l2} on 2 ranks, {l1} in one "
+                                     f"process")
+        worst, loose, flips, moments = compare_checkpoints(
+            torch, np, ck.last_checkpoint(task.exp_dir_trial),
+            ck.last_checkpoint(scst_ref.exp_dir_trial), scst_ref.lr, MP_MU_RTOL["fp32"])
+        res["scst"]["checkpoint"] = {"closest_to_tolerance": worst, "largest_loose_diff": loose,
+                                     "gradient_sign_flip_share": flips, "lr": scst_ref.lr,
+                                     "first_moments": moments}
+
+        # a world-1 NCCL group: one micro-step and its gradient all-reduce
+        nccl = argv("--train", "train/multi_tf.yaml", MP_FIT + ["fast_dev_run=true"], "fit_nccl")
+        wall, ranks = run_ranks(1, nccl, os.path.join(root, "ranks_nccl"))
+        task, counts["fit_nccl"] = check_ranks("nccl", nccl, ranks, encoder_trains=True)
+        ln = train_losses(task.exp_dir_trial)
+        first = train_losses(ref_task.exp_dir_trial)[:1]
+        if ranks[0]["backend"] != "nccl" or not (len(ln) == 1 and np.allclose(
+                ln, first, rtol=MP_LOSS_RTOL, atol=0)) or len(ranks[0]["grad_all_reduce_ms"]) != 1:
+            raise AssertionError(f"multiprocess nccl: backend {ranks[0]['backend']}, loss {ln} "
+                                 f"against {first}, {ranks[0]['grad_all_reduce_ms']} all-reduces")
+        res["nccl_world_1"] = {"wall_s": wall, "ranks": rank_view(ranks), "loss": ln,
+                               "one_process_first_loss": first}
+        for kernel in ("flash_attention", "decode_attention", "beam_reorder_write") + FLASH_GRAD:
+            if sum(run[kernel] for run in counts.values()) <= 0:
+                raise AssertionError(f"multiprocess: {kernel} not launched by any run")
+    except Exception:
+        res["failed"] = True
+        emit(res)  # what ran before the failure
+        raise
+    emit(res)
+    return counts
+
 
 
 def glob_csvs(exp_dir_trial):
@@ -4003,10 +4477,17 @@ def kernels_line(da, k, counts):
         kernel = row["name"].split("[")[0]
         row["cli_phase_launches_all_shapes"] = sum(run.get(kernel, 0)
                                                    for run in counts["cli"].values())
+        # the multiprocess phase's runs on their ranks, summed
+        row["multiprocess_phase_launches_all_ranks"] = sum(
+            run.get(kernel, 0) for run in counts["multiprocess"].values())
     return {"kernels": out}
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mp-rank"]:  # a rank of the multiprocess phase
+        end = sys.argv.index("--")
+        return mp_rank_main(sys.argv[2], sys.argv[end + 1:],
+                            cudnn_tf32="--no-cudnn-tf32" not in sys.argv[3:end])
     if not os.path.isdir(os.path.join(REPO, "cxrmate_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -4056,7 +4537,8 @@ def main() -> int:
         counts["multi"]["score"] = score_phase(torch, np, ckpts["multi"], saved["exp_dir"])
         data = data_phase(torch, np, ckpts, saved["exp_dir"])
         counts["multi"]["data"], counts["data_train"] = data["multi"], data["train"]
-        counts["cli"] = cli_phase(torch, np, ckpts)
+        counts["cli"], cli_tree = cli_phase(torch, np, ckpts)
+        counts["multiprocess"] = multiprocess_phase(torch, np, cli_tree)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     decode_device_phase(torch, da, br, F, kernels)

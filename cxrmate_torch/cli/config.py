@@ -9,10 +9,11 @@ not take, so every config parses to the JAX package's values.
 
 One field is the port's own: ``device`` ("cuda" by default; "cpu" runs the
 stages on the CPU, where every kernel wrapper takes its plain version). Two
-are kept only so that the configs parse identically: ``xla_cache_dir`` has no
-counterpart (``stages.main`` warns once), and ``mesh_data``/``mesh_model``
-above 1 raise ``NotImplementedError`` in the stages: multi-device runs are not
-ported yet (ROADMAP.md queue 1, item 7).
+are read with another meaning: ``xla_cache_dir`` has no counterpart
+(``stages.main`` warns once), and ``mesh_data``/``mesh_model`` describe the
+process group the stages run in (``parallel.mesh.validate_mesh``: ``mesh_data``
+unset or the world size, ``mesh_model`` 1; tensor parallelism is not
+ported).
 """
 
 from __future__ import annotations

@@ -11,10 +11,23 @@ init), fit with per-epoch validation and checkpoint selection on the
 monitored metric, and test with beam search and the metric battery.
 
 The stages run on ``task.device`` ("cuda" unless a config or override says
-"cpu"; there is no fallback), in one process: a process group,
-``WORLD_SIZE`` > 1 or a device mesh (``mesh_data``/``mesh_model`` above 1)
-raises ``NotImplementedError`` rather than train divergent replicas
-(multi-process runs are ROADMAP.md queue 1, item 7).
+"cpu"; there is no fallback), in one process or in N under ``torchrun``:
+
+    torchrun --nproc_per_node N -m cxrmate_torch.cli.stages --config ... --train|--test
+
+``main`` joins the process group (``parallel.multihost``: NCCL when every
+rank has a card of its own, gloo on the CPU or when ranks share a card) and
+the stages run the reference's DDP semantics, as the JAX package's global
+data-parallel mesh does: every rank iterates the same global batches and
+loads its row stripe (``parallel.mesh.local_row_range``), at static widths;
+the loss and the gradients are the global batch's (``train.tf_trainer``),
+BatchNorm's moments too (``ops.layers.batch_norm_train``), and dropout,
+drop-path and sampling draw per row what one process draws
+(``ops.layers.RowStripe``); the train state is one replica on every rank,
+saved by rank 0; evaluation decodes each rank's share of the one-process
+batches (generated prompts by lane) on its replica and gathers the rows. ``mesh_data`` is unset or the world
+size; ``mesh_model`` above 1 (tensor parallelism) raises
+``NotImplementedError``.
 
 Precision as the JAX package runs it: training keeps fp32 masters and
 computes in ``precision`` (bf16 unless it says otherwise); validation and test
@@ -44,7 +57,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cxrmate_torch import configs as model_configs
 from cxrmate_torch.ckpt import checkpoints as ck
@@ -58,11 +70,14 @@ from cxrmate_torch.generate.beam import beam_search
 from cxrmate_torch.generate.decode import GenerationConfig, generate
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.models.api import _fill_random
+from cxrmate_torch.parallel import mesh as mesh_mod
+from cxrmate_torch.parallel.multihost import global_max_int, initialize_if_needed
 from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
 from cxrmate_torch.train import optim
 from cxrmate_torch.train import tf_trainer as tt
 from cxrmate_torch.utils import dist
 from cxrmate_torch.utils.device import resolve_device
+from cxrmate_torch.utils.tracing import annotate
 
 VARIANT_TO_MODEL = {
     "single": "single",
@@ -72,20 +87,6 @@ VARIANT_TO_MODEL = {
     "scst": "longitudinal",
     "scst_gt": "longitudinal",
 }
-
-_ONE_PROCESS = ("the port's stages run in one process on one device; multi-process and "
-                "mesh runs are not ported yet (ROADMAP.md queue 1, item 7)")
-
-
-def _require_single_process(task: Optional[TaskConfig] = None) -> None:
-    """Refuse a process group, ``WORLD_SIZE`` > 1 and a mesh above 1x1:
-    without gradient reduction they would train divergent replicas."""
-    if dist.initialized() or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"{_ONE_PROCESS} (found a process group or WORLD_SIZE > 1)")
-    if task is not None and ((task.mesh_data or 1) > 1 or task.mesh_model > 1):
-        raise NotImplementedError(
-            f"{_ONE_PROCESS} (mesh_data={task.mesh_data}, mesh_model={task.mesh_model})")
-
 
 def build_model_config(task: TaskConfig, vocab_size: int) -> model_configs.EncoderDecoderConfig:
     variant = VARIANT_TO_MODEL[task.variant]
@@ -114,23 +115,6 @@ def build_model_config(task: TaskConfig, vocab_size: int) -> model_configs.Encod
         cfg, image_size=task.image_size, decoder_max_len=task.decoder_max_len,
         max_images_per_study=task.max_images_per_study,
     )
-
-
-def mesh_from_task(task: TaskConfig):
-    """The evaluation mesh: always None (one device); a mesh above 1x1 raises."""
-    _require_single_process(task)
-    return None
-
-
-def _fit_mesh(task: TaskConfig):
-    """The training mesh: always None (one device); a mesh above 1x1 raises."""
-    return mesh_from_task(task)
-
-
-def shard_for_mesh(model: ed.EncoderDecoder, mesh, task: TaskConfig) -> ed.EncoderDecoder:
-    del task
-    assert mesh is None, "the port has no device mesh"
-    return model
 
 
 def load_tokenizer(task: TaskConfig) -> ByteLevelBPETokenizer:
@@ -337,8 +321,16 @@ def make_metrics(task: TaskConfig, split: str, reward_fn=None, chexbert_fn=None,
     return out
 
 
+def _pad_prompt(prompt: Dict[str, np.ndarray], width: int, pad_id: int):
+    """A tokenized prompt right-padded (masked) to ``width`` columns -> (the
+    prompt, ``width``)."""
+    extra = ((0, 0), (0, width - prompt["input_ids"].shape[1]))
+    return {"input_ids": np.pad(prompt["input_ids"], extra, constant_values=pad_id),
+            "attention_mask": np.pad(prompt["attention_mask"], extra, constant_values=0)}, width
+
+
 def _decode_step_outputs(task, config, tokenizer, model, batch, num_beams: int,
-                         mesh=None, pad_rows: int = 0):
+                         pad_rows: int = 0):
     """Greedy (val) or beam (test) decode of one batch -> (token ids [B, T]
     numpy, findings, impression), in the model's dtype on its device.
 
@@ -346,7 +338,6 @@ def _decode_step_outputs(task, config, tokenizer, model, batch, num_beams: int,
     when set, so a ragged tail decodes at the full batch's shape, and the
     outputs are sliced back to the true batch. Row padding is exact: every
     decode path is row-independent."""
-    assert mesh is None, "the port has no device mesh"
     true_b = batch["images"].shape[0]
     images = np.asarray(batch["images"], np.float32)
     prev_f, prev_i = batch.get("previous_findings"), batch.get("previous_impression")
@@ -372,6 +363,11 @@ def _decode_step_outputs(task, config, tokenizer, model, batch, num_beams: int,
         # is pinned to the true batch-longest width so outputs equal the
         # unbucketed batch exactly
         true_width = prompt["input_ids"].shape[1]
+        if dist.world_size() > 1:
+            # this rank holds a stripe of a batch (evaluate): the batch's
+            # longest prompt is the longest over every rank
+            prompt, true_width = _pad_prompt(prompt, global_max_int(true_width),
+                                             tokenizer.pad_token_id)
         ids_b, mask_b = ed.bucket_prompt(
             prompt["input_ids"], prompt["attention_mask"], tokenizer.pad_token_id,
             bucket=32, max_len=task.decoder_max_len,
@@ -434,13 +430,49 @@ def _collate_max_images(task: TaskConfig):
     return None if task.pad_images == "batch" else task.max_images_per_study
 
 
+def _stripe(rows: int) -> Tuple[int, int]:
+    """This rank's contiguous rows ``[lo, hi)`` of a decode batch of
+    ``rows`` (uneven where the world size does not divide ``rows``); a rank
+    whose share is empty decodes the last row again (the same outputs; the
+    metric layer keeps one row per study)."""
+    r, w = dist.rank(), dist.world_size()
+    lo, hi = r * rows // w, (r + 1) * rows // w
+    return (lo, hi) if hi > lo else (rows - 1, rows)
+
+
 def evaluate(task, config, tokenizer, model, dataset, split: str, metrics: Dict,
-             num_beams: int, epoch: int, loggers=(), mesh=None):
+             num_beams: int, epoch: int, loggers=()):
+    """Decode ``dataset`` with ``model`` (greedy or beam) and score it.
+
+    Under a process group each rank decodes its share of what one process
+    decodes, on its own replica, and the metric layer gathers the rows
+    (every rank gets the same scores; rank 0 writes the CSVs). Every rank
+    walks the one-process batches: generated-prompt datasets by lane (rank r
+    decodes lanes r::world in step order, so a subject's history thread
+    stays on one rank), the others by the one-process batches cut into
+    contiguous row stripes (``_stripe``). ``_decode_step_outputs`` gives a
+    longitudinal batch the width of its longest prompt over every rank,
+    which sets its first token's column, so each row decodes what it
+    decodes in one process."""
+    rank, world = dist.rank(), dist.world_size()
     if getattr(dataset, "use_generated", False):
         # generated-prompt datasets read history written back during
         # consumption: never prefetched (the reference's num_workers=0,
         # gen_prompt.py:66-82); the decode batch is the allocator's lane count
-        it = batch_iterator(dataset, dataset.mbatch_size or task.mbatch_size,
+        order, batch_rows = None, dataset.mbatch_size or task.mbatch_size
+        if world > 1:
+            # the dataset order is the allocator's step-major lane
+            # interleave (index = step * lanes + lane), every lane full
+            lanes = dataset.mbatch_size
+            if not lanes or len(dataset) % lanes:
+                raise ValueError(f"lane-strided evaluation needs an allocator-interleaved "
+                                 f"dataset: mbatch_size={lanes!r}, len={len(dataset)}")
+            # a rank left without a lane decodes the last one again (its rows
+            # are the same; the metric layer keeps one per study)
+            my_lanes = list(range(rank, lanes, world)) or [lanes - 1]
+            order = [s * lanes + j for s in range(len(dataset) // lanes) for j in my_lanes]
+            batch_rows = len(my_lanes)
+        it = batch_iterator(dataset, batch_rows, order=order,
                             max_images=_collate_max_images(task))
         pad_rows = 0
     else:
@@ -458,15 +490,23 @@ def evaluate(task, config, tokenizer, model, dataset, split: str, metrics: Dict,
         if task.eval_decode_rows:
             batch_rows = max(1, min(task.eval_decode_rows // max(1, num_beams), len(dataset)))
             pad_rows = batch_rows
-        it = Prefetcher(
-            batch_iterator(dataset, batch_rows, max_images=_collate_max_images(task),
-                           num_workers=task.num_workers, sort_key=sort_key)
-        )
+        kw = dict(max_images=_collate_max_images(task), num_workers=task.num_workers)
+        if world > 1:
+            # the one-process batches (the tail padded by repeating the last
+            # study, as pad_rows does), each rank its stripe of every one
+            order = np.arange(len(dataset))
+            if sort_key is not None:
+                order = order[np.argsort(np.asarray(sort_key), kind="stable")]
+            order = mesh_mod.pad_to_multiple(order, batch_rows)
+            it = Prefetcher(batch_iterator(dataset, batch_rows, order=order,
+                                           row_shard=_stripe(batch_rows), **kw))
+            pad_rows = 0
+        else:
+            it = Prefetcher(batch_iterator(dataset, batch_rows, sort_key=sort_key, **kw))
     for batch in it:
-        with record_function("decode"):
+        with annotate("decode"):
             seqs, findings, impression = _decode_step_outputs(
-                task, config, tokenizer, model, batch, num_beams, mesh=mesh,
-                pad_rows=pad_rows,
+                task, config, tokenizer, model, batch, num_beams, pad_rows=pad_rows,
             )
         kw = {"study_ids": batch["study_ids"]}
         if task.variant == "single":
@@ -545,7 +585,7 @@ def _log_scalars(task: TaskConfig, record: Dict) -> None:
         f.write(json.dumps(record) + "\n")
 
 
-def _resolve_fit_resume(task: TaskConfig, state, mesh=None):
+def _resolve_fit_resume(task: TaskConfig, state):
     """Restore the trainer position for fit/fit_scst (reference: Lightning
     ``trainer.fit(ckpt_path=...)`` via `tools/stages.py:88`, which resumes every
     fit, SCST included, and restarts mid-epoch checkpoints inside the same
@@ -553,8 +593,11 @@ def _resolve_fit_resume(task: TaskConfig, state, mesh=None):
 
     Mid-epoch checkpoints (``epoch=E-step=S`` tags from ``val_check_interval``)
     resume into epoch E with the loader fast-forwarded to the saved in-epoch
-    batch count; markerless ones restart epoch E from its beginning."""
-    assert mesh is None, "the port has no device mesh"
+    batch count; markerless ones restart epoch E from its beginning. Under a
+    process group every rank restores the rank-0-written checkpoint from the
+    shared file system into its replica. A checkpoint marked
+    ``global_schedule`` (written under a process group) counts its position
+    in global batches and resumes at any world size, 2 -> 1 included."""
     resume_path = ck.resolve_resume(
         task.exp_dir_trial, task.resume_last, task.resume_epoch, task.resume_ckpt_path
     )
@@ -599,7 +642,9 @@ def _mid_epoch_schedule(task: TaskConfig, dataset_len: int):
 
 
 def _checkpoint_state(task: TaskConfig, state, epoch, monitor_value, **kw) -> None:
-    """Save a fit checkpoint (``ckpt.checkpoints.save_checkpoint``)."""
+    """Save a fit checkpoint (``ckpt.checkpoints.save_checkpoint``): every
+    rank enters, rank 0 writes the replicated state (each rank its own
+    ``extra_files``)."""
     ck.save_checkpoint(task.exp_dir_trial, state, epoch, monitor_value, **kw)
 
 
@@ -610,8 +655,10 @@ def _compute_dtype(task: TaskConfig) -> Optional[torch.dtype]:
 
 def _validate_and_save(task, config, tokenizer, state, val_set, metrics, epoch, step=None,
                        n_batches=None, gstep=None, extra_files=None) -> None:
-    """Validation (greedy, on the fp32 masters), its metrics line, and a
-    checkpoint ranked by the monitor."""
+    """Validation (greedy, on the fp32 masters; under a process group on
+    each rank's replica, the rows gathered), its metrics line, and a
+    checkpoint ranked by the monitor, marked ``global_schedule`` under a
+    process group."""
     if getattr(val_set, "use_generated", False):
         val_set.reset_generated()  # each validation pass starts prompt history clean
     scores = evaluate(task, config, tokenizer, state.model, val_set, "val", metrics, 1, epoch)
@@ -626,7 +673,7 @@ def _validate_and_save(task, config, tokenizer, state, val_set, metrics, epoch, 
         keep_top_k=task.save_top_k, step=step,
         n_batches=n_batches, global_step=gstep, extra_files=extra_files,
         mbatch_size=task.mbatch_size, world_size=dist.world_size(),
-        global_schedule=False,
+        global_schedule=dist.initialized(),
     )
 
 
@@ -635,12 +682,19 @@ def fit(task: TaskConfig, chexbert_fn=None) -> None:
     masters with bf16 compute, ``optim.mask_for_stage(..., task.variant)``,
     gradient accumulation over ``accumulate_steps`` micro-batches, validation
     and a checkpoint every ``every_n_epochs`` (and every
-    ``val_check_interval`` of an epoch)."""
-    _fit_mesh(task)
+    ``val_check_interval`` of an epoch).
+
+    Under a process group every rank iterates the same shuffled global
+    schedule (``mbatch_size`` is the global batch) and loads its row stripe,
+    at static widths so that every stripe of a batch has one shape; the step
+    counts global batches, and validation runs on each rank's replica."""
     device = resolve_device(task.device)
+    mesh_mod.validate_mesh(task.mesh_data, task.mesh_model)
+    multiprocess = dist.world_size() > 1
     tokenizer = load_tokenizer(task)
     config = build_model_config(task, len(tokenizer))
     model = resolve_warm_start(task, config, init_variables(task, config))
+    model = mesh_mod.replicate_tree(model)  # rank 0's weights on every rank
     config = model.config  # the warm start's parameter set (LoRA, tied head)
     mask = optim.mask_for_stage(dict(model.named_parameters()), task.variant)
     tx = optim.adamw(task.lr, accumulate_steps=task.accumulate_steps, trainable_mask=mask)
@@ -654,11 +708,15 @@ def fit(task: TaskConfig, chexbert_fn=None) -> None:
     val_set = make_datasets(task, "validate", train=False)
     metrics = make_metrics(task, "val", chexbert_fn=chexbert_fn)
 
-    pad_report_to = config.decoder_max_len if task.static_tf_pad else None
+    row_shard = mesh_mod.local_row_range(task.mbatch_size) if dist.initialized() else None
+    static_pad = task.static_tf_pad or multiprocess
+    pad_report_to = config.decoder_max_len if static_pad else None
     pad_prompt_to = (
-        config.prompt_max_len if task.static_tf_pad and config.variant == "longitudinal" else None
+        config.prompt_max_len if static_pad and config.variant == "longitudinal" else None
     )
     collate_max = _collate_max_images(task)
+    if multiprocess and collate_max is None and task.variant != "single":
+        collate_max = task.max_images_per_study
     val_every, total_batches = _mid_epoch_schedule(task, len(train_set))
     warmer = _start_cache_warmer(task, train_set, val_set)
     try:
@@ -669,7 +727,7 @@ def fit(task: TaskConfig, chexbert_fn=None) -> None:
             it = Prefetcher(
                 batch_iterator(
                     train_set, task.mbatch_size, shuffle=True, seed=epoch,
-                    max_images=collate_max, drop_last=True,
+                    max_images=collate_max, drop_last=True, row_shard=row_shard,
                     num_workers=task.num_workers, skip_batches=skip,
                 )
             )
@@ -682,8 +740,9 @@ def fit(task: TaskConfig, chexbert_fn=None) -> None:
                     batch.get("previous_findings"), batch.get("previous_impression"),
                     pad_report_to=pad_report_to, pad_prompt_to=pad_prompt_to,
                 )
-                gen = tt.train_generator(task.trial, global_step, device=device)
-                with record_function("train_step"):
+                gen = tt.train_generator(task.trial, global_step, device=device,
+                                         row_range=row_shard)
+                with annotate("train_step"):
                     state, loss = step(state, tf_batch, gen)
                 n_batches += 1
                 fresh += 1
@@ -715,14 +774,23 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
     variant 'scst' (reference scst/gen_prompt.py:146-259): self-generated prompts
     with per-epoch subject re-allocation and generated-history threading.
     variant 'scst_gt' (reference scst/gt_prompt.py:8-255, GTPromptCXRBERT):
-    ground-truth prompts, ordinary shuffled batching, no history writes."""
+    ground-truth prompts, ordinary shuffled batching, no history writes.
+
+    Under a process group, as ``fit``: the lanes are global (the allocator
+    at world 1), every rank iterates the same global schedule and loads its
+    row stripe, so a subject's lane, a fixed row of every global batch,
+    keeps its generated-prompt history on one rank; prompt widths agree
+    through ``global_max_int``; each rank writes the history sidecar of its
+    own lanes."""
     from cxrmate_torch.train.scst import SCSTTrainer, make_scst_step
 
-    _fit_mesh(task)
     device = resolve_device(task.device)
+    mesh_mod.validate_mesh(task.mesh_data, task.mesh_model)
+    multiprocess = dist.world_size() > 1
     tokenizer = load_tokenizer(task)
     config = build_model_config(task, len(tokenizer))
     model = resolve_warm_start(task, config, init_variables(task, config))
+    model = mesh_mod.replicate_tree(model)  # rank 0's weights on every rank
     config = model.config
     mask = optim.mask_for_stage(dict(model.named_parameters()), "scst")
     tx = optim.adamw(task.lr, accumulate_steps=task.accumulate_steps, trainable_mask=mask)
@@ -755,7 +823,8 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
             tokenizer,
         )
 
-    trainer = SCSTTrainer(config, rollout, grad_step, reward_fn, split_fn)
+    row_shard = mesh_mod.local_row_range(task.mbatch_size) if dist.initialized() else None
+    trainer = SCSTTrainer(config, rollout, grad_step, reward_fn, split_fn, row_range=row_shard)
     train_set = make_datasets(task, "train", train=True)
     val_set = make_datasets(task, "validate", train=False)
     metrics = make_metrics(task, "val", chexbert_fn=chexbert_fn)
@@ -791,6 +860,8 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
                            n_batches=n_batches, gstep=gstep, extra_files=extra_files)
 
     collate_max = _collate_max_images(task)
+    if multiprocess and collate_max is None and task.variant != "single":
+        collate_max = task.max_images_per_study
     warmer = _start_cache_warmer(task, train_set, val_set)
     try:
         for epoch in range(start_epoch, task.max_epochs):
@@ -809,12 +880,13 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
                 # row j is lane j; no prefetch: __getitem__ reads history written
                 # back after each step (the reference's num_workers=0 loaders)
                 it = batch_iterator(train_set, task.mbatch_size, max_images=collate_max,
-                                    drop_last=True, skip_batches=skip)
+                                    drop_last=True, row_shard=row_shard, skip_batches=skip)
             else:
                 # scst_gt inherits GTPrompt's ordinary shuffled loader
                 it = Prefetcher(
                     batch_iterator(train_set, task.mbatch_size, shuffle=True, seed=epoch,
-                                   max_images=collate_max, drop_last=True, skip_batches=skip)
+                                   max_images=collate_max, drop_last=True,
+                                   row_shard=row_shard, skip_batches=skip)
                 )
             # len(train_set) can change per epoch (the allocator oversamples to
             # lane divisibility): the fractional-validation schedule is per epoch
@@ -829,6 +901,11 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
                 # bucketed like the eval prompts; exact: the first token comes
                 # from the true batch-longest column, the pad columns are masked
                 true_width = prompt["input_ids"].shape[1]
+                if multiprocess:
+                    # every rank takes the global batch's longest width (what
+                    # one process pads to) and its first-token column
+                    prompt, true_width = _pad_prompt(prompt, global_max_int(true_width),
+                                                     tokenizer.pad_token_id)
                 p_ids, p_mask = ed.bucket_prompt(
                     prompt["input_ids"], prompt["attention_mask"], tokenizer.pad_token_id,
                     bucket=32, max_len=task.decoder_max_len,
@@ -870,9 +947,13 @@ def _restore_for_test(path: str, config, device) -> ed.EncoderDecoder:
 
 
 def test(task: TaskConfig, chexbert_fn=None, reward_fn=None, bertscorer=None) -> Dict:
+    """The test stage: restore, decode (beam ``num_test_beams``), score.
+    Under a process group every rank restores the same checkpoint and
+    decodes its share (``evaluate``); every rank returns the gathered
+    scores, and rank 0 writes the CSVs."""
     from cxrmate_torch.eval.metrics import ReportLogger, ReportTokenIdentifiersLogger
 
-    mesh = mesh_from_task(task)
+    mesh_mod.validate_mesh(task.mesh_data, task.mesh_model)
     tokenizer = load_tokenizer(task)
     config = build_model_config(task, len(tokenizer))
     model = init_variables(task, config)
@@ -900,7 +981,6 @@ def test(task: TaskConfig, chexbert_fn=None, reward_fn=None, bertscorer=None) ->
                 f"fast_dev_run for an untrained smoke run)"
             )
         model = _restore_for_test(path, config, next(model.parameters()).device)
-    model = shard_for_mesh(model, mesh, task)
     test_set = make_datasets(task, "test", train=False)
     metrics = make_metrics(task, "test", reward_fn=reward_fn, chexbert_fn=chexbert_fn,
                            bertscorer=bertscorer)
@@ -913,7 +993,7 @@ def test(task: TaskConfig, chexbert_fn=None, reward_fn=None, bertscorer=None) ->
     try:
         return evaluate(
             task, model.config, tokenizer, model, test_set, "test", metrics,
-            task.num_test_beams, 0, loggers, mesh=mesh,
+            task.num_test_beams, 0, loggers,
         )
     finally:
         if warmer is not None:
@@ -1026,7 +1106,17 @@ def main(argv=None):
     from cxrmate_torch.cli.config import parse_args
 
     task = parse_args(argv)
-    _require_single_process(task)
+    # join the process group of a torchrun launch (WORLD_SIZE set) before
+    # anything else; a failure raises rather than train alone
+    joined = initialize_if_needed(task.device)
+    try:
+        _main(task)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _main(task: TaskConfig) -> None:
     resolve_device(task.device)
     if task.resolved_xla_cache_dir is not None:
         warnings.warn(
@@ -1055,8 +1145,9 @@ def main(argv=None):
         scores = test(task, chexbert_fn=chexbert_fn,
                       reward_fn=_optional(build_cxrbert_reward, task),
                       bertscorer=_optional(build_bertscorer, task))
-        for k, v in sorted(scores.items()):
-            print(f"{k}: {v}")
+        if dist.rank() == 0:
+            for k, v in sorted(scores.items()):
+                print(f"{k}: {v}")
 
 
 if __name__ == "__main__":

@@ -57,23 +57,25 @@ def batch_iterator(
     ``row_shard`` ((start, stop) rows within each batch): mesh-aligned loading
     for multi-process data parallelism — every process iterates the SAME global
     batch order (same seed/skip; ``batch_size`` is the GLOBAL batch), but
-    materialises only the row stripe its devices own
-    (``parallel.mesh.local_row_range``); ``place_batch`` reassembles the global
-    batch on the mesh. Mutually exclusive with rank/world striding; ragged
+    materialises only its row stripe (``parallel.mesh.local_row_range``);
+    the gradients and statistics of the global batch come from the ranks'
+    all-reduces (``train.tf_trainer``). Mutually exclusive with rank/world
+    striding; ragged
     final batches are always dropped (a partial batch has no well-defined
     stripe).
 
     ``order`` (explicit index sequence): the caller dictates exactly which
     items in which order — lane-strided multi-process eval of generated-prompt
-    datasets builds a per-rank order over its own lanes (cli/stages.py:
-    evaluate). Excludes every other ordering mechanism."""
+    datasets builds a per-rank order over its own lanes, and the other
+    datasets' multi-process eval the one-process order, whose batches each
+    rank cuts to its ``row_shard`` (cli/stages.py: evaluate). Excludes every
+    other ordering mechanism."""
     assert row_shard is None or world_size == 1, "row_shard excludes rank striding"
     if order is not None:
         # explicit index order (lane-strided multi-process eval of
         # generated-prompt datasets, cli/stages.py:evaluate) — the caller owns
         # the ordering, so every other ordering mechanism must be off
-        assert not shuffle and sort_key is None and world_size == 1 \
-            and row_shard is None and not skip_batches
+        assert not shuffle and sort_key is None and world_size == 1 and not skip_batches
         order = np.asarray(order, dtype=np.int64)
     else:
         order = np.arange(len(dataset))

@@ -35,6 +35,7 @@ from cxrmate_torch.models import bert as bert_mod
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.ops.decode_attention import resolve_decode_kernel
 from cxrmate_torch.ops.fused_decode import prepare_fused_params
+from cxrmate_torch.ops.layers import draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,11 +166,20 @@ def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
     first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
     tok, step_scores = select(prefill_logits[:, first_col])
     tok = tok.to(seq.dtype)
+    invalid = tok < 0  # a sampled row whose probabilities were not finite (_draw)
     finished = tok == cfg.eos_token_id
     put(tok, step_scores, p_len)
 
     cur = p_len + 1  # tokens so far
-    while cur < t_total and not bool(finished.all()):
+    while True:
+        # one host read a step: the stop test and the draws' validity
+        done, bad = torch.stack([finished.all(), invalid.any()]).tolist()
+        if bad:
+            raise FloatingPointError(
+                "sampling met probabilities that are not finite (a NaN or inf logit); "
+                "torch.multinomial refuses such a distribution")
+        if done or cur >= t_total:
+            break
         i = cur - 1  # query index = the last appended token
         present = [p | (seq[r, i - 1, None] == s[None, :])
                    for p, r, s in zip(present, rows, specials)]
@@ -185,6 +195,7 @@ def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
             decode_kernel=decode_kernel, cross_q8=cross_q8)
         tok, step_scores = select(logits)
         tok = tok.to(seq.dtype)
+        invalid = invalid | (tok < 0)
         tok = torch.where(finished, torch.full_like(tok, cfg.pad_token_id), tok)
         finished = finished | (tok == cfg.eos_token_id)
         put(tok, step_scores, cur)
@@ -192,9 +203,19 @@ def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
     return seq, scores
 
 
-def _draw(warped: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One token per row from softmax(warped)."""
-    return torch.multinomial(torch.softmax(warped, dim=-1), 1, generator=generator)[:, 0]
+def _draw(warped: torch.Tensor, generator) -> torch.Tensor:
+    """One token per row from softmax(warped): ``torch.multinomial(p, 1,
+    generator=g)`` written out as PyTorch's one-sample path computes it
+    (``aten/src/ATen/native/Distributions.cpp``): exponentials q of p's shape,
+    then the argmax of p / q. So an ``ops.layers.RowStripe`` can draw q for
+    the global batch and keep its rows; with a ``torch.Generator`` the
+    tokens are ``multinomial``'s, bit for bit. Where ``multinomial`` raises
+    (a row's probabilities not finite: a NaN or inf logit) the row's token is
+    -1, which :func:`_decode` refuses at its next host read; no sync here."""
+    p = torch.softmax(warped, dim=-1)
+    q = draw(generator, p.shape, lambda shape, g: torch.empty(
+        shape, dtype=p.dtype, device=p.device).exponential_(generator=g))
+    return torch.where(torch.isfinite(p).all(dim=-1), torch.argmax(p / q, dim=-1), -1)
 
 
 @torch.no_grad()

@@ -20,7 +20,9 @@ kernels on the card, their plain versions on the CPU).
 
 Train mode (``train=True``): BatchNorm normalises with the batch's statistics
 and updates its running buffers in place; with a ``generator``, dropout and
-drop-path draw from it (``None``: both off, as ``rng=None`` in JAX).
+drop-path draw from it (``None``: both off, as ``rng=None`` in JAX); an
+``ops.layers.RowStripe`` draws for the global batch and keeps its rows, and
+BatchNorm then takes the global batch's moments over the process group.
 """
 
 from __future__ import annotations
@@ -38,7 +40,10 @@ from cxrmate_torch.ops.layers import (
     Conv2d,
     LayerNorm,
     Linear,
+    RowStripe,
     attention,
+    draw,
+    drawing,
     dropout,
     gelu,
     merge_heads,
@@ -176,11 +181,12 @@ def _drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator
     the batch is kept with probability ``1 - rate`` and scaled by ``1 / (1 -
     rate)``, the draw uniform in x's dtype as in JAX. Identity without a
     generator or at rate 0."""
-    if rate == 0.0 or generator is None:
+    if rate == 0.0 or not drawing(generator):
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
+    u = draw(generator, shape,
+             lambda sh, g: torch.rand(sh, generator=g, device=x.device, dtype=x.dtype))
     return x / keep * torch.floor(keep + u)
 
 
@@ -210,7 +216,8 @@ def _attention_block(attn: _SelfAttention, tokens: torch.Tensor, hw: Tuple[int, 
 
     def project(cp: _ConvProjection) -> torch.Tensor:
         inner = cp.convolution_projection
-        y = inner.normalization(inner.convolution(grid), train=train)
+        y = inner.normalization(inner.convolution(grid), train=train,
+                                over_group=isinstance(generator, RowStripe))
         return y.flatten(2).transpose(1, 2)
 
     k_tok = project(attn.convolution_projection_key)
@@ -231,8 +238,14 @@ def _attention_block(attn: _SelfAttention, tokens: torch.Tensor, hw: Tuple[int, 
     bq, hq, lq, dh = q.shape
     lk = k.shape[2]
     run = fa.flash_attention_grad if train else fa.flash_attention
-    ctx = run(q.reshape(bq * hq, lq, dh), k.reshape(bq * hq, lk, dh),
-              v.reshape(bq * hq, lk, dh), dim ** -0.5).reshape(bq, hq, lq, dh)
+
+    def rows(t: torch.Tensor, length: int) -> torch.Tensor:
+        # [B, H, L, Dh] (heads split by a transpose) -> contiguous [B*H, L, Dh]:
+        # reshape copies for B > 1, but for one image it can return a strided
+        # view, which the kernels refuse
+        return t.reshape(bq * hq, length, dh).contiguous()
+
+    ctx = run(rows(q, lq), rows(k, lk), rows(v, lk), dim ** -0.5).reshape(bq, hq, lq, dh)
     return merge_heads(ctx)
 
 

@@ -15,15 +15,69 @@ trains (``train.tf_trainer.loss_and_grads``).
 Train-only randomness (:func:`dropout`, LoRA's input dropout, attention-probs
 dropout, CvT's drop-path) draws from an explicit ``torch.Generator``; without
 one (``None``) each is the identity, as ``rng=None`` is in the JAX package.
+A :class:`RowStripe` in its place draws for the global batch and keeps one
+rank's rows (data parallelism over processes).
+
+With ``over_group`` (which CvT passes where its generator is a
+:class:`RowStripe`), :func:`batch_norm_train` takes the moments of the
+global batch over the process group (``utils.dist``), as the JAX package's
+does over a mesh that spans processes; without it every op stays local.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cxrmate_torch.utils import dist
+
+
+@dataclasses.dataclass(frozen=True)
+class RowStripe:
+    """A generator for rows ``[lo, hi)`` of a global batch of ``rows`` rows
+    split over the process group: every draw is taken at the global batch's
+    shape from ``generator`` and cut to this stripe's rows, so a row's draws
+    do not depend on how the batch is split over ranks (every rank's
+    ``generator`` is seeded alike). A tensor of ``k * (hi - lo)`` leading
+    rows (CvT folds a study's ``k`` images into the batch axis, study-major)
+    keeps rows ``k*lo:k*hi`` of a draw of ``k * rows``. ``generator`` None:
+    no draws (dropout and drop-path off), the rows still a stripe whose
+    BatchNorm moments and loss are the global batch's."""
+
+    generator: Optional[torch.Generator]
+    lo: int
+    hi: int
+    rows: int
+
+
+Generator = Union[torch.Generator, RowStripe]
+
+
+def drawing(generator: Optional[Generator]) -> bool:
+    """Whether ``generator`` draws: a ``torch.Generator``, or a
+    :class:`RowStripe` over one."""
+    if isinstance(generator, RowStripe):
+        return generator.generator is not None
+    return generator is not None
+
+
+def draw(generator: Generator, shape: Sequence[int],
+         sample: Callable[[Tuple[int, ...], torch.Generator], torch.Tensor]) -> torch.Tensor:
+    """``sample(shape, generator)``; for a :class:`RowStripe`, this stripe's
+    rows of ``sample(global shape, stripe.generator)``."""
+    shape = tuple(shape)
+    if not isinstance(generator, RowStripe):
+        return sample(shape, generator)
+    local = generator.hi - generator.lo
+    if shape[0] % local:
+        raise ValueError(f"a draw of {shape[0]} rows for a stripe of {local} rows")
+    k = shape[0] // local
+    full = sample((k * generator.rows,) + shape[1:], generator.generator)
+    return full[k * generator.lo:k * generator.hi]
 
 
 # ------------------------------------------------------------------ functions
@@ -75,19 +129,37 @@ def batch_norm_infer(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor, eps: float,
-                     momentum: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     momentum: float, over_group: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """BatchNorm over NCHW channels with the batch's statistics, in fp32 ->
     (y in x's dtype, new running mean, new running var), as
     ``cxrmate_tpu/ops/layers.py:68``: the normalisation uses the biased
     variance, the running update ``(1 - momentum) * old + momentum * batch``
-    the unbiased one; the new statistics are fp32 and carry no gradient."""
+    the unbiased one; the new statistics are fp32 and carry no gradient.
+
+    ``over_group``: x is this rank's stripe of a batch split over the
+    process group, and the moments are the global batch's: the per-channel
+    sum and count, then the sum of squares about the global mean, each
+    summed over the ranks by an all-reduce that carries the gradient back to
+    every rank's rows (the formula of one process, in two collectives; the
+    identity without a group)."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    centred = xf - mean[None, :, None, None]
-    var = centred.square().mean(dim=(0, 2, 3))
     n = x.numel() // x.shape[1]
+    if over_group:
+        sums = dist.all_reduce_sum_grad(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                   xf.new_full((1,), float(n))]))
+        n = sums[-1].detach()  # on the device: no host sync per call
+        mean = sums[:-1] / n
+        centred = xf - mean[None, :, None, None]
+        var = dist.all_reduce_sum_grad(centred.square().sum(dim=(0, 2, 3))) / n
+        correction = n / (n - 1).clamp(min=1.0)
+    else:
+        mean = xf.mean(dim=(0, 2, 3))
+        centred = xf - mean[None, :, None, None]
+        var = centred.square().mean(dim=(0, 2, 3))
+        correction = n / max(n - 1, 1)
     with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
+        unbiased = var * correction
         new_mean = (1 - momentum) * running_mean.float() + momentum * mean
         new_var = (1 - momentum) * running_var.float() + momentum * unbiased
     y = centred * torch.rsqrt(var + eps)[None, :, None, None]
@@ -106,16 +178,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[Generator]) -> torch.Tensor:
     """Inverted dropout: keep each element with probability ``1 - rate``
     (a uniform fp32 draw below it, the Bernoulli of ``jax.random.bernoulli``)
     and scale the kept ones by ``1 / (1 - rate)`` in x's dtype. The identity
     for ``rate == 0`` or ``generator is None``. The draws are not the JAX
     package's (another generator)."""
-    if rate == 0.0 or generator is None:
+    if rate == 0.0 or not drawing(generator):
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(generator, x.shape,
+                lambda shape, g: torch.rand(shape, generator=g, device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -207,7 +280,8 @@ class BatchNorm2d(nn.Module):
     running statistics; ``train=True`` with the batch's, and then updates the
     running buffers in place (:func:`batch_norm_train`) and adds one to
     ``num_batches_tracked``, as torch's BatchNorm2d does in training (with a
-    set momentum the counter is bookkeeping only)."""
+    set momentum the counter is bookkeeping only). ``over_group``: the
+    global batch's moments (:func:`batch_norm_train`)."""
 
     def __init__(self, dim: int, eps: float, momentum: float = 0.1, device=None, dtype=None):
         super().__init__()
@@ -219,12 +293,13 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, over_group: bool = False):
         if not train:
             return batch_norm_infer(x, self.weight, self.bias, self.running_mean,
                                     self.running_var, self.eps)
         y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
-                                        self.running_var, self.eps, self.momentum)
+                                        self.running_var, self.eps, self.momentum,
+                                        over_group)
         with torch.no_grad():
             self.running_mean.copy_(mean)
             self.running_var.copy_(var)

@@ -22,8 +22,11 @@ outside the top-k in the re-forward; elsewhere the two are the same.
 The entry points are those ``cxrmate_tpu/cli/stages.py:834 fit_scst`` calls:
 ``make_scst_step`` -> ``SCSTTrainer(config, rollout, grad_step, reward_fn,
 split_fn).step(state, pixels, prompt_ids, prompt_mask, findings, impression,
-generator, prompt_logits_col)``. One process: the multi-process branch of the
-JAX trainer is not ported.
+generator, prompt_logits_col)``. Under a process group each rank runs its
+stripe ``row_range`` of the global batch: its rollout samples the global
+batch's draws cut to its rows, the loss is its share of the global mean,
+the loss and the gradients are summed over the ranks before the update, and
+the logged reward and baseline are the global means.
 """
 
 from __future__ import annotations
@@ -40,19 +43,29 @@ from cxrmate_torch.generate.decode import GenerationConfig
 from cxrmate_torch.generate.logits_process import NEG, apply_temperature, warp_logits
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.ops.decode_attention import resolve_decode_kernel
+from cxrmate_torch.ops.layers import RowStripe
 from cxrmate_torch.train.optim import AdamW, Mask, zero_frozen_grads
-from cxrmate_torch.train.tf_trainer import TrainState, in_compute_dtype, value_and_grad
+from cxrmate_torch.train.tf_trainer import (TrainState, all_reduce_loss_and_grads,
+                                            in_compute_dtype, value_and_grad)
+from cxrmate_torch.utils import dist
 
 
 def reinforce_loss(warped_logits: torch.Tensor, sampled_ids: torch.Tensor,
-                   reward: torch.Tensor, pad_id: int) -> torch.Tensor:
+                   reward: torch.Tensor, pad_id: int,
+                   global_rows: Optional[int] = None) -> torch.Tensor:
     """``sum_t NLL(sampled_t) * reward``, mean over the batch, pads ignored
     (scst/gt_prompt.py:211-246). warped_logits [B, T, V], sampled_ids [B, T],
-    reward [B] (the advantage)."""
+    reward [B] (the advantage). ``global_rows``: the rows are this rank's
+    stripe of a global batch of that many rows, and the mean is the global
+    batch's: this rank's sum over ``global_rows``, the ranks' shares
+    summing to it."""
     logp = torch.log_softmax(warped_logits.float(), dim=-1)
     nll = -logp.gather(-1, sampled_ids[..., None].long())[..., 0]
     mask = (sampled_ids != pad_id).float()
-    return ((nll * mask).sum(dim=-1) * reward.float()).mean()
+    per_row = (nll * mask).sum(dim=-1) * reward.float()
+    if global_rows is None:
+        return per_row.mean()
+    return per_row.sum() / global_rows
 
 
 def _as_tensor(x, device, dtype=None) -> torch.Tensor:
@@ -73,9 +86,13 @@ def make_scst_step(config: EncoderDecoderConfig, gen_cfg_sample: GenerationConfi
     parameters and buffers cast per call; the fp32 masters untouched).
 
     ``grad_step(state, encoder_hidden, encoder_mask, prompt_len, first_col,
-    seq, advantage) -> (state, loss)``: one teacher-forced re-forward of
-    ``seq`` (no dropout) in ``compute_dtype``, the gradients of the trainable
-    parameters, then ``tx.update`` of the fp32 masters, in place.
+    seq, advantage, global_rows=None) -> (state, loss)``: one teacher-forced
+    re-forward of ``seq`` (no dropout) in ``compute_dtype``, the gradients of
+    the trainable parameters, then ``tx.update`` of the fp32 masters, in
+    place. ``global_rows``: the rows are this rank's stripe of a global
+    batch of that many rows; the loss is its share of the global mean, and
+    the loss and the gradients are summed over the process group before the
+    update.
 
     ``decode_kernel``: the rollout's decode-attention routing spec, resolved
     here (``None`` reads ``CXRMATE_DECODE_KERNEL``). The rollout is
@@ -103,7 +120,7 @@ def make_scst_step(config: EncoderDecoderConfig, gen_cfg_sample: GenerationConfi
         return in_compute_dtype(_rollout, model, compute_dtype, pixels, prompt_ids, generator,
                                 prompt_logits_col, buffers=True)
 
-    def _loss(model, enc_hidden, enc_mask, prompt_len, first_col, seq, advantage):
+    def _loss(model, enc_hidden, enc_mask, prompt_len, first_col, seq, advantage, global_rows):
         b, t = seq.shape
         if cfg.mask_token_id is not None:
             attn = (seq != cfg.mask_token_id).to(torch.int32)
@@ -120,7 +137,8 @@ def make_scst_step(config: EncoderDecoderConfig, gen_cfg_sample: GenerationConfi
         # prefill at first_col (the true longest column of a bucket-padded prompt)
         gen = torch.cat([logits[:, first_col:first_col + 1], logits[:, prompt_len:t - 1]], dim=1)
         sampled = seq[:, prompt_len:]
-        return reinforce_loss(rewarp(gen.float(), sampled), sampled, advantage, pad_id)
+        return reinforce_loss(rewarp(gen.float(), sampled), sampled, advantage, pad_id,
+                              global_rows)
 
     def rewarp(gen, sampled):
         """``warp_logits`` of the re-forward's logits, the sampled token kept.
@@ -135,17 +153,21 @@ def make_scst_step(config: EncoderDecoderConfig, gen_cfg_sample: GenerationConfi
                            warped)
 
     def grad_step(state: TrainState, enc_hidden, enc_mask, prompt_len: int, first_col: int,
-                  seq, advantage) -> Tuple[TrainState, torch.Tensor]:
+                  seq, advantage, global_rows: Optional[int] = None
+                  ) -> Tuple[TrainState, torch.Tensor]:
         if state.model.config != config:
             raise ValueError("the train state's model was built from another config")
         model = state.model
         dev = next(model.parameters()).device
         args = (enc_hidden.detach(), enc_mask, int(prompt_len), int(first_col),
-                _as_tensor(seq, dev).long(), _as_tensor(advantage, dev, torch.float32))
+                _as_tensor(seq, dev).long(), _as_tensor(advantage, dev, torch.float32),
+                global_rows)
         loss, grads = value_and_grad(
             model, lambda: in_compute_dtype(_loss, model, compute_dtype, *args), mask)
         if mask is not None:  # the identity here: a frozen parameter gets no gradient
             grads = zero_frozen_grads(grads, mask)
+        if global_rows is not None:
+            loss, grads = all_reduce_loss_and_grads(loss, grads)
         tx.update(grads, state.opt_state, dict(model.named_parameters()))
         state.step += 1
         return state, loss
@@ -155,18 +177,22 @@ def make_scst_step(config: EncoderDecoderConfig, gen_cfg_sample: GenerationConfi
 
 @dataclasses.dataclass
 class SCSTTrainer:
-    """The host side of one SCST step (the reward round trip), one process.
+    """The host side of one SCST step (the reward round trip).
 
     ``reward_fn(predictions, labels) -> np.ndarray [B]``, e.g.
     ``reward.cxrbert.CXRBERTReward``; ``split_fn(token_ids) -> (prompt,
     findings, impression)`` strings, e.g. a closure over
-    ``encoder_decoder.split_and_decode_sections``."""
+    ``encoder_decoder.split_and_decode_sections``. ``row_range``: this
+    rank's stripe ``[lo, hi)`` of the global batch under a process group
+    (``parallel.mesh.local_row_range``); ``step`` then takes the stripe's
+    rows and the step's (unstriped) generator."""
 
     config: EncoderDecoderConfig
     rollout: Callable
     grad_step: Callable
     reward_fn: Callable
     split_fn: Callable
+    row_range: Optional[Tuple[int, int]] = None
 
     def step(self, state: TrainState, pixels, prompt_ids, prompt_mask, findings, impression,
              generator: torch.Generator, prompt_logits_col: Optional[int] = None
@@ -178,6 +204,13 @@ class SCSTTrainer:
         ``baseline``, the baseline's (findings, impression))."""
         p_len = int(prompt_ids.shape[1])
         first_col = p_len - 1 if prompt_logits_col is None else int(prompt_logits_col)
+        global_rows = None
+        if self.row_range is not None:
+            lo, hi = self.row_range
+            if len(findings) != hi - lo:
+                raise ValueError(f"{len(findings)} rows for the stripe [{lo}, {hi})")
+            global_rows = (hi - lo) * dist.world_size()
+            generator = RowStripe(generator, lo, hi, global_rows)
         sampled, baseline, enc_hidden, enc_mask = self.rollout(
             state.model, pixels, prompt_ids, prompt_mask, generator, first_col)
         _, s_f, s_i = self.split_fn(sampled.cpu().numpy())
@@ -187,7 +220,10 @@ class SCSTTrainer:
         r_base = np.asarray(self.reward_fn([f"{f} {i}" for f, i in zip(b_f, b_i)], labels))
         advantage = (r_sample - r_base).astype(np.float32)
         state, loss = self.grad_step(state, enc_hidden, enc_mask, p_len, first_col, sampled,
-                                     advantage)
-        logs = {"scst_loss": float(loss), "reward": float(np.mean(advantage)),
-                "baseline": float(np.mean(r_base))}
+                                     advantage, global_rows)
+        # the global batch's means: every rank's rows in rank (= row) order
+        adv_all = np.concatenate(dist.all_gather_list([advantage]))
+        base_all = np.concatenate(dist.all_gather_list([r_base]))
+        logs = {"scst_loss": float(loss), "reward": float(np.mean(adv_all)),
+                "baseline": float(np.mean(base_all))}
         return state, logs, (b_f, b_i)

@@ -31,7 +31,9 @@ from torch import nn
 from cxrmate_torch.configs import EncoderDecoderConfig
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.models.cvt import batch_stats
+from cxrmate_torch.ops.layers import RowStripe
 from cxrmate_torch.train.optim import AdamW, AdamWState, Mask
+from cxrmate_torch.utils import dist
 
 
 @dataclasses.dataclass
@@ -50,13 +52,35 @@ def create_train_state(model: ed.EncoderDecoder, tx: AdamW) -> TrainState:
 
 
 def cross_entropy_ignore_pad(logits: torch.Tensor, labels: torch.Tensor,
-                             pad_id: int) -> torch.Tensor:
+                             pad_id: int, over_group: bool = False) -> torch.Tensor:
     """torch ``F.cross_entropy(..., ignore_index=pad)``: the mean NLL over the
-    non-pad labels, from fp32 logits."""
+    non-pad labels, from fp32 logits.
+
+    ``over_group``: the rows are this rank's stripe of a batch split over
+    the process group, and the mean is the global batch's, as the JAX loss
+    over the global array: this rank's NLL sum over the non-pad count of
+    every rank (all-reduced). The ranks' losses, and their gradients, then
+    sum to the global ones (:func:`all_reduce_loss_and_grads`)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None].long())[..., 0]
     mask = (labels != pad_id).float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    count = mask.sum()
+    if over_group:
+        dist.all_reduce_sum([count])
+    return (nll * mask).sum() / count.clamp(min=1.0)
+
+
+def all_reduce_loss_and_grads(loss: torch.Tensor, grads: Dict[str, torch.Tensor]
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The SUM over the process group of a micro-step's loss and of each
+    trainable gradient, in place and in one collective, before
+    the optimizer accumulates them: every rank then holds the global
+    batch's loss and gradients, and its AdamW state stays a replica. The
+    identity without a group. (``nn.parallel.DistributedDataParallel``
+    would not do it here: its reducer hooks the accumulation into ``.grad``,
+    which ``torch.autograd.grad`` through ``functional_call`` never runs.)"""
+    dist.all_reduce_sum([loss.view(1)] + list(grads.values()))
+    return loss, grads
 
 
 def batch_to_device(batch: Dict, device: torch.device, compute_dtype) -> Dict[str, torch.Tensor]:
@@ -128,7 +152,11 @@ def loss_and_grads(model: ed.EncoderDecoder, batch: Dict,
     rounded to ``compute_dtype`` and are stored back fp32 (the JAX step casts
     them the same way, tf_trainer.py:84 and :108); the loss is computed from
     fp32 logits. ``generator`` None turns dropout and drop-path off
-    (BatchNorm still uses the batch's statistics)."""
+    (BatchNorm still uses the batch's statistics). An
+    ``ops.layers.RowStripe`` marks the batch as this rank's stripe of a
+    global batch: the draws, BatchNorm's moments and the loss's mean are
+    the global batch's (the caller sums the ranks' losses and gradients,
+    :func:`all_reduce_loss_and_grads`)."""
     b = batch_to_device(batch, next(model.parameters()).device, compute_dtype)
     kw = dict(decoder_attention_mask=b["decoder_attention_mask"],
               decoder_token_type_ids=b["decoder_token_type_ids"],
@@ -142,7 +170,8 @@ def loss_and_grads(model: ed.EncoderDecoder, batch: Dict,
     def loss_fn():
         logits, _ = in_compute_dtype(ed.forward, model, compute_dtype, b["pixel_values"],
                                      b["decoder_input_ids"], **kw)
-        return cross_entropy_ignore_pad(logits, b["label_ids"], pad_id)
+        return cross_entropy_ignore_pad(logits, b["label_ids"], pad_id,
+                                        over_group=isinstance(generator, RowStripe))
 
     return value_and_grad(model, loss_fn, trainable_mask)
 
@@ -157,7 +186,9 @@ def make_train_step(config: EncoderDecoderConfig, tx: AdamW,
     ``batch``: 'pixel_values', 'decoder_input_ids', 'decoder_attention_mask',
     'decoder_token_type_ids', optional 'decoder_position_ids', 'label_ids'
     (numpy arrays or tensors, as :func:`build_tf_batch` gives them).
-    ``trainable_mask`` defaults to the optimizer's."""
+    ``trainable_mask`` defaults to the optimizer's. A ``generator`` that is
+    an ``ops.layers.RowStripe`` (``train_generator(..., row_range=...)``)
+    makes the step the global batch's over the process group."""
     mask = trainable_mask if trainable_mask is not None else tx.trainable_mask
 
     def train_step(state: TrainState, batch: Dict,
@@ -167,6 +198,8 @@ def make_train_step(config: EncoderDecoderConfig, tx: AdamW,
             raise ValueError("the train state's model was built from another config")
         loss, grads = loss_and_grads(state.model, batch, generator, pad_id=pad_id,
                                      compute_dtype=compute_dtype, trainable_mask=mask)
+        if isinstance(generator, RowStripe):
+            loss, grads = all_reduce_loss_and_grads(loss, grads)
         tx.update(grads, state.opt_state, dict(state.model.named_parameters()))
         state.step += 1
         return state, loss
@@ -174,14 +207,24 @@ def make_train_step(config: EncoderDecoderConfig, tx: AdamW,
     return train_step
 
 
-def train_generator(trial: int, global_step: int, device="cuda") -> torch.Generator:
+def train_generator(trial: int, global_step: int, device="cuda",
+                    row_range: Optional[Tuple[int, int]] = None):
     """The dropout generator of micro-step ``global_step`` of trial ``trial``:
     the counterpart of ``fold_in(_train_base_rng(trial), global_step)``
     (``cxrmate_tpu/cli/stages.py:678``, :808), so a resumed run draws what the
     uninterrupted run drew. The seed mixes both numbers (numpy's
-    ``SeedSequence``); the draws are not the JAX package's."""
+    ``SeedSequence``); the draws are not the JAX package's.
+
+    ``row_range`` (this rank's stripe ``[lo, hi)`` of a global batch split
+    evenly over the process group): an ``ops.layers.RowStripe`` over the
+    same generator, whose draws are the global batch's cut to the stripe, so
+    every row draws what it draws in one process."""
     seed = int(np.random.SeedSequence([trial, global_step]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if row_range is None:
+        return gen
+    lo, hi = row_range
+    return RowStripe(gen, lo, hi, (hi - lo) * dist.world_size())
 
 
 # --------------------------------------------------------------- batch assembly

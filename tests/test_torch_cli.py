@@ -606,17 +606,27 @@ def test_mid_epoch_resume_is_bit_equal(tree, monkeypatch, variant):
 
 
 def test_main_refuses_what_the_port_does_not_run(tree, monkeypatch):
+    """gen_prompt training (test-only, as in JAX), tensor parallelism
+    (mesh_model > 1: not ported), a mesh_data other than the world size (one
+    rank per card), and WORLD_SIZE=2 without a reachable rendezvous: the
+    group's failure raises, and nothing trains alone."""
     cfg = _write_config(tree, "refuse", variant="gen_prompt")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         with pytest.raises(ValueError, match="test-only"):
             tstages.main(["--config", cfg, "--train", "device=cpu"])
-        for ov in ("mesh_data=2", "mesh_model=2"):
-            with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-                tstages.main(["--config", cfg, "--test", "device=cpu", ov])
+        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+            tstages.main(["--config", cfg, "--test", "device=cpu", "mesh_model=2"])
+        with pytest.raises(ValueError, match="mesh_data=2 but the process group has 1"):
+            tstages.main(["--config", cfg, "--test", "device=cpu", "mesh_data=2"])
         monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
-            tstages.main(["--config", cfg, "--test", "device=cpu"])
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.delenv("MASTER_ADDR", raising=False)
+        cfg = _write_config(tree, "refuse_alone", variant="multi")
+        with pytest.raises(ValueError, match="MASTER_ADDR"):
+            tstages.main(["--config", cfg, "--train", "device=cpu"])
+    assert not os.path.exists(tconfig.parse_args(["--config", cfg]).exp_dir)
+    assert not torch.distributed.is_initialized()
 
 
 def test_module_help_exits_zero():

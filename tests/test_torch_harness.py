@@ -133,7 +133,8 @@ def _shared():
 
 def test_port_imports_no_jax():
     """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward,
-    the scorers, the checkpoints, the data pipeline and the CLI among them),
+    the scorers, the checkpoints, the data pipeline, the CLI, the process
+    group and the tracing helpers among them),
     and chip_smoke.py, loads neither jax nor cxrmate_tpu, nor yaml, pandas,
     PIL or safetensors, which the port must not need (checked in a fresh
     interpreter: this one has JAX loaded)."""
@@ -156,6 +157,8 @@ def test_port_imports_no_jax():
         "        'image', 'synthetic', 'native')} <= set(names), names\n"
         "assert {'cxrmate_torch.cli.config', 'cxrmate_torch.cli.stages',\n"
         "        'cxrmate_torch.cli.yaml_subset'} <= set(names), names\n"
+        "assert {'cxrmate_torch.parallel.mesh', 'cxrmate_torch.parallel.multihost',\n"
+        "        'cxrmate_torch.parallel.dryrun', 'cxrmate_torch.utils.tracing'} <= set(names), names\n"
         "assert len(names) >= 50, names\n"
         "assert not bad, bad\n"
         "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('yaml', 'pandas', 'PIL', 'safetensors'))\n"
