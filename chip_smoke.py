@@ -192,9 +192,9 @@ Phases, each printing one JSON line:
                batch on the card bit-equal to the CPU's, the same token ids
                as from memory, launch counts; one PreviousReportDataset
                batch (ground-truth prompts) through the longitudinal model;
-               one training micro-step fed by make_train_loader_transform
-               (21 launches of each flash_attention_grad kernel); peak
-               device memory.
+               one training micro-step fed by make_train_loader_transform's
+               full-scale route (native_decode=False; 21 launches of each
+               flash_attention_grad kernel); peak device memory.
   11. cli     - (after data) the train/test CLI, cxrmate_torch.cli.stages.main
                on the repository's configs at full width: a MIMIC-CXR-JPG-
                layout tree of 10 subjects (4 train, 2 validate, 4 test; two
@@ -216,7 +216,30 @@ Phases, each printing one JSON line:
                _decode_step_outputs; wall seconds, ms per micro-step, decode
                and save seconds, MB written, peak memory; whether yaml and
                transformers import there; the TF32 settings.
-  12. kernels_device - the device time of each decode-attention kernel and of
+  12. entry   - (after multiprocess, on the cli phase's tree and zoo) the
+               user entry points and the loaders' native routes: the scaled
+               and fast decodes held bit for bit to the route fixtures
+               (cxrmate_torch/tools/jpeg_fixtures, tied to libjpeg by
+               tests/test_torch_scaled_decode.py); ms per image on one thread
+               of the decode at denoms 1 (the full decode), 2, 4 and 8, of
+               the fast route (IFAST and ISLOW) and of the train and eval
+               loaders' prefixes, on the tree's 3,056 x 2,544 JPEGs; one bf16
+               training micro-step fed by the default (native) train loader
+               (21 launches of each flash_attention_grad kernel); the fast
+               eval loader -> device_normalize_gray_u8 (padding slots zeroed)
+               -> multi beam-4 over 8 studies; the three generate examples
+               through main(argv) (their defaults: beam-4, 384 px, up to
+               decoder_max_len - 1 new tokens, fp32), their reports
+               and printed lines equal to a direct generate_report call;
+               scripts.warm_cache over the tree, then the test stage from that
+               cache (no JPEG decoded) and with the cache off, the same token
+               ids; scripts.reproduce_test_set (greedy) twice, the second 100%
+               identical to the first's CSV; scripts.convert_checkpoint both
+               ways, state.pt and the exported .npz decoding the HF
+               directory's token ids; examples.train_tokenizer on the tree and
+               the native BPE encoder equal to the Python encoder, both
+               encoders' rates. Every run's launch counts checked.
+  13. kernels_device - the device time of each decode-attention kernel and of
                its library call at every main-path call shape, and of the
                beam reorder and its library calls at every main-path cache
                width (bf16), from torch.profiler; last, because a profiler
@@ -489,6 +512,8 @@ def main_path_calls(da):
     # checkpoint, and so does the data phase its batches loaded from JPEG files
     paths[("multi", "score")] = dict(paths[("multi", "beam4")])
     paths[("multi", "data")] = dict(paths[("multi", "beam4")])
+    # and the entry phase its batch from the fast loader
+    paths[("multi", "entry")] = dict(paths[("multi", "beam4")])
     for b in SCST_BATCHES:  # the SCST rollout: b sampled rows, then b greedy rows
         paths[("longitudinal", f"scst-b{b}")] = {
             "images": b * SLOTS, "reorder_t": None,
@@ -3456,6 +3481,53 @@ def data_device_ops(torch, np, paths):
                                   "ms": pre_ms}}
 
 
+def loader_micro_step(torch, np, ckpt, ds, label):
+    """One bf16 training micro-step of the multi model at ``ckpt`` (fp32
+    masters, AdamW over TRAIN_ACCUM, a fresh train state) on
+    len(TRAIN_IMAGES) studies drawn from ``ds`` (shuffled, DATA_WORKERS
+    threads, SLOTS slots); its launches must be one of each
+    flash_attention_grad kernel per encoder attention layer and nothing
+    else. -> (figures, the launches)."""
+    from cxrmate_torch.data import pipeline as dp
+    from cxrmate_torch.models import api
+    from cxrmate_torch.train import optim
+    from cxrmate_torch.train import tf_trainer as tt
+
+    model = api.CXRMate.from_hf_checkpoint(ckpt, variant="multi", dtype=torch.float32,
+                                           device="cuda")
+    net, config, tok = model.model, model.config, model.tokenizer
+    mask = optim.mask_for_stage(dict(net.named_parameters()), "multi")
+    tx = optim.adamw(TRAIN_LR, accumulate_steps=TRAIN_ACCUM, trainable_mask=mask)
+    state = tt.create_train_state(net, tx)
+    step = tt.make_train_step(config, tx, mask, pad_id=tok.pad_token_id,
+                              compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    b = next(iter(dp.batch_iterator(ds, len(TRAIN_IMAGES), max_images=SLOTS, shuffle=True,
+                                    seed=SEED, num_workers=DATA_WORKERS)))
+    load_s = time.perf_counter() - t0
+    batch = tt.build_tf_batch(tok, config, b["images"], b["findings"], b["impression"])
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch, tt.train_generator(0, 0))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0)
+    want.update(dict.fromkeys(FLASH_GRAD, sum(config.encoder.depth)))
+    if launches != want or not np.isfinite(float(loss)):
+        raise AssertionError(f"{label}: train micro-step launches {launches} (expected {want}), "
+                             f"loss {float(loss)}")
+    real = (b["images"].reshape(b["images"].shape[0], SLOTS, -1) != 0).any(-1)
+    del model, net, state, step
+    torch.cuda.empty_cache()
+    return {"studies": len(TRAIN_IMAGES), "images": int(real.sum()), "load_s": load_s,
+            "first_step_s_of_a_fresh_state": step_s, "loss": float(loss),
+            "launches": {k: v for k, v in launches.items() if v}}, launches
+
+
 def data_phase(torch, np, ckpts, trial):
     """The data pipeline (cxrmate_torch/data) feeding the test stage on the
     card: the decoder held to the fixtures; a MIMIC-CXR-JPG-layout tree
@@ -3468,8 +3540,8 @@ def data_phase(torch, np, ckpts, trial):
     each batch on the card bit-equal to the batch built on the CPU; one
     PreviousReportDataset batch (ground-truth prompts) through the
     longitudinal model's generate_report; one training micro-step fed by
-    make_train_loader_transform (flash_attention_grad). Launch counts of
-    every call checked. -> {"multi": launches of the multi calls, "train":
+    make_train_loader_transform(native_decode=False) (flash_attention_grad).
+    Launch counts of every call checked. -> {"multi": launches of the multi calls, "train":
     the micro-step's launches}."""
     from cxrmate_torch.ckpt import checkpoints as ck
     from cxrmate_torch.data import image as di
@@ -3479,8 +3551,6 @@ def data_phase(torch, np, ckpts, trial):
     from cxrmate_torch.data.synthetic import build_synthetic_dataset
     from cxrmate_torch.models import api
     from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
-    from cxrmate_torch.train import optim
-    from cxrmate_torch.train import tf_trainer as tt
 
     root = os.path.join(SMOKE_DIR, "data")
     os.makedirs(root, exist_ok=True)
@@ -3593,40 +3663,10 @@ def data_phase(torch, np, ckpts, trial):
     del model
     torch.cuda.empty_cache()
 
-    model = api.CXRMate.from_hf_checkpoint(ckpts["multi"], variant="multi", dtype=torch.float32,
-                                           device="cuda")
-    net, config = model.model, model.config
-    mask = optim.mask_for_stage(dict(net.named_parameters()), "multi")
-    tx = optim.adamw(TRAIN_LR, accumulate_steps=TRAIN_ACCUM, trainable_mask=mask)
-    state = tt.create_train_state(net, tx)
-    step = tt.make_train_step(config, tx, mask, pad_id=tok.pad_token_id,
-                              compute_dtype=torch.bfloat16)
-    load = di.make_train_loader_transform(DATA_SIZE, seed=SEED,
+    load = di.make_train_loader_transform(DATA_SIZE, seed=SEED, native_decode=False,
                                           cache_dir=os.path.join(root, "cache-stage"))
-    ds = StudyDataset(df, files, load)
-    t0 = time.perf_counter()
-    b = next(iter(dp.batch_iterator(ds, len(TRAIN_IMAGES), max_images=SLOTS, shuffle=True,
-                                    seed=SEED, num_workers=DATA_WORKERS)))
-    load_s = time.perf_counter() - t0
-    batch = tt.build_tf_batch(tok, config, b["images"], b["findings"], b["impression"])
-    wrappers = all_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, loss = step(state, batch, tt.train_generator(0, 0))
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    train = {k: fn.launches for k, fn in wrappers.items()}
-    want = dict.fromkeys(wrappers, 0)
-    want.update(dict.fromkeys(FLASH_GRAD, depth))
-    if train != want or not np.isfinite(float(loss)):
-        raise AssertionError(f"data: train micro-step launches {train} (expected {want}), "
-                             f"loss {float(loss)}")
-    res["train_micro_step"] = {"studies": len(TRAIN_IMAGES), "load_s": load_s,
-                               "first_step_s_of_a_fresh_state": step_s,
-                               "loss": float(loss), "launches": {k: v for k, v in train.items() if v}}
-    del model, net, state
+    res["train_micro_step"], train = loader_micro_step(
+        torch, np, ckpts["multi"], StudyDataset(df, files, load), "data")
     torch.cuda.synchronize()
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -3735,7 +3775,13 @@ def expected_launches(stages, wrappers, c, task, encoder_trains):
     beam searches) imply at ``task``'s widths (CvT-21: 21 attention layers;
     6 decoder layers: a self and a cross call each per step)."""
     mcfg = stages.build_model_config(task, 1)
-    depth, layers = sum(mcfg.encoder.depth), mcfg.decoder.num_hidden_layers
+    return implied_launches(wrappers, c, sum(mcfg.encoder.depth),
+                            mcfg.decoder.num_hidden_layers, encoder_trains)
+
+
+def implied_launches(wrappers, c, depth, layers, encoder_trains):
+    """The launches that the counted calls ``c`` imply with ``depth``
+    attention layers in the encoder and ``layers`` in the decoder."""
     want = dict.fromkeys(wrappers, 0)
     train = depth * c.get("encode_train", 0)
     want.update(flash_attention=depth * c.get("encode_eval", 0),
@@ -4361,6 +4407,425 @@ def multiprocess_phase(torch, np, tree):
 
 
 
+# the entry phase: the port's user entry points (cxrmate_torch.examples and
+# cxrmate_torch.scripts) through their main(argv) on the cli phase's tree and
+# zoo, and the training loaders' native routes (the DCT-scaled and the fast
+# decodes) on its full-size JPEGs
+ENTRY_TIMED = 8  # full-size JPEGs each decode route is timed on, one thread
+ENTRY_REPORTS = 2000  # synthetic reports the two BPE encoders are timed on
+
+
+def check_route_fixtures(np):
+    """The port's scaled and fast decodes on the committed JPEGs against the
+    route fixtures (cxrmate_torch/tools/make_jpeg_fixtures.py --routes,
+    which tests/test_torch_scaled_decode.py holds to libjpeg), bit for bit.
+    -> the number of fixtures."""
+    from cxrmate_torch.data import native
+    from cxrmate_torch.tools import make_jpeg_fixtures as fx
+
+    cases = fx.route_fixtures()
+    if len(cases) < 56:
+        raise AssertionError(f"entry: {len(cases)} route fixtures")
+    for jpg, npy, fn, kw in cases:
+        got = getattr(native, fn)(jpg, **kw)
+        if got is None or not np_equal(got, np.load(npy)):
+            raise AssertionError(f"entry: {fn}{kw} differs from {os.path.basename(npy)}")
+    return len(cases)
+
+
+def entry_decode_times(np, paths):
+    """ms per image on one thread, the median over ENTRY_TIMED full-size
+    JPEGs (after one untimed call): the decode at denoms 1 (the data
+    phase's full decode), 2, 4 and 8; the fast route (the fused decode and float resize
+    to DATA_SIZE, IFAST and ISLOW); the train loader's native prefix (the
+    scaled decode and the Pillow-exact resize) and the eval loader's (the
+    full decode, the resize and the crop)."""
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data import native
+
+    datas = []
+    for p in paths[:ENTRY_TIMED]:
+        with open(p, "rb") as f:
+            datas.append(f.read())
+    routes = {f"denom_{d}": (lambda b, d=d: native.decode(b, denom=d)) for d in (1, 2, 4, 8)}
+    routes.update(
+        fast_ifast=lambda b: native.decode_jpeg_resized(b, DATA_SIZE, fast_dct=True),
+        fast_islow=lambda b: native.decode_jpeg_resized(b, DATA_SIZE, fast_dct=False),
+        train_native_prefix=lambda b: di.resize_shortest_edge(native.decode_scaled(b, DATA_SIZE),
+                                                              DATA_SIZE),
+        eval_exact_prefix=lambda b: di.center_crop(
+            di.resize_shortest_edge(native.decode(b), DATA_SIZE)[:, :, None], DATA_SIZE))
+    out = {}
+    for name, fn in routes.items():
+        fn(datas[0])
+        runs = []
+        for b in datas:
+            t0 = time.perf_counter()
+            fn(b)
+            runs.append(time.perf_counter() - t0)
+        out[name] = sorted(runs)[len(runs) // 2] * 1e3
+    return {"ms_per_image": out, "images": len(datas), "hw": list(DATA_HW),
+            "denom_for_size": native.pick_scale_denom(datas[0], DATA_SIZE)}
+
+
+def run_counted(torch, fn, depth, layers, label):
+    """``fn()`` with stdout captured and every launch count set to 0 just
+    before it and read just after, against what its encodes, decode steps
+    and beam searches imply (patch_cli_calls; also generate_report's own
+    beam_search). -> (fn's result, what it printed, the launches)."""
+    from cxrmate_torch.models import api
+
+    calls, secs, undo = {}, {}, []
+    patch = patch_cli_calls(torch, calls, secs, undo)
+    patch(api, "beam_search")
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    printed = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        with contextlib.redirect_stdout(printed):
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        restore_calls(undo)
+    got = {k: w.launches for k, w in wrappers.items()}
+    want = implied_launches(wrappers, calls, depth, layers, encoder_trains=False)
+    if got != want or calls.get("plain", 0) or not calls.get("encode_eval"):
+        raise AssertionError(f"entry {label}: launches {got}, expected {want} from {calls}")
+    return out, printed.getvalue(), got
+
+
+def entry_examples(torch, np, ckpts, df, files, depth, layers):
+    """The three generate examples through main(argv) on the card (their
+    default device) with their other defaults too (beam-4, 384 px, up to
+    decoder_max_len - 1 new tokens, fp32), on the tree's JPEGs: single on
+    the first two images, multi on the first test study, longitudinal on a
+    second study with its subject's first study's report as the prompt.
+    Each one's reports and printed lines equal those of a direct
+    from_hf_checkpoint -> generate_report call on the same inputs.
+    -> figures and launches per example."""
+    from cxrmate_torch.data.image import eval_transform, load_image
+    from cxrmate_torch.data.index import mimic_cxr_image_path
+    from cxrmate_torch.examples import generate_longitudinal, generate_multi, generate_single
+    from cxrmate_torch.models import api
+
+    rows = list(df.rows())
+    studies = {}
+    for r in rows:
+        studies.setdefault(int(r["study_id"]), []).append(r)
+    first, second = list(studies)[0], list(studies)[1]  # one subject, a day apart
+
+    def path(r):
+        return mimic_cxr_image_path(files, r["subject_id"], r["study_id"], r["dicom_id"])
+
+    prev = studies[first][0]
+    runs = {
+        "generate_single": (generate_single, "single", ckpts["multi"],
+                            [path(r) for r in rows[:2]], None),
+        "generate_multi": (generate_multi, "multi", ckpts["multi"],
+                           [path(r) for r in studies[first]][:SLOTS], None),
+        "generate_longitudinal": (generate_longitudinal, "longitudinal", ckpts["longitudinal"],
+                                  [path(r) for r in studies[second]][:SLOTS],
+                                  (prev["findings"], prev["impression"])),
+    }
+    out = {}
+    for name, (mod, variant, ckpt, images, prompt) in runs.items():
+        argv = ["--checkpoint", ckpt, "--images", *images]
+        kw = {}
+        if prompt is not None:
+            argv += ["--previous-findings", prompt[0], "--previous-impression", prompt[1]]
+            kw = dict(previous_findings=[prompt[0]], previous_impression=[prompt[1]])
+        t0 = time.perf_counter()
+        got, printed, launches = run_counted(torch, lambda: mod.main(argv), depth, layers, name)
+        wall = time.perf_counter() - t0
+        model = api.CXRMate.from_hf_checkpoint(ckpt, variant=variant, device="cuda")
+        px = np.stack([eval_transform(load_image(p)) for p in images])
+        want = model.generate_report(px if variant == "single" else px[None], num_beams=4,
+                                     **kw)
+        del model
+        if variant == "single":
+            lines = "".join(f"== {p}\nFindings: {f}\nImpression: {i}\n\n"
+                            for p, f, i in zip(images, *want))
+        else:
+            lines = f"Findings: {want[0][0]}\nImpression: {want[1][0]}\n"
+        if got != want or printed != lines:
+            raise AssertionError(f"entry {name}: printed {printed!r}, a direct call {lines!r}")
+        out[name] = {"images": len(images), "wall_s": wall,
+                     "printed_lines": len(lines.splitlines()),
+                     "launches": {k: v for k, v in launches.items() if v}, "all": launches}
+    torch.cuda.empty_cache()
+    return out
+
+
+def entry_warm_cache(torch, tree, depth, layers):
+    """scripts/warm_cache.py over the tree (train through the native train
+    route, validate and test through the exact eval loader; DATA_WORKERS
+    threads), then the test stage (config/test/multi_tf.yaml on the zoo's
+    multi checkpoint, beam-4, fp32) from that warm cache and with the cache
+    off: the same token ids; no JPEG decoded in the warm run, every one in
+    the cold run. -> figures and both runs' launches."""
+    from cxrmate_torch.cli import config as cli_config
+    from cxrmate_torch.cli import stages
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data.index import build_merged_index
+    from cxrmate_torch.scripts import warm_cache
+
+    root = os.path.join(SMOKE_DIR, "entry")
+    cache = os.path.join(root, "cache")
+    errors = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(errors):
+        rc = warm_cache.main(["--dataset_dir", tree["dataset_dir"], "--cache_dir", cache,
+                              "--image_size", str(DATA_SIZE), "--workers", str(DATA_WORKERS)])
+    warm_s = time.perf_counter() - t0
+    entries = len([f for _, _, fs in os.walk(cache) for f in fs if f.endswith(".npy")])
+    n_images = len(build_merged_index(tree["dataset_dir"]))
+    if rc != 0 or entries != n_images or "FAILED" in errors.getvalue():
+        raise AssertionError(f"entry warm_cache: rc {rc}, {entries} entries for {n_images} "
+                             f"images\n{errors.getvalue()[-2000:]}")
+    out = {"warm_cache": {"images": n_images, "seconds": warm_s, "rc": rc,
+                          "report": errors.getvalue().strip().splitlines()}}
+    ids, launches = {}, {}
+    real = di.load_image
+    for label, cache_dir in (("warm", cache), ("cold", "null")):
+        argv = ["--test", "--config", os.path.join(REPO, "config", "test", "multi_tf.yaml"),
+                "test_ckpt_name=aehrc/cxrmate-multi-tf", f"exp_dir={root}/test-{label}",
+                f"dataset_dir={tree['dataset_dir']}", f"ckpt_zoo_dir={tree['ckpt_zoo_dir']}",
+                f"image_cache_dir={cache_dir}"]
+        decodes = []
+        di.load_image = lambda p: decodes.append(p) or real(p)
+        try:
+            t0 = time.perf_counter()
+            _, _, launches[label] = run_counted(torch, lambda: stages.main(argv), depth, layers,
+                                                f"test from the {label} cache")
+            wall = time.perf_counter() - t0
+        finally:
+            di.load_image = real
+        task = cli_config.parse_args(argv)
+        ids[label] = read_ids_csv(glob_csvs(task.exp_dir_trial)[-1])
+        out[f"test_{label}"] = {"wall_s": wall, "jpegs_decoded": len(decodes),
+                                "launches": {k: v for k, v in launches[label].items() if v}}
+    if out["test_warm"]["jpegs_decoded"] or not out["test_cold"]["jpegs_decoded"]:
+        raise AssertionError(f"entry: JPEGs decoded warm {out['test_warm']['jpegs_decoded']}, "
+                             f"cold {out['test_cold']['jpegs_decoded']}")
+    if not ids["warm"] or ids["warm"] != ids["cold"]:
+        raise AssertionError("entry: the test from the warm cache gives other token ids")
+    out["test_studies_with_equal_token_ids"] = len(ids["warm"])
+    return out, launches
+
+
+def entry_reproduce(torch, ckpts, tree, depth, layers):
+    """scripts/reproduce_test_set.py (greedy, multi, the published widths,
+    fp32) twice on the tree's test split; the second against the first's
+    CSV: 100% identical in both sections. -> figures and launches."""
+    from cxrmate_torch.scripts import reproduce_test_set
+
+    root = os.path.join(SMOKE_DIR, "entry")
+    argv = ["--checkpoint", ckpts["multi"], "--variant", "multi", "--dataset-dir",
+            tree["dataset_dir"], "--greedy"]
+    t0 = time.perf_counter()
+    _, first, launches = run_counted(
+        torch, lambda: reproduce_test_set.main(argv + ["--exp-dir", f"{root}/reproduce-1"]),
+        depth, layers, "reproduce_test_set")
+    wall = time.perf_counter() - t0
+    csv = first.split("our reports: ")[1].splitlines()[0]
+    _, second, _ = run_counted(
+        torch, lambda: reproduce_test_set.main(argv + ["--exp-dir", f"{root}/reproduce-2",
+                                                       "--reference-csv", csv]),
+        depth, layers, "reproduce_test_set against its own CSV")
+    n = 2 * CLI_SPLITS.count("test")
+    lines = [f"{col}: 100.00% identical ({n}/{n})" for col in ("findings", "impression")]
+    if not all(line in second.splitlines() for line in lines) or \
+            "test_report_nlg_bleu_1: " not in first:
+        raise AssertionError(f"entry reproduce_test_set: {second[-600:]}")
+    return {"wall_s": wall, "agreement": lines,
+            "launches": {k: v for k, v in launches.items() if v}}, launches
+
+
+def entry_convert(torch, np, ckpts, depth, layers):
+    """scripts/convert_checkpoint.py both ways on the multi checkpoint: the
+    HF directory -> state.pt, then --export -> an .npz; the npz written back
+    as an HF directory and state.pt restored with restore_model each decode
+    greedy, bf16, the same token ids as the HF directory itself (drive)."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.ckpt import hf
+    from cxrmate_torch.models import api
+    from cxrmate_torch.scripts import convert_checkpoint
+
+    root = os.path.join(SMOKE_DIR, "entry")
+    dst, npz = os.path.join(root, "converted"), os.path.join(root, "exported.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_checkpoint.main(["--src", ckpts["multi"], "--dst", dst, "--variant", "multi"])
+        t1 = time.perf_counter()
+        convert_checkpoint.main(["--src", dst, "--dst", npz, "--export"])
+    t2 = time.perf_counter()
+    sd = dict(np.load(npz))
+    # the export holds the HF directory's arrays, bit for bit, plus the LM
+    # head's aliases, without BatchNorm's counters
+    src = hf.load_hf_pretrained_dir(ckpts["multi"])
+    alias = {"decoder.cls.predictions.decoder.bias", "decoder.cls.predictions.decoder.weight"}
+    if not (set(sd) - set(src) <= alias and all(k.endswith("num_batches_tracked")
+                                                for k in set(src) - set(sd))
+            and all(np.array_equal(sd[k], src[k].numpy()) for k in set(sd) & set(src))):
+        raise AssertionError("entry: the export's arrays are not the checkpoint's")
+    hub = os.path.join(root, "exported-hf")
+    px = torch.from_numpy(make_pixels(np)).cuda()
+    seqs, launches = {}, {}
+    for label in ("hf", "state.pt", "npz"):
+        model = api.CXRMate.from_hf_checkpoint(hub if label == "npz" else ckpts["multi"],
+                                               variant="multi", dtype=torch.bfloat16)
+        if label == "state.pt":
+            ck.restore_model(dst, model.model)
+        seqs[label] = []
+        fig = drive(model, px, f"entry-convert-{label}", 1, depth, layers, sequences=seqs[label])
+        launches[label] = fig["launches"]
+        if label == "hf":  # the export's HF directory, for the next loads
+            hf.save_hf_pretrained_dir(hub, {k: torch.from_numpy(v) for k, v in sd.items()},
+                                      model.config, model.tokenizer)
+        del model
+    if not (np_equal(seqs["hf"][0], seqs["state.pt"][0]) and np_equal(seqs["hf"][0],
+                                                                       seqs["npz"][0])):
+        raise AssertionError("entry: a converted checkpoint decodes other token ids")
+    torch.cuda.empty_cache()
+    return {"to_state_pt_s": t1 - t0, "export_s": t2 - t1, "exported_tensors": len(sd),
+            "npz_mb": os.path.getsize(npz) / 1e6, "token_ids_equal": list(seqs)}, launches
+
+
+def entry_tokenizer(np, tree):
+    """examples/train_tokenizer.py on the tree (the train split's reports),
+    then the native BPE encoder (tokenizer.native_binding.attach) against the
+    Python encoder on every report of the tree with the trained tokenizer,
+    and on ENTRY_REPORTS synthetic reports with the repository's: the same
+    ids; both encoders' rates on the latter (one pass each, caches cold)."""
+    from cxrmate_torch.data import table as tb
+    from cxrmate_torch.data.index import build_merged_index
+    from cxrmate_torch.examples import train_tokenizer
+    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
+    from cxrmate_torch.tokenizer import native_binding as nb
+
+    out_dir = os.path.join(SMOKE_DIR, "entry", "tokenizer")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tok = train_tokenizer.main(["--dataset-dir", tree["dataset_dir"], "--out", out_dir])
+    train_s = time.perf_counter() - t0
+    df = build_merged_index(tree["dataset_dir"])
+    reports = [v for col in ("findings", "impression") for v in df[col][~tb.isna(df[col])]]
+    python = [tok.encode(t) for t in reports]
+    t0 = time.perf_counter()
+    nb.attach(tok)
+    build_s = time.perf_counter() - t0
+    if [tok.encode(t) for t in reports] != python:
+        raise AssertionError("entry: the native encoder differs on the tree's reports")
+    repo_tok = ByteLevelBPETokenizer.from_file(
+        os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json"))
+    rs = np.random.RandomState(SEED + 90)
+    special = {repo_tok.vocab[t] for t in repo_tok.all_special_tokens}
+    ordinary = np.array([i for i in range(len(repo_tok)) if i not in special])
+    texts = [repo_tok.decode(ordinary[rs.randint(0, len(ordinary), 60)])
+             for _ in range(ENTRY_REPORTS)]
+    t0 = time.perf_counter()
+    want = [repo_tok.encode(t) for t in texts]
+    py_s = time.perf_counter() - t0
+    native = nb.attach(repo_tok)
+    t0 = time.perf_counter()
+    got = [native.encode(t) for t in texts]
+    native_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError("entry: the native encoder differs on the synthetic reports")
+    n_tok = sum(len(x) for x in want)
+    return {"train_tokenizer_s": train_s, "vocab": len(tok), "tree_reports": len(reports),
+            "native_build_s": build_s,
+            "encode": {"reports": len(texts), "tokens": n_tok,
+                       "python_reports_per_s": len(texts) / py_s,
+                       "native_reports_per_s": len(texts) / native_s,
+                       "python_tokens_per_s": n_tok / py_s,
+                       "native_tokens_per_s": n_tok / native_s}}
+
+
+def entry_phase(torch, np, ckpts, tree):
+    """The user entry points and the loaders' native routes on the card: the
+    route fixtures; the decode routes' ms per image on the tree's full-size
+    JPEGs; one bf16 training micro-step of the multi model fed by the default
+    (native) train loader; the fast eval loader -> device_normalize_gray_u8
+    (padding slots zeroed) -> multi beam-4 over the test split's 8 studies;
+    the three generate examples; warm_cache and the test from its cache;
+    reproduce_test_set twice; convert_checkpoint both ways; train_tokenizer
+    and the native encoder. Every launch count is set to 0 just before a run
+    and read just after, against what the run implies. -> {"multi": the
+    fast-loader beam-4's launches, "train": the micro-step's, "runs": every
+    run's}."""
+    from cxrmate_torch.data import image as di
+    from cxrmate_torch.data import index as dx
+    from cxrmate_torch.data import pipeline as dp
+    from cxrmate_torch.data.datasets import StudyDataset
+    from cxrmate_torch.models import api
+
+    os.makedirs(os.path.join(SMOKE_DIR, "entry"), exist_ok=True)
+    t_phase = time.perf_counter()
+    res = {"phase": "entry", "route_fixtures_bit_equal": check_route_fixtures(np)}
+    files = os.path.join(tree["dataset_dir"], "physionet.org", "files", "mimic-cxr-jpg", "2.0.0",
+                         "files")
+    full = dx.build_merged_index(tree["dataset_dir"])
+    test_df, train_df = dx.filter_split(full, "test"), dx.filter_split(full, "train")
+    paths = [dx.mimic_cxr_image_path(files, r["subject_id"], r["study_id"], r["dicom_id"])
+             for r in test_df.rows()]
+    res["decode"] = entry_decode_times(np, paths)
+
+    # one training micro-step fed by the default (native) train loader
+    res["train_micro_step_native_loader"], train = loader_micro_step(
+        torch, np, ckpts["multi"],
+        StudyDataset(train_df, files, di.make_train_loader_transform(DATA_SIZE, seed=SEED)),
+        "entry")
+
+    # the fast eval loader (gray u8) -> device_normalize_gray_u8 -> beam-4
+    model = api.CXRMate.from_hf_checkpoint(ckpts["multi"], variant="multi", dtype=torch.bfloat16)
+    depth = sum(model.config.encoder.depth)
+    layers = model.config.decoder.num_hidden_layers
+    ds = StudyDataset(test_df, files, di.make_fast_eval_loader_transform(DATA_SIZE))
+    t0 = time.perf_counter()
+    b = next(iter(dp.batch_iterator(ds, STUDIES, max_images=SLOTS, num_workers=DATA_WORKERS)))
+    load_s = time.perf_counter() - t0
+    counts = np.minimum(ds.image_counts()[:STUDIES], SLOTS)
+    if b["images"].shape != (STUDIES, SLOTS, DATA_SIZE, DATA_SIZE) or b["images"].dtype != np.uint8:
+        raise AssertionError(f"entry: fast loader batch {b['images'].shape} {b['images'].dtype}")
+    t0 = time.perf_counter()
+    u8 = torch.from_numpy(b["images"]).cuda()
+    present = (torch.arange(SLOTS)[None, :] < torch.from_numpy(counts)[:, None]).cuda()
+    px = di.device_normalize_gray_u8(u8) * present[:, :, None, None, None]
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    exact = di.make_eval_loader_transform(DATA_SIZE)(paths[0])[0]  # float32 channel 0
+    fast0 = ((b["images"][0, 0].astype(np.float32) / 255.0 - di.IMAGENET_MEAN[0])
+             / di.IMAGENET_STD[0])
+    fig = drive(model, px, "entry-fast-loader", 4, depth, layers)
+    res["fast_loader_beam4"] = {
+        "studies": STUDIES, "images": int(counts.sum()), "load_s": load_s,
+        "h2d_and_normalize_ms": h2d_ms, "h2d_mb": b["images"].nbytes / 1e6,
+        "first_image_max_abs_diff_to_exact_loader": float(np.abs(exact - fast0).max()),
+        "seconds": fig["seconds"], "studies_per_s": fig["studies_per_s"],
+        "launches": {k: v for k, v in fig["launches"].items() if v}}
+    multi = fig["launches"]
+    del model
+    torch.cuda.empty_cache()
+
+    runs = {}
+    res["examples"] = entry_examples(torch, np, ckpts, test_df, files, depth, layers)
+    for name, r in res["examples"].items():
+        runs[name] = r.pop("all")
+    res["cache"], launches = entry_warm_cache(torch, tree, depth, layers)
+    runs.update({f"test_{k}_cache": v for k, v in launches.items()})
+    res["reproduce_test_set"], runs["reproduce_test_set"] = entry_reproduce(
+        torch, ckpts, tree, depth, layers)
+    res["convert_checkpoint"], launches = entry_convert(torch, np, ckpts, depth, layers)
+    runs.update({f"convert_{k}": v for k, v in launches.items()})
+    res["tokenizer"] = entry_tokenizer(np, tree)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return {"multi": multi, "train": train, "runs": runs}
+
+
 def glob_csvs(exp_dir_trial):
     """The test stage's token-id CSVs, oldest first."""
     import glob
@@ -4436,8 +4901,9 @@ def kernels_line(da, k, counts):
     # whose launches are parity_step_launches)
     r = bf["fused"]["fused_layer_step"]
     b, by = bound_ms(LAYERS * r["bytes"], LAYERS * r["flops"], r["ops_dtype"])
-    runs = [counts["train"], counts["checkpoint"], counts["data_train"]] + [
-        run for variant in ("multi", "longitudinal", "single", "cli")
+    runs = [counts["train"], counts["checkpoint"], counts["data_train"],
+            counts["entry_train"]] + [
+        run for variant in ("multi", "longitudinal", "single", "cli", "entry")
         for run in counts[variant].values()]
     source, replaces = KERNELS["fused_layer_step"]
     out.append({"name": "fused_layer_step[no path: function only]", "route": "cuda",
@@ -4454,13 +4920,16 @@ def kernels_line(da, k, counts):
         r = bf["flash_grad"][kernel]
         b, by = bound_ms(r["bytes"], r["flops"], "bf16")
         # the train phase's timed micro-steps, the checkpoint phase's (both
-        # runs) and the data phase's micro-step fed from JPEG files
-        runs = (counts["train"], counts["checkpoint"], counts["data_train"])
+        # runs), the data phase's micro-step fed from JPEG files and the entry
+        # phase's fed by the native train loader
+        runs = (counts["train"], counts["checkpoint"], counts["data_train"],
+                counts["entry_train"])
         launches = sum(run[kernel] for run in runs)
         if any(run[kernel] <= 0 for run in runs):
             raise AssertionError(f"{kernel}: not launched on a training main path")
         source, replaces = KERNELS[kernel]
-        row = {"name": f"{kernel}[multi train, multi checkpoint, multi data]", "route": "cuda",
+        row = {"name": f"{kernel}[multi train, multi checkpoint, multi data, multi entry]",
+               "route": "cuda",
                "source": source,
                "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
@@ -4480,6 +4949,11 @@ def kernels_line(da, k, counts):
         # the multiprocess phase's runs on their ranks, summed
         row["multiprocess_phase_launches_all_ranks"] = sum(
             run.get(kernel, 0) for run in counts["multiprocess"].values())
+        # the entry phase's runs: the loaders' micro-step and beam-4, the
+        # examples and the scripts, at every shape and dtype
+        row["entry_phase_launches_all_shapes"] = sum(
+            run.get(kernel, 0) for run in [counts["entry_train"], counts["multi"]["entry"],
+                                           *counts["entry"].values()])
     return {"kernels": out}
 
 
@@ -4539,6 +5013,9 @@ def main() -> int:
         counts["multi"]["data"], counts["data_train"] = data["multi"], data["train"]
         counts["cli"], cli_tree = cli_phase(torch, np, ckpts)
         counts["multiprocess"] = multiprocess_phase(torch, np, cli_tree)
+        entry = entry_phase(torch, np, ckpts, cli_tree)
+        counts["multi"]["entry"], counts["entry_train"] = entry["multi"], entry["train"]
+        counts["entry"] = entry["runs"]
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     decode_device_phase(torch, da, br, F, kernels)

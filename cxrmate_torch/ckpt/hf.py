@@ -148,6 +148,26 @@ def model_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
+def export_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A model state dict (the port's names) -> the torch-layout state dict
+    of numpy arrays that ``cxrmate_tpu/ckpt/hf_convert.py:178
+    export_encoder_decoder`` writes, key for key: a LoRA decoder's keys get
+    the PEFT prefix, the LM head's ``decoder.bias`` alias and (tied) its
+    weight are written, BatchNorm's ``num_batches_tracked`` is not."""
+    dp = PEFT_PREFIX if lora_rank(sd) is not None else "decoder."
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.startswith("decoder.") and dp != "decoder.":
+            k = dp + k[len("decoder."):]
+        out[k] = v.detach().cpu().numpy()
+    head = f"{dp}cls.predictions."
+    out.setdefault(head + "decoder.weight", out[f"{dp}bert.embeddings.word_embeddings.weight"])
+    out[head + "decoder.bias"] = out[head + "bias"]
+    return out
+
+
 def load_model_state(model: nn.Module, sd: Dict) -> None:
     """Load an HF-layout state dict (tensors or numpy arrays) into the port's
     encoder-decoder, strictly, after dropping what the port does not hold:

@@ -132,7 +132,7 @@ def init_variables(task: TaskConfig, config) -> ed.EncoderDecoder:
     return model
 
 
-def _model_from_state_dict(sd: Dict, config, device) -> ed.EncoderDecoder:
+def model_from_state_dict(sd: Dict, config, device) -> ed.EncoderDecoder:
     """An fp32 model on ``device`` holding exactly the state dict's
     parameter set, as ``convert_encoder_decoder`` builds the JAX pytree from
     it: LoRA factors (at the state dict's rank, the variant's scaling) only
@@ -200,9 +200,9 @@ def resolve_warm_start(task: TaskConfig, config, model: ed.EncoderDecoder) -> ed
             name = zoo_name
     device = next(model.parameters()).device
     if name and os.path.isdir(name):
-        return _model_from_state_dict(hf.load_hf_pretrained_dir(name), config, device)
+        return model_from_state_dict(hf.load_hf_pretrained_dir(name), config, device)
     if name and os.path.isfile(name):
-        return _model_from_state_dict(hf.load_torch_checkpoint(name), config, device)
+        return model_from_state_dict(hf.load_torch_checkpoint(name), config, device)
     if name:
         # never fall through to a fresh init when a checkpoint was requested
         raise FileNotFoundError(
@@ -219,6 +219,7 @@ def make_datasets(task: TaskConfig, split: str, train: bool):
         task.dataset_dir, "physionet.org", "files", "mimic-cxr-jpg", "2.0.0", "files"
     )
     cache_dir = task.resolved_image_cache_dir
+    # the train split takes the native route (the DCT-scaled decode), as JAX's does
     load = (
         image_mod.make_train_loader_transform(
             size=task.image_size, seed=task.trial, cache_dir=cache_dir)
@@ -943,7 +944,7 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
 def _restore_for_test(path: str, config, device) -> ed.EncoderDecoder:
     """The weights of a training checkpoint as a model holding exactly its
     parameter set (as the JAX test stage restores the saved tree itself)."""
-    return _model_from_state_dict(_saved_model_state(path), config, device)
+    return model_from_state_dict(_saved_model_state(path), config, device)
 
 
 def test(task: TaskConfig, chexbert_fn=None, reward_fn=None, bertscorer=None) -> Dict:

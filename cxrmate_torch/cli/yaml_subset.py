@@ -113,7 +113,10 @@ def plain_scalar(text: str, lineno: int = 1, line: Optional[str] = None) -> Any:
     if _FLOAT.match(text):
         return _to_float(text)
     if _INT.match(text):
-        return _to_int(text)
+        try:
+            return _to_int(text)
+        except ValueError:  # "0x_", "0b_": safe_load's own int() fails on them too
+            _fail(lineno, line, "an integer without digits")
     if _TIMESTAMP.match(text) or text in ("=", "<<"):
         _fail(lineno, line, "a timestamp, value or merge key")
     return text
@@ -157,25 +160,32 @@ def _quoted(text: str, lineno: int, line: str) -> Tuple[str, str]:
     _fail(lineno, line, "a quoted string that does not end on its line")
 
 
-def _opens_quote(text: str, i: int) -> bool:
-    """Whether the quote at ``text[i]`` starts a quoted scalar: at the start
-    of the content, after ``- ``, after ``: `` or inside a flow sequence."""
+def _starts_value(text: str, i: int) -> bool:
+    """Whether ``text[i]`` starts a value: at the start of the content,
+    after ``- `` or after ``: ``."""
     prev = text[:i].rstrip(" ")
     stem = prev.strip()
-    return (stem in ("", "-") or stem.endswith(("[", ","))
-            or (stem.endswith(":") and len(prev) < i))
+    return stem == "" or ((stem == "-" or stem.endswith(":")) and len(prev) < i)
 
 
 def _strip_comment(text: str) -> str:
     """``text`` without a trailing ``#`` comment (a ``#`` at the start or
-    after whitespace, outside quotes), right-stripped."""
-    q = None
+    after whitespace, outside quotes), right-stripped. A quote opens a
+    quoted scalar where a value starts or after a flow sequence's ``[`` or
+    ``,``; a ``[`` opens a flow sequence only where a value starts (inside a
+    plain scalar both are text)."""
+    q, flow = None, False
     for i, c in enumerate(text):
         if q:
             if c == q:
                 q = None
-        elif c in "'\"" and _opens_quote(text, i):
+        elif c in "'\"" and (_starts_value(text, i)
+                             or (flow and text[:i].rstrip(" ").endswith(("[", ",")))):
             q = c
+        elif c == "[" and _starts_value(text, i):
+            flow = True
+        elif c == "]":
+            flow = False
         elif c == "#" and (i == 0 or text[i - 1] in " \t"):
             return text[:i].rstrip()
     return text.rstrip()
@@ -209,6 +219,8 @@ def _flow_sequence(text: str, lineno: int, line: str) -> List[Any]:
             token = inner[:end].rstrip()
             if any(c in token for c in "[]{}"):
                 _fail(lineno, line, "a flow indicator inside a flow scalar")
+            if token[0] in "?:":  # PyYAML reads these as indicators in a flow
+                _fail(lineno, line, f"a flow scalar starting with {token[0]!r}")
             value, inner = plain_scalar(token, lineno, line), inner[end:]
         items.append(value)
         expect_item = False

@@ -8,10 +8,17 @@ uint8 numpy arrays: the port's JPEG decoder (``data/native``) gives PIL's
 pixels, its resize is Pillow's bilinear resampling and its rotation Pillow's
 nearest affine transform, bit for bit, so the eval loader stays PIL-exact.
 
+The training loaders take the JAX package's native routes with libjpeg's
+bits (``data/native``): the train loader decodes at the largest DCT scale
+that keeps the shortest edge at or above the target (``native_decode``, the
+default, as in JAX), and the fast eval loader runs the fused IFAST decode
+and float bilinear resize.
+
 The decoded-image cache stores each loader's deterministic uint8 prefix
-(resize + crop for eval, resize for train) under the JAX package's keys and
-variants ("eval", "train-pil"), with the same bytes: a cache warmed by
-either package serves the other.
+(resize + crop for eval, resize for train, the cropped gray image for the
+fast loader) under the JAX package's keys and variants ("eval",
+"train-native", "train-pil", "fast-native"), with the same bytes: a cache
+warmed by either package serves the other.
 
 The device side (``device_normalize_gray_u8``, ``device_preprocess``) is
 plain PyTorch on an explicit device.
@@ -40,6 +47,16 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 def load_image(path: str) -> np.ndarray:
     """The JPEG at ``path`` as uint8 [H, W] (gray) or [H, W, 3] (RGB)."""
     return native.load_jpeg(path)
+
+
+def to_luma(arr: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("L")`` of uint8 RGB [H, W, 3] (ITU-R 601 in 16-bit
+    fixed point, rounded: Convert.c rgb2l); gray [H, W] as it is."""
+    if arr.ndim == 2:
+        return arr
+    a = arr.astype(np.uint32)
+    luma = a[..., 0] * 19595 + a[..., 1] * 38470 + a[..., 2] * 7471 + 0x8000
+    return (luma >> 16).astype(np.uint8)
 
 
 def to_rgb(arr: np.ndarray) -> np.ndarray:
@@ -291,21 +308,75 @@ def _make_warm(cache_dir: str, size: int, variant: str, decode_for_cache):
     return warm
 
 
-def make_train_loader_transform(size: int = 384, seed: int = 0, cache_dir: Optional[str] = None):
-    """Training loader: a full-scale decode, the shortest-edge resize, then
-    the augmentation tail; the JAX loader's ``native_decode=False`` route
-    (its DCT-scaled decode is not ported). Augmentation draws come from a
-    per-call RNG seeded by (seed, epoch, path): deterministic regardless of
+def make_fast_eval_loader_transform(size: int = 384, normalize: bool = False,
+                                    cache_dir: Optional[str] = None):
+    """Throughput loader, not PIL-exact (the JAX package's
+    ``make_fast_eval_loader_transform``): the fused DCT-scaled IFAST decode
+    and float bilinear resize (``native.load_jpeg_resized``, gray), then a
+    uint8 center crop. Returns the cropped gray uint8 [size, size] for
+    ``device_normalize_gray_u8``, or with ``normalize`` float32 [3, size,
+    size]. Two luma rules, as in JAX: a colour source (the RGB route) gets
+    ``arr @ [0.299, 0.587, 0.114]`` in float32, truncated; a source smaller
+    than ``size`` takes the full decode, PIL's ``convert("L")`` and the
+    Pillow-exact resize. ``cache_dir`` caches the cropped gray image
+    (variant "fast-native")."""
+
+    def decode(path: str) -> np.ndarray:
+        arr = native.load_jpeg_resized(path, size, gray=True, fast_dct=True)
+        if arr is None:  # smaller than size: the full decode, upscaled
+            arr = resize_shortest_edge(to_luma(load_image(path)), size)
+        if arr.ndim == 3:
+            arr = (arr @ np.array([0.299, 0.587, 0.114], np.float32)).astype(np.uint8)
+        return center_crop(arr[:, :, None], size)[:, :, 0]
+
+    def load(path: str):
+        if cache_dir is None:
+            arr = decode(path)
+        else:
+            cf = _cache_file(cache_dir, path, size, "fast-native")
+            arr = _cache_get(cf)
+            if arr is None:
+                arr = decode(path)
+                _cache_put(cf, arr)
+        if not normalize:
+            return arr
+        x = np.repeat(arr[None, :, :], 3, axis=0).astype(np.float32) / 255.0
+        return (x - IMAGENET_MEAN[:, None, None]) / IMAGENET_STD[:, None, None]
+
+    if cache_dir is not None:
+        load.warm = _make_warm(cache_dir, size, "fast-native", decode)
+    return load
+
+
+def make_train_loader_transform(size: int = 384, seed: int = 0, native_decode: bool = True,
+                                cache_dir: Optional[str] = None):
+    """Training loader: the decode, the shortest-edge resize (Pillow-exact),
+    then the augmentation tail. With ``native_decode`` (the default, as in
+    JAX) the decode runs at the largest DCT scale that keeps the shortest
+    edge at or above ``size`` (libjpeg's scaled IDCTs, the JAX loader's
+    ``load_jpeg_scaled`` route); without it at full scale (its
+    ``native_decode=False`` route). Augmentation draws come from a per-call
+    RNG seeded by (seed, epoch, path): deterministic regardless of
     loader-thread scheduling, varying across epochs. ``load.set_epoch(e)``
-    advances the epoch. ``cache_dir`` caches the resized uint8 image
-    (variant "train-pil"; the epoch is not in the key)."""
+    advances the epoch. ``cache_dir`` caches the resized uint8 image, one
+    channel for a gray source (variant "train-native" or "train-pil"; the
+    epoch is not in the key)."""
     state = {"epoch": 0}
+    variant = "train-native" if native_decode else "train-pil"
+
+    def decode_resized(path: str) -> np.ndarray:
+        if native_decode:
+            with open(path, "rb") as f:
+                arr = native.decode_scaled(f.read(), size, path)
+        else:
+            arr = load_image(path)
+        return resize_shortest_edge(arr, size)
 
     def decode_resized_rgb(path: str) -> np.ndarray:
-        return to_rgb(resize_shortest_edge(load_image(path), size))
+        return to_rgb(decode_resized(path))
 
     def decode_for_cache(path: str) -> np.ndarray:
-        return _one_channel_if_gray(resize_shortest_edge(load_image(path), size))
+        return _one_channel_if_gray(decode_resized(path))
 
     def load(path: str) -> np.ndarray:
         rng = random.Random(
@@ -313,7 +384,7 @@ def make_train_loader_transform(size: int = 384, seed: int = 0, cache_dir: Optio
         )
         if cache_dir is None:
             return train_augment(decode_resized_rgb(path), size, rng)
-        cf = _cache_file(cache_dir, path, size, "train-pil")
+        cf = _cache_file(cache_dir, path, size, variant)
         arr = _cache_get(cf)
         if arr is None:
             arr = decode_for_cache(path)
@@ -322,7 +393,7 @@ def make_train_loader_transform(size: int = 384, seed: int = 0, cache_dir: Optio
 
     load.set_epoch = lambda e: state.__setitem__("epoch", int(e))
     if cache_dir is not None:
-        load.warm = _make_warm(cache_dir, size, "train-pil", decode_for_cache)
+        load.warm = _make_warm(cache_dir, size, variant, decode_for_cache)
     return load
 
 

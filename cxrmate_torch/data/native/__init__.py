@@ -5,12 +5,20 @@ decoder, whose output equals libjpeg(-turbo)'s defaults (and so PIL's) byte
 for byte, a baseline encoder with libjpeg's defaults, and Pillow's bilinear
 resize and nearest affine transform.
 
-``jpeg.cpp`` is built at first use by the host C++ compiler (``$CXX``,
-``g++`` or ``c++``) into ``cxrmate_torch/_build/jpeg-<hash>/``, keyed by a hash of
-the source and flags, under a file lock, as ``ops/_build.py`` builds the
-kernels; it is a library of its own, so the CPU builds and runs it too. No
-compiler raises. A JPEG outside the decoder's set raises ``ValueError``
-naming the file and the feature; nothing falls back to another decoder.
+The training loaders' routes of ``cxrmate_tpu/data/native`` are here too,
+with libjpeg's bits: the DCT-scaled decode (``decode_jpeg(data, denom)``,
+``pick_scale_denom``, ``load_jpeg_scaled``) and the fused fast decode and
+float bilinear resize (``decode_jpeg_resized``, ``load_jpeg_resized``;
+JDCT_IFAST, gray out for a gray source). Where the JAX functions return
+None on a failure and leave the caller to fall back to PIL, these raise;
+the one None is the JAX package's own: a source smaller than the fast
+route's target.
+
+``jpeg.cpp`` is built at first use by the host C++ compiler into
+``cxrmate_torch/_build/jpeg-<hash>/`` (``utils/host_build.py``); it is a
+library of its own, so the CPU builds and runs it too. No compiler raises.
+A JPEG outside the decoder's set raises ``ValueError`` naming the file and
+the feature; nothing falls back to another decoder.
 The calls are plain ctypes calls, which release the GIL, so a loader's
 thread pool decodes in parallel.
 """
@@ -18,19 +26,15 @@ thread pool decodes in parallel.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from cxrmate_torch.utils.host_build import build_library
+
 SOURCE = Path(__file__).resolve().parent / "jpeg.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build"
 LIB_NAME = "libcxrmate_jpeg.so"
 # no FMA contraction: the resampling's double arithmetic must round as Pillow's does
 COMPILE_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
@@ -40,34 +44,10 @@ _lib = None
 _ERR = 512
 
 
-def _cxx() -> str:
-    for c in (os.environ.get("CXX"), shutil.which("g++"), shutil.which("c++")):
-        if c and (os.path.exists(c) or shutil.which(c)):
-            return c
-    raise RuntimeError("no C++ compiler for the JPEG codec (looked for $CXX, g++, c++)")
-
-
 def build() -> Path:
     """Path of the codec library, compiling it first if this source hash has
     not been built. Raises with the compiler's output if it fails."""
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    out_dir = BUILD_ROOT / ("jpeg-" + h.hexdigest()[:16])
-    so = out_dir / LIB_NAME
-    if so.exists():
-        return so
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.exists():
-            return so
-        tmp = out_dir / (LIB_NAME + ".tmp")
-        res = subprocess.run([_cxx(), *COMPILE_FLAGS, str(SOURCE), "-o", str(tmp)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n{res.stdout}")
-        os.replace(tmp, so)
-    return so
+    return build_library("jpeg", SOURCE, LIB_NAME, COMPILE_FLAGS)
 
 
 def _load() -> ctypes.CDLL:
@@ -78,8 +58,9 @@ def _load() -> ctypes.CDLL:
             p, i, sz, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p
             ip = ctypes.POINTER(ctypes.c_int)
             for name, args in (
-                ("cxr_jpeg_info", [p, sz, ip, ip, ip, s, i]),
-                ("cxr_jpeg_decode", [p, sz, p, s, i]),
+                ("cxr_jpeg_info", [p, sz, i, ip, ip, ip, s, i]),
+                ("cxr_jpeg_decode", [p, sz, i, p, s, i]),
+                ("cxr_jpeg_decode_resized", [p, sz, i, i, i, i, p, s, i]),
                 ("cxr_jpeg_encode", [p, i, i, i, i, i, ctypes.POINTER(p),
                                      ctypes.POINTER(sz), s, i]),
                 ("cxr_resize_bilinear", [p, i, i, i, p, i, i, s, i]),
@@ -97,22 +78,100 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes -> uint8 [H, W] (one component) or [H, W, 3] (RGB), the
-    pixels PIL's ``np.asarray(Image.open(...))`` gives. Raises ``ValueError``
-    naming ``name`` and what is not supported."""
-    lib = _load()
+def jpeg_info(data: bytes, denom: int = 1, name: str = "<bytes>") -> Tuple[int, int, int]:
+    """(width, height, components) of the decode at 1/``denom``: libjpeg's
+    output size, ceil(size / denom)."""
     buf = np.frombuffer(data, np.uint8)
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERR)
-    if lib.cxr_jpeg_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h), ctypes.byref(c),
-                         err, _ERR):
+    if _load().cxr_jpeg_info(_ptr(buf), buf.size, int(denom), ctypes.byref(w), ctypes.byref(h),
+                             ctypes.byref(c), err, _ERR):
         raise ValueError(f"{name}: {err.value.decode()}")
-    shape = (h.value, w.value) if c.value == 1 else (h.value, w.value, 3)
-    out = np.empty(shape, np.uint8)
-    if lib.cxr_jpeg_decode(_ptr(buf), buf.size, _ptr(out), err, _ERR):
+    return w.value, h.value, c.value
+
+
+def decode(data: bytes, name: str = "<bytes>", denom: int = 1) -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W] (one component) or [H, W, 3] (RGB), the
+    pixels PIL's ``np.asarray(Image.open(...))`` gives; at 1/``denom`` of the
+    size (1, 2, 4 or 8), libjpeg's pixels for that scale. Raises
+    ``ValueError`` naming ``name`` and what is not supported."""
+    w, h, c = jpeg_info(data, denom, name)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w) if c == 1 else (h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR)
+    if _load().cxr_jpeg_decode(_ptr(buf), buf.size, int(denom), _ptr(out), err, _ERR):
         raise ValueError(f"{name}: {err.value.decode()}")
     return out
+
+
+def decode_jpeg(data: bytes, scale_denom: int = 1, name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes -> RGB uint8 [H, W, 3] at 1/``scale_denom`` (a gray source
+    replicated, as libjpeg's JCS_RGB output does): the counterpart of
+    ``cxrmate_tpu.data.native.decode_jpeg``."""
+    return _rgb(decode(data, name, scale_denom))
+
+
+def _rgb(arr: np.ndarray) -> np.ndarray:
+    """libjpeg's JCS_RGB output of a decode: one component replicated."""
+    return np.repeat(arr[:, :, None], 3, axis=2) if arr.ndim == 2 else arr
+
+
+def pick_scale_denom(data: bytes, target_shortest: int, name: str = "<bytes>") -> int:
+    """The largest denom in {1, 2, 4, 8} that keeps the full-scale shortest
+    edge // denom at or above ``target_shortest``."""
+    w, h, _ = jpeg_info(data, 1, name)
+    shortest, denom = min(w, h), 1
+    for d in (2, 4, 8):
+        if shortest // d >= target_shortest:
+            denom = d
+    return denom
+
+
+def decode_scaled(data: bytes, target_shortest: int, name: str = "<bytes>") -> np.ndarray:
+    """The scaled decode of ``load_jpeg_scaled`` in the source's own layout
+    ([H, W] for one component): the loaders resize the one gray channel."""
+    return decode(data, name, pick_scale_denom(data, target_shortest, name))
+
+
+def load_jpeg_scaled(path: str, target_shortest: int) -> np.ndarray:
+    """Read and decode a JPEG as RGB at the largest DCT scale that keeps the
+    shortest edge at or above ``target_shortest``."""
+    with open(path, "rb") as f:
+        return _rgb(decode_scaled(f.read(), target_shortest, path))
+
+
+def decode_jpeg_resized(data: bytes, target_shortest: int, gray: bool = True,
+                        fast_dct: bool = True, name: str = "<bytes>") -> Optional[np.ndarray]:
+    """The fast loader's fused step: the DCT-scaled decode (JDCT_IFAST where
+    ``fast_dct``) and the float bilinear resize to torchvision's
+    shortest-edge size of the full-scale dims (long edge truncated). uint8
+    [H, W] where ``gray`` and the source has one component, else [H, W, 3]
+    (a colour source in gray mode comes back RGB, as the JAX route's retry
+    gives it). None for a source whose shortest edge is below the target."""
+    fw, fh, comps = jpeg_info(data, 1, name)
+    if min(fh, fw) < target_shortest:
+        return None
+    if fw <= fh:
+        ow, oh = target_shortest, int(target_shortest * fh / fw)
+    else:
+        ow, oh = int(target_shortest * fw / fh), target_shortest
+    denom = pick_scale_denom(data, target_shortest, name)
+    out = np.empty((oh, ow) if comps == 1 else (oh, ow, 3), np.uint8)
+    buf = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(_ERR)
+    if _load().cxr_jpeg_decode_resized(_ptr(buf), buf.size, denom, int(bool(fast_dct)), oh, ow,
+                                       _ptr(out), err, _ERR):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    # libjpeg's gray -> RGB replicates before the resize
+    return out if gray else _rgb(out)
+
+
+def load_jpeg_resized(path: str, target_shortest: int, gray: bool = True,
+                      fast_dct: bool = True) -> Optional[np.ndarray]:
+    """Read a JPEG and run :func:`decode_jpeg_resized` on it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_jpeg_resized(data, target_shortest, gray, fast_dct, path)
 
 
 def load_jpeg(path: str) -> np.ndarray:

@@ -5,13 +5,21 @@
 // or three (JFIF YCbCr) at 4:4:4, 4:2:2 or 4:2:0, with libjpeg(-turbo)'s
 // default output: the ISLOW integer IDCT (jidctint.c jpeg_idct_islow with its
 // range-limit table), fancy upsampling (jdsample.c h2v1_fancy_upsample,
-// h2v2_fancy_upsample) and the jdcolor.c ycc_rgb_convert tables. Anything
+// h2v2_fancy_upsample) and the jdcolor.c ycc_rgb_convert tables. It also
+// decodes at libjpeg's DCT scales 1/2, 1/4 and 1/8 (scale_denom, output size
+// rounded up; each component's IDCT chosen by its scaled block size as
+// jdmaster.c chooses it: ISLOW at 8, jidctred.c's 4x4, 2x2 and 1x1 below, a
+// subsampled chroma scaled up through the IDCT where the ratio allows) and
+// with JDCT_IFAST (jidctfst.c) in place of ISLOW. Anything
 // else (progressive, arithmetic coding, 12-bit, Adobe RGB, CMYK, a truncated
 // or corrupt stream) is refused with a message naming it.
 //
 // Encode: baseline gray or RGB (4:2:0) with libjpeg's defaults: the standard
 // quantisation tables scaled as jpeg_quality_scaling, the ISLOW forward DCT
 // (jfdctint.c), the standard Huffman tables, optionally a restart interval.
+//
+// The fast loader's float bilinear resize (resize_bilinear_f32) is the JAX
+// package's jpeg_decode.c resize_bilinear_u8, step for step.
 //
 // Resample: Pillow's src/libImaging/Resample.c bilinear (support 1 scaled by
 // the downscale factor, coefficients in fixed point with PRECISION_BITS 22,
@@ -20,12 +28,14 @@
 //
 // Every entry returns 0 on success or non-zero with a message in ``err``.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -204,6 +214,216 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
   }
 }
 
+// jidctred.c jpeg_idct_4x4 / jpeg_idct_2x2 / jpeg_idct_1x1: the reduced-size
+// IDCTs libjpeg runs where a component's scaled block size is 4, 2 or 1 (the
+// ISLOW quantisation table; the columns and rows the output never uses are
+// skipped, as there).
+constexpr int64_t FIX_0_211164243 = 1730;
+constexpr int64_t FIX_0_509795579 = 4176;
+constexpr int64_t FIX_0_601344887 = 4926;
+constexpr int64_t FIX_0_720959822 = 5906;
+constexpr int64_t FIX_0_850430095 = 6967;
+constexpr int64_t FIX_1_061594337 = 8697;
+constexpr int64_t FIX_1_272758580 = 10426;
+constexpr int64_t FIX_1_451774981 = 11893;
+constexpr int64_t FIX_2_172734803 = 17799;
+constexpr int64_t FIX_3_624509785 = 29692;
+
+void idct_4x4(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  int ws[8 * 4];
+  for (int c = 0; c < 8; c++) {
+    if (c == 4) continue;  // the second pass never reads column 4
+    const int16_t* in = coef + c;
+    const uint16_t* qt = q + c;
+    int* w = ws + c;
+    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[40] == 0 && in[48] == 0 && in[56] == 0) {
+      int dc = (int)(((int64_t)in[0] * qt[0]) * (1 << PASS1_BITS));
+      for (int r = 0; r < 4; r++) w[8 * r] = dc;
+      continue;
+    }
+    int64_t tmp0 = ((int64_t)in[0] * qt[0]) * (1 << (CONST_BITS + 1));
+    int64_t z2 = (int64_t)in[16] * qt[16], z3 = (int64_t)in[48] * qt[48];
+    int64_t tmp2 = z2 * FIX_1_847759065 + z3 * -FIX_0_765366865;
+    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    int64_t z1 = (int64_t)in[56] * qt[56];
+    z2 = (int64_t)in[40] * qt[40];
+    z3 = (int64_t)in[24] * qt[24];
+    int64_t z4 = (int64_t)in[8] * qt[8];
+    tmp0 = z1 * -FIX_0_211164243 + z2 * FIX_1_451774981 + z3 * -FIX_2_172734803 +
+           z4 * FIX_1_061594337;
+    tmp2 = z1 * -FIX_0_509795579 + z2 * -FIX_0_601344887 + z3 * FIX_0_899976223 +
+           z4 * FIX_2_562915447;
+    const int n = CONST_BITS - PASS1_BITS + 1;
+    w[0] = (int)descale(tmp10 + tmp2, n);
+    w[24] = (int)descale(tmp10 - tmp2, n);
+    w[8] = (int)descale(tmp12 + tmp0, n);
+    w[16] = (int)descale(tmp12 - tmp0, n);
+  }
+  const uint8_t* rl = kRange.t;
+  for (int r = 0; r < 4; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + (size_t)r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[5] == 0 && w[6] == 0 && w[7] == 0) {
+      uint8_t v = rl[(int)descale(w[0], PASS1_BITS + 3) & 1023];
+      for (int c = 0; c < 4; c++) o[c] = v;
+      continue;
+    }
+    int64_t tmp0 = (int64_t)w[0] * (1 << (CONST_BITS + 1));
+    int64_t tmp2 = (int64_t)w[2] * FIX_1_847759065 + (int64_t)w[6] * -FIX_0_765366865;
+    int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
+    tmp0 = z1 * -FIX_0_211164243 + z2 * FIX_1_451774981 + z3 * -FIX_2_172734803 +
+           z4 * FIX_1_061594337;
+    tmp2 = z1 * -FIX_0_509795579 + z2 * -FIX_0_601344887 + z3 * FIX_0_899976223 +
+           z4 * FIX_2_562915447;
+    const int n = CONST_BITS + PASS1_BITS + 3 + 1;
+    o[0] = rl[(int)descale(tmp10 + tmp2, n) & 1023];
+    o[3] = rl[(int)descale(tmp10 - tmp2, n) & 1023];
+    o[1] = rl[(int)descale(tmp12 + tmp0, n) & 1023];
+    o[2] = rl[(int)descale(tmp12 - tmp0, n) & 1023];
+  }
+}
+
+void idct_2x2(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  int ws[8 * 2];
+  for (int c = 0; c < 8; c++) {
+    if (c == 2 || c == 4 || c == 6) continue;  // never read by the second pass
+    const int16_t* in = coef + c;
+    const uint16_t* qt = q + c;
+    int* w = ws + c;
+    if (in[8] == 0 && in[24] == 0 && in[40] == 0 && in[56] == 0) {
+      int dc = (int)(((int64_t)in[0] * qt[0]) * (1 << PASS1_BITS));
+      w[0] = w[8] = dc;
+      continue;
+    }
+    int64_t tmp10 = ((int64_t)in[0] * qt[0]) * (1 << (CONST_BITS + 2));
+    int64_t tmp0 = ((int64_t)in[56] * qt[56]) * -FIX_0_720959822;
+    tmp0 += ((int64_t)in[40] * qt[40]) * FIX_0_850430095;
+    tmp0 += ((int64_t)in[24] * qt[24]) * -FIX_1_272758580;
+    tmp0 += ((int64_t)in[8] * qt[8]) * FIX_3_624509785;
+    const int n = CONST_BITS - PASS1_BITS + 2;
+    w[0] = (int)descale(tmp10 + tmp0, n);
+    w[8] = (int)descale(tmp10 - tmp0, n);
+  }
+  const uint8_t* rl = kRange.t;
+  for (int r = 0; r < 2; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + (size_t)r * stride;
+    if (w[1] == 0 && w[3] == 0 && w[5] == 0 && w[7] == 0) {
+      o[0] = o[1] = rl[(int)descale(w[0], PASS1_BITS + 3) & 1023];
+      continue;
+    }
+    int64_t tmp10 = (int64_t)w[0] * (1 << (CONST_BITS + 2));
+    int64_t tmp0 = (int64_t)w[7] * -FIX_0_720959822 + (int64_t)w[5] * FIX_0_850430095 +
+                   (int64_t)w[3] * -FIX_1_272758580 + (int64_t)w[1] * FIX_3_624509785;
+    const int n = CONST_BITS + PASS1_BITS + 3 + 2;
+    o[0] = rl[(int)descale(tmp10 + tmp0, n) & 1023];
+    o[1] = rl[(int)descale(tmp10 - tmp0, n) & 1023];
+  }
+}
+
+void idct_1x1(const int16_t* coef, const uint16_t* q, uint8_t* out, int) {
+  int dc = (int)coef[0] * (int)q[0];
+  out[0] = kRange.t[(int)descale(dc, 3) & 1023];
+}
+
+// jidctfst.c jpeg_idct_ifast (JDCT_IFAST, 8-bit samples, no accurate
+// rounding): q is the component's table pre-multiplied by the AAN scale
+// factors as jddctmgr.c start_pass builds it (ifast_table).
+constexpr int IFAST_CONST_BITS = 8;
+constexpr int FIX_1_082392200 = 277;
+constexpr int FIX_1_414213562 = 362;
+constexpr int FIX_1_847759065_F = 473;
+constexpr int FIX_2_613125930 = 669;
+
+inline int ifast_mul(int v, int c) { return (int)(((int64_t)v * c) >> IFAST_CONST_BITS); }
+
+void idct_ifast(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
+  int ws[64];
+  for (int c = 0; c < 8; c++) {
+    const int16_t* in = coef + c;
+    const int16_t* qt = q + c;
+    int* w = ws + c;
+    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 && in[40] == 0 &&
+        in[48] == 0 && in[56] == 0) {
+      int dc = (int)in[0] * qt[0];
+      for (int r = 0; r < 8; r++) w[8 * r] = dc;
+      continue;
+    }
+    int tmp0 = (int)in[0] * qt[0], tmp1 = (int)in[16] * qt[16];
+    int tmp2 = (int)in[32] * qt[32], tmp3 = (int)in[48] * qt[48];
+    int tmp10 = tmp0 + tmp2, tmp11 = tmp0 - tmp2;
+    int tmp13 = tmp1 + tmp3;
+    int tmp12 = ifast_mul(tmp1 - tmp3, FIX_1_414213562) - tmp13;
+    tmp0 = tmp10 + tmp13;
+    tmp3 = tmp10 - tmp13;
+    tmp1 = tmp11 + tmp12;
+    tmp2 = tmp11 - tmp12;
+    int tmp4 = (int)in[8] * qt[8], tmp5 = (int)in[24] * qt[24];
+    int tmp6 = (int)in[40] * qt[40], tmp7 = (int)in[56] * qt[56];
+    int z13 = tmp6 + tmp5, z10 = tmp6 - tmp5, z11 = tmp4 + tmp7, z12 = tmp4 - tmp7;
+    tmp7 = z11 + z13;
+    tmp11 = ifast_mul(z11 - z13, FIX_1_414213562);
+    int z5 = ifast_mul(z10 + z12, FIX_1_847759065_F);
+    tmp10 = ifast_mul(z12, FIX_1_082392200) - z5;
+    tmp12 = ifast_mul(z10, -FIX_2_613125930) + z5;
+    tmp6 = tmp12 - tmp7;
+    tmp5 = tmp11 - tmp6;
+    tmp4 = tmp10 + tmp5;
+    w[0] = tmp0 + tmp7;
+    w[56] = tmp0 - tmp7;
+    w[8] = tmp1 + tmp6;
+    w[48] = tmp1 - tmp6;
+    w[16] = tmp2 + tmp5;
+    w[40] = tmp2 - tmp5;
+    w[32] = tmp3 + tmp4;
+    w[24] = tmp3 - tmp4;
+  }
+  const uint8_t* rl = kRange.t;
+  const int n = PASS1_BITS + 3;
+  for (int r = 0; r < 8; r++) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + (size_t)r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 && w[6] == 0 &&
+        w[7] == 0) {
+      uint8_t v = rl[(w[0] >> n) & 1023];
+      for (int c = 0; c < 8; c++) o[c] = v;
+      continue;
+    }
+    int tmp10 = w[0] + w[4], tmp11 = w[0] - w[4];
+    int tmp13 = w[2] + w[6];
+    int tmp12 = ifast_mul(w[2] - w[6], FIX_1_414213562) - tmp13;
+    int tmp0 = tmp10 + tmp13, tmp3 = tmp10 - tmp13, tmp1 = tmp11 + tmp12, tmp2 = tmp11 - tmp12;
+    int z13 = w[5] + w[3], z10 = w[5] - w[3], z11 = w[1] + w[7], z12 = w[1] - w[7];
+    int tmp7 = z11 + z13;
+    tmp11 = ifast_mul(z11 - z13, FIX_1_414213562);
+    int z5 = ifast_mul(z10 + z12, FIX_1_847759065_F);
+    tmp10 = ifast_mul(z12, FIX_1_082392200) - z5;
+    tmp12 = ifast_mul(z10, -FIX_2_613125930) + z5;
+    int tmp6 = tmp12 - tmp7, tmp5 = tmp11 - tmp6, tmp4 = tmp10 + tmp5;
+    o[0] = rl[((tmp0 + tmp7) >> n) & 1023];
+    o[7] = rl[((tmp0 - tmp7) >> n) & 1023];
+    o[1] = rl[((tmp1 + tmp6) >> n) & 1023];
+    o[6] = rl[((tmp1 - tmp6) >> n) & 1023];
+    o[2] = rl[((tmp2 + tmp5) >> n) & 1023];
+    o[5] = rl[((tmp2 - tmp5) >> n) & 1023];
+    o[4] = rl[((tmp3 + tmp4) >> n) & 1023];
+    o[3] = rl[((tmp3 - tmp4) >> n) & 1023];
+  }
+}
+
+// jddctmgr.c start_pass, JDCT_IFAST: the quantisation table (natural order)
+// times the AAN scale factors, descaled by CONST_BITS - IFAST_SCALE_BITS = 12
+void ifast_table(const uint16_t* q, int16_t* out) {
+  static const int kAanScales[64] = {
+      16384, 22725, 21407, 19266, 16384, 12873, 8867,  4520,  22725, 31521, 29692, 26722, 22725,
+      17855, 12299, 6270,  21407, 29692, 27969, 25172, 21407, 16819, 11585, 5906,  19266, 26722,
+      25172, 22654, 19266, 15137, 10426, 5315,  16384, 22725, 21407, 19266, 16384, 12873, 8867,
+      4520,  12873, 17855, 16819, 15137, 12873, 10114, 6967,  3552,  8867,  12299, 11585, 10426,
+      8867,  6967,  4799,  2446,  4520,  6270,  5906,  5315,  4520,  3552,  2446,  1247};
+  for (int i = 0; i < 64; i++) out[i] = (int16_t)descale((int64_t)q[i] * kAanScales[i], 12);
+}
+
 // ------------------------------------------------------------- decoder
 struct Huffman {
   bool defined = false;
@@ -242,18 +462,29 @@ struct Huffman {
 struct Component {
   int id, h, v, tq;
   int dc_tbl = 0, ac_tbl = 0;
-  int width, height;      // downsampled size (ceil)
+  int width, height;      // downsampled size (ceil) at full scale
   int bw, bh;             // blocks of the interleaved MCU grid
-  int stride;             // bw * 8
+  int ssize;              // the block's size after the scaled IDCT: 8, 4, 2 or 1
+  int sw, sh;             // downsampled size at the output scale (jdmaster.c)
+  int stride;             // bw * ssize
   std::vector<uint8_t> plane;
   int dc_pred = 0;
 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : p_(data), n_(n) {}
+  // denom: libjpeg's scale_denom (1, 2, 4 or 8, scale_num 1); fast: JDCT_IFAST
+  // for the components whose scaled block size is 8 (libjpeg runs its reduced
+  // IDCTs on the others whatever dct_method says)
+  Decoder(const uint8_t* data, size_t n, int denom = 1, bool fast = false)
+      : p_(data), n_(n), fast_(fast) {
+    if (denom != 1 && denom != 2 && denom != 4 && denom != 8)
+      fail("scale denominator must be 1, 2, 4 or 8");
+    min_ssize_ = 8 / denom;
+  }
 
   int width = 0, height = 0, ncomp = 0;
+  int out_width = 0, out_height = 0;  // ceil(width / denom), ceil(height / denom)
 
   void read_header() {
     if (n_ < 4 || p_[0] != 0xFF || p_[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
@@ -294,12 +525,15 @@ class Decoder {
  private:
   const uint8_t* p_;
   size_t n_;
+  bool fast_;
+  int min_ssize_ = 8;
   size_t pos_ = 0, sos_pos_ = 0;
   bool frame_ = false, jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
   int restart_interval_ = 0;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   uint16_t qt_[4][64];
+  int16_t qt_fast_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
   Component comp_[3];
@@ -408,15 +642,26 @@ class Decoder {
     }
     mcux_ = (width + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (height + 8 * vmax_ - 1) / (8 * vmax_);
+    const int m = min_ssize_;
+    out_width = (int)(((int64_t)width * m + 7) / 8);
+    out_height = (int)(((int64_t)height * m + 7) / 8);
     decoded_.assign(ncomp, 0);
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp_[i];
       c.width = (int)(((int64_t)width * c.h + hmax_ - 1) / hmax_);
       c.height = (int)(((int64_t)height * c.v + vmax_ - 1) / vmax_);
+      // jdmaster.c jpeg_calc_output_dimensions: a subsampled component is
+      // scaled up through a larger IDCT where the ratio allows, not upsampled
+      int ss = m;
+      while (ss < 8 && (hmax_ * m) % (c.h * ss * 2) == 0 && (vmax_ * m) % (c.v * ss * 2) == 0)
+        ss *= 2;
+      c.ssize = ss;
+      c.sw = (int)(((int64_t)width * c.h * ss + hmax_ * 8 - 1) / (hmax_ * 8));
+      c.sh = (int)(((int64_t)height * c.v * ss + vmax_ * 8 - 1) / (vmax_ * 8));
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
-      c.stride = c.bw * 8;
-      c.plane.assign((size_t)c.stride * c.bh * 8, 0);
+      c.stride = c.bw * ss;
+      c.plane.assign((size_t)c.stride * c.bh * ss, 0);
     }
     frame_ = true;
   }
@@ -453,6 +698,7 @@ class Decoder {
         qt_[tq][kNatural[i]] = (uint16_t)v;
       }
       qt_defined_[tq] = true;
+      ifast_table(qt_[tq], qt_fast_[tq]);
       len -= 1 + (pq ? 128 : 64);
     }
     if (len != 0) fail("corrupt quantisation table segment");
@@ -557,7 +803,24 @@ class Decoder {
         k += 15;
       }
     }
-    idct_islow(coef, qt_[c.tq], c.plane.data() + (size_t)by * 8 * c.stride + bx * 8, c.stride);
+    const int ss = c.ssize;
+    uint8_t* dst = c.plane.data() + (size_t)by * ss * c.stride + (size_t)bx * ss;
+    switch (ss) {
+      case 8:
+        if (fast_)
+          idct_ifast(coef, qt_fast_[c.tq], dst, c.stride);
+        else
+          idct_islow(coef, qt_[c.tq], dst, c.stride);
+        break;
+      case 4:
+        idct_4x4(coef, qt_[c.tq], dst, c.stride);
+        break;
+      case 2:
+        idct_2x2(coef, qt_[c.tq], dst, c.stride);
+        break;
+      default:
+        idct_1x1(coef, qt_[c.tq], dst, c.stride);
+    }
   }
 
   void decode_scan() {
@@ -635,17 +898,19 @@ class Decoder {
   }
 
   // --- upsampling and colour conversion
-  // one full-width row (image row y) of a subsampled component, upsampled as
-  // libjpeg's fancy upsamplers do (or replicated where they do not apply)
+  // one output row y of a component, upsampled as jdsample.c does: by the
+  // ratio left after its scaled IDCT, fancy (h2v1_fancy_upsample,
+  // h2v2_fancy_upsample) unless the smallest block size is 1 or the
+  // component is at most 2 samples wide, else replicated
   void upsample_row(const Component& c, int y, uint8_t* out) const {
-    int rh = hmax_ / c.h, rv = vmax_ / c.v;
+    int rh = hmax_ * min_ssize_ / (c.h * c.ssize), rv = vmax_ * min_ssize_ / (c.v * c.ssize);
     const uint8_t* plane = c.plane.data();
-    int cw = c.width;
+    int cw = c.sw;
     if (rh == 1 && rv == 1) {
-      std::memcpy(out, plane + (size_t)y * c.stride, width);
+      std::memcpy(out, plane + (size_t)y * c.stride, out_width);
       return;
     }
-    bool fancy = cw > 2;
+    bool fancy = min_ssize_ > 1 && cw > 2;
     if (rv == 1) {  // h2v1
       const uint8_t* in = plane + (size_t)y * c.stride;
       if (!fancy) {
@@ -675,7 +940,7 @@ class Decoder {
     }
     int rf = (y & 1) ? r + 1 : r - 1;
     if (rf < 0) rf = 0;
-    if (rf > c.height - 1) rf = c.height - 1;
+    if (rf > c.sh - 1) rf = c.sh - 1;
     const uint8_t* in1 = plane + (size_t)rf * c.stride;
     int thiscolsum = in0[0] * 3 + in1[0];
     int nextcolsum = in0[1] * 3 + in1[1];
@@ -699,18 +964,19 @@ class Decoder {
   void output(uint8_t* out) const {
     if (ncomp == 1) {
       const Component& c = comp_[0];
-      for (int y = 0; y < height; y++)
-        std::memcpy(out + (size_t)y * width, c.plane.data() + (size_t)y * c.stride, width);
+      for (int y = 0; y < out_height; y++)
+        std::memcpy(out + (size_t)y * out_width, c.plane.data() + (size_t)y * c.stride,
+                    out_width);
       return;
     }
     size_t rowlen = (size_t)mcux_ * hmax_ * 8 + 16;
     std::vector<uint8_t> ry(rowlen), rcb(rowlen), rcr(rowlen);
-    for (int y = 0; y < height; y++) {
+    for (int y = 0; y < out_height; y++) {
       upsample_row(comp_[0], y, ry.data());
       upsample_row(comp_[1], y, rcb.data());
       upsample_row(comp_[2], y, rcr.data());
-      uint8_t* o = out + (size_t)y * width * 3;
-      for (int x = 0; x < width; x++) {
+      uint8_t* o = out + (size_t)y * out_width * 3;
+      for (int x = 0; x < out_width; x++) {
         int yy = ry[x], cb = rcb[x], cr = rcr[x];
         int r = yy + kYcc.cr_r[cr];
         int g = yy + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16);
@@ -1201,16 +1467,71 @@ void resample_bilinear(const uint8_t* in, int w, int h, int ch, uint8_t* out, in
   }
 }
 
+// The fast loader's separable bilinear resize (align-corners false, float
+// weights, rounded to u8), the JAX package's resize_bilinear_u8
+// (cxrmate_tpu/data/native/jpeg_decode.c) step for step, so that its bits
+// are the same: two cached horizontally filtered rows, reused when the next
+// output row's source rows overlap. Not Pillow's resampling.
+void resize_bilinear_f32(const uint8_t* in, int ih, int iw, uint8_t* out, int oh, int ow,
+                         float* rowbuf) {
+  float sy = (float)ih / (float)oh, sx = (float)iw / (float)ow;
+  int cached_y0 = -1, cached_y1 = -1;
+  float *r0 = rowbuf, *r1 = rowbuf + ow;
+  for (int oy = 0; oy < oh; oy++) {
+    float fy = ((float)oy + 0.5f) * sy - 0.5f;
+    int y0 = (int)fy - (fy < 0.0f && fy != (float)(int)fy ? 1 : 0);  // floor
+    float wy = fy - (float)y0;
+    int y1 = y0 + 1;
+    if (y0 < 0) y0 = 0;
+    if (y1 < 0) y1 = 0;
+    if (y0 > ih - 1) y0 = ih - 1;
+    if (y1 > ih - 1) y1 = ih - 1;
+    for (int pass = 0; pass < 2; pass++) {
+      int sy_row = pass ? y1 : y0;
+      float* dst = pass ? r1 : r0;
+      int* cached = pass ? &cached_y1 : &cached_y0;
+      if (*cached == sy_row) continue;
+      if (!pass && cached_y1 == sy_row) {  // the last step's y1 is this step's y0
+        std::swap(r0, r1);
+        std::swap(cached_y0, cached_y1);
+        dst = r0;
+        if (cached_y0 == sy_row) continue;
+      }
+      const uint8_t* src = in + (size_t)sy_row * iw;
+      for (int ox = 0; ox < ow; ox++) {
+        float fx = ((float)ox + 0.5f) * sx - 0.5f;
+        int x0 = (int)fx - (fx < 0.0f && fx != (float)(int)fx ? 1 : 0);
+        float wx = fx - (float)x0;
+        int x1 = x0 + 1;
+        if (x0 < 0) x0 = 0;
+        if (x1 < 0) x1 = 0;
+        if (x0 > iw - 1) x0 = iw - 1;
+        if (x1 > iw - 1) x1 = iw - 1;
+        dst[ox] = (1.0f - wx) * (float)src[x0] + wx * (float)src[x1];
+      }
+      *cached = sy_row;
+    }
+    uint8_t* orow = out + (size_t)oy * ow;
+    for (int ox = 0; ox < ow; ox++) {
+      float v = (1.0f - wy) * r0[ox] + wy * r1[ox];
+      int iv = (int)(v + 0.5f);
+      orow[ox] = (uint8_t)(iv < 0 ? 0 : (iv > 255 ? 255 : iv));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-int cxr_jpeg_info(const uint8_t* data, size_t n, int* w, int* h, int* comps, char* err, int errlen) {
+// the output size at 1/denom (jpeg_calc_output_dimensions) and the components
+int cxr_jpeg_info(const uint8_t* data, size_t n, int denom, int* w, int* h, int* comps, char* err,
+                  int errlen) {
   try {
-    Decoder d(data, n);
+    Decoder d(data, n, denom);
     d.read_header();
-    *w = d.width;
-    *h = d.height;
+    *w = d.out_width;
+    *h = d.out_height;
     *comps = d.ncomp;
     return 0;
   } catch (const Error& e) {
@@ -1222,9 +1543,11 @@ int cxr_jpeg_info(const uint8_t* data, size_t n, int* w, int* h, int* comps, cha
 }
 
 // out: [h, w] (one component) or [h, w, 3] (RGB), as cxr_jpeg_info reports
-int cxr_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int errlen) {
+// at the same denom
+int cxr_jpeg_decode(const uint8_t* data, size_t n, int denom, uint8_t* out, char* err,
+                    int errlen) {
   try {
-    Decoder d(data, n);
+    Decoder d(data, n, denom);
     d.read_header();
     d.decode(out);
     return 0;
@@ -1260,6 +1583,39 @@ int cxr_jpeg_encode(const uint8_t* px, int w, int h, int comps, int quality, int
 }
 
 void cxr_free(void* p) { std::free(p); }
+
+// Decode at 1/denom (JDCT_IFAST where fast) and resize to exactly (oh, ow)
+// with resize_bilinear_f32, per channel: out [oh, ow] for a one-component
+// source or [oh, ow, 3] (RGB). The caller asks for the layout that
+// cxr_jpeg_info's components give.
+int cxr_jpeg_decode_resized(const uint8_t* data, size_t n, int denom, int fast, int oh, int ow,
+                            uint8_t* out, char* err, int errlen) {
+  try {
+    if (oh < 1 || ow < 1) fail("empty output size");
+    Decoder d(data, n, denom, fast != 0);
+    d.read_header();
+    const int ih = d.out_height, iw = d.out_width, ch = d.ncomp == 1 ? 1 : 3;
+    std::vector<uint8_t> px((size_t)ih * iw * ch);
+    d.decode(px.data());
+    std::vector<float> rows(2 * (size_t)ow);
+    if (ch == 1) {
+      resize_bilinear_f32(px.data(), ih, iw, out, oh, ow, rows.data());
+      return 0;
+    }
+    std::vector<uint8_t> plane((size_t)ih * iw), oplane((size_t)oh * ow);
+    for (int c = 0; c < 3; c++) {
+      for (size_t i = 0; i < (size_t)ih * iw; i++) plane[i] = px[i * 3 + c];
+      resize_bilinear_f32(plane.data(), ih, iw, oplane.data(), oh, ow, rows.data());
+      for (size_t i = 0; i < (size_t)oh * ow; i++) out[i * 3 + c] = oplane[i];
+    }
+    return 0;
+  } catch (const Error& e) {
+    set_err(err, errlen, e.msg);
+  } catch (const std::exception& e) {
+    set_err(err, errlen, e.what());
+  }
+  return 1;
+}
 
 // Pillow's Image.resize((ow, oh), BILINEAR) of a [h, w, ch] uint8 image
 int cxr_resize_bilinear(const uint8_t* in, int w, int h, int ch, uint8_t* out, int ow, int oh,

@@ -4,9 +4,10 @@ Copy of ``cxrmate_tpu/tokenizer/bpe.py:61 ByteLevelBPETokenizer`` (HF
 ``tokenizers`` BPE + ByteLevel pre-tokenizer and decoder, specials
 ``[UNK][BOS][EOS][SEP][PAD][MASK]`` plus the ``bpe_prompt`` extras), reading
 and writing HF ``tokenizer.json``, and ``train_bpe``, the copy of
-``cxrmate_tpu/tokenizer/train.py``. Only the Python encoder: no native fast
-path. Encoding and training need the ``regex`` package, imported at first
-use; decoding does not.
+``cxrmate_tpu/tokenizer/train.py``. The native C++ encoder is opt-in
+(``tokenizer/native_binding.py:attach``), as in JAX; this Python encoder is
+its oracle. Encoding and training need the ``regex`` package, imported at
+first use; decoding and the native encoder do not.
 """
 
 from __future__ import annotations
@@ -94,6 +95,7 @@ class ByteLevelBPETokenizer:
         self._specials_sorted = sorted(self.all_special_tokens, key=len, reverse=True)
 
         self._cache: Dict[str, List[str]] = {}
+        self._native = None  # the C++ encoder, once attached
 
     # -- special-token properties matching PreTrainedTokenizerFast ------------
     @property
@@ -191,9 +193,19 @@ class ByteLevelBPETokenizer:
             chunks = next_chunks
         return chunks
 
+    def attach_native(self, native) -> None:
+        """Attach a C++ encoder implementing ``encode(text) -> List[int]``."""
+        self._native = native
+
     def encode(self, text: str) -> List[int]:
         """Encode text to token ids (no implicit specials, like the reference which
-        always tokenizes with ``add_special_tokens=False``)."""
+        always tokenizes with ``add_special_tokens=False``); through the
+        native encoder once one is attached."""
+        if self._native is not None:
+            return self._native.encode(text)
+        return self._encode_py(text)
+
+    def _encode_py(self, text: str) -> List[int]:
         b2u = bytes_to_unicode()
         split = _byte_level_split_re()
         ids: List[int] = []

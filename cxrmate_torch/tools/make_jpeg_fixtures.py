@@ -1,6 +1,7 @@
 """Write the JPEG fixtures that hold the port's decoder to PIL where PIL is absent.
 
-    python -m cxrmate_torch.tools.make_jpeg_fixtures     # needs PIL
+    python -m cxrmate_torch.tools.make_jpeg_fixtures            # needs PIL
+    python -m cxrmate_torch.tools.make_jpeg_fixtures --routes   # the port's codec only
 
 Writes a handful of small JPEGs saved by PIL (gray, YCbCr 4:2:0, 4:2:2 and
 4:4:4, odd sizes, qualities 75 and 95, one with restart markers) and the
@@ -9,12 +10,24 @@ pixels PIL decodes from each (``<name>.npy``) into
 test_codec_matches_pil_fixtures`` and ``chip_smoke.py``'s ``data`` phase
 decode them with the port's codec on a machine without PIL and require the
 same pixels, bit for bit.
+
+``--routes`` writes, from the committed JPEGs and with the port's codec,
+the training loaders' native routes (``<name>.<case>.npy``, see
+``route_cases``): the DCT-scaled RGB decode at targets that reach denoms 2,
+4 and 8, and the fused fast decode and resize in gray mode (a colour source
+comes back RGB) at denoms 1 and 2 with JDCT_IFAST and with ISLOW.
+``tests/test_torch_scaled_decode.py`` holds each file equal to
+``cxrmate_tpu.data.native``'s output (libjpeg) on its JPEG, and
+``chip_smoke.py``'s ``entry`` phase holds the port's codec to the files.
 """
 
 from __future__ import annotations
 
+import glob
 import io
 import os
+import sys
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -43,7 +56,39 @@ def image(h: int, w: int, rgb: bool, seed: int) -> np.ndarray:
     return np.clip(base + rs.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
 
 
+def route_cases(height: int, width: int) -> List[Tuple[str, str, Dict]]:
+    """(case, function of ``data.native``, keyword arguments) of the route
+    fixtures of a JPEG of that size; the function takes the path first."""
+    s = min(height, width)
+    cases = [(f"scaled{d}", "load_jpeg_scaled", dict(target_shortest=s // d)) for d in (2, 4, 8)]
+    for t in (s - 5, s // 2):  # denom 1 (IFAST applies) and denom 2
+        for fast in (True, False):
+            cases.append((f"fast{t}_{'ifast' if fast else 'islow'}", "load_jpeg_resized",
+                          dict(target_shortest=t, gray=True, fast_dct=fast)))
+    return cases
+
+
+def route_fixtures() -> List[Tuple[str, str, str, Dict]]:
+    """(jpg path, npy path, function name, kwargs) of every route fixture."""
+    out = []
+    for jpg in sorted(glob.glob(os.path.join(OUT, "*.jpg"))):
+        h, w = np.load(jpg[:-4] + ".npy", mmap_mode="r").shape[:2]
+        for case, fn, kw in route_cases(h, w):
+            out.append((jpg, f"{jpg[:-4]}.{case}.npy", fn, kw))
+    return out
+
+
+def write_routes() -> None:
+    from cxrmate_torch.data import native
+
+    for jpg, npy, fn, kw in route_fixtures():
+        np.save(npy, getattr(native, fn)(jpg, **kw))
+    print(len(route_fixtures()), "route fixtures")
+
+
 def main() -> None:
+    if "--routes" in sys.argv[1:]:
+        return write_routes()
     from PIL import Image
 
     os.makedirs(OUT, exist_ok=True)

@@ -144,6 +144,24 @@ def test_yaml_subset_refuses_or_agrees(value):
     assert typed_equal(got, want), value
 
 
+@pytest.mark.parametrize("text", ["0[' #", "-' #", "0[a, 'b #", "a: 0[' # c", "- -' # c",
+                                  "[a, 'b # c'] # d"])
+def test_yaml_subset_quote_inside_a_plain_scalar_is_text(text):
+    """A quote or ``[`` inside a plain scalar opens nothing: the comment
+    after it is stripped, as safe_load strips it."""
+    assert typed_equal(yaml_subset.load(text), yaml.safe_load(text)), text
+
+
+@pytest.mark.parametrize("text", ["[:']", "[a, :b]", "0x_", "-0b_"])
+def test_yaml_subset_refuses_what_safe_load_refuses(text):
+    """A flow scalar led by ':' and an integer without digits: safe_load
+    fails on them, and the reader refuses them naming the line."""
+    with pytest.raises((yaml.YAMLError, ValueError)):
+        yaml.safe_load(text)
+    with pytest.raises(ValueError, match=r"^line \d+: "):
+        yaml_subset.load(text)
+
+
 @pytest.mark.parametrize("text", [
     "{a: 1}", "a: {b: 1}", "&x 1", "a: *x", "!!str 1", "a: |\n  text", "a: >\n  text",
     "a: b\n  c", "---\na: 1", "a: 2001-12-14", "=", "<<: 1", "\ta: 1", "a:\n\t- 1",

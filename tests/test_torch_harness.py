@@ -134,7 +134,8 @@ def _shared():
 def test_port_imports_no_jax():
     """Importing every module of cxrmate_torch (SCST and the CXR-BERT reward,
     the scorers, the checkpoints, the data pipeline, the CLI, the process
-    group and the tracing helpers among them),
+    group, the tracing helpers, the examples, the scripts and the native
+    tokenizer among them),
     and chip_smoke.py, loads neither jax nor cxrmate_tpu, nor yaml, pandas,
     PIL or safetensors, which the port must not need (checked in a fresh
     interpreter: this one has JAX loaded)."""
@@ -159,6 +160,12 @@ def test_port_imports_no_jax():
         "        'cxrmate_torch.cli.yaml_subset'} <= set(names), names\n"
         "assert {'cxrmate_torch.parallel.mesh', 'cxrmate_torch.parallel.multihost',\n"
         "        'cxrmate_torch.parallel.dryrun', 'cxrmate_torch.utils.tracing'} <= set(names), names\n"
+        "assert {'cxrmate_torch.examples.' + m for m in ('generate_single', 'generate_multi',\n"
+        "        'generate_longitudinal', 'train_tokenizer')} <= set(names), names\n"
+        "assert {'cxrmate_torch.scripts.' + m for m in ('warm_cache', 'reproduce_test_set',\n"
+        "        'convert_checkpoint')} <= set(names), names\n"
+        "assert {'cxrmate_torch.tokenizer.native_binding',\n"
+        "        'cxrmate_torch.utils.host_build'} <= set(names), names\n"
         "assert len(names) >= 50, names\n"
         "assert not bad, bad\n"
         "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('yaml', 'pandas', 'PIL', 'safetensors'))\n"

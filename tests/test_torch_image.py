@@ -165,10 +165,12 @@ def test_unsupported_jpegs_raise_naming_the_file_and_feature():
 
 
 def test_missing_compiler_raises(monkeypatch):
+    from cxrmate_torch.utils import host_build
+
     monkeypatch.delenv("CXX", raising=False)
-    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    monkeypatch.setattr(host_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
-        native._cxx()
+        host_build.cxx()
 
 
 # ----------------------------------------------------------- resize, rotation
@@ -253,7 +255,7 @@ def test_train_loader_matches_jax(tmp_path, cached):
 
     jpgs = _jax_dataset(tmp_path / "ds")
     kw = dict(cache_dir=str(tmp_path / "cache")) if cached else {}
-    port = ti.make_train_loader_transform(32, seed=3, **kw)
+    port = ti.make_train_loader_transform(32, seed=3, native_decode=False, **kw)
     ref = ji.make_train_loader_transform(32, seed=3, native_decode=False)
     for epoch in (0, 1):
         port.set_epoch(epoch)
@@ -285,7 +287,7 @@ def test_cache_entries_serve_the_other_package(tmp_path, writer):
     for pkg in ("jax", "port"):
         d = str(tmp_path / f"cache-{pkg}")
         mod = ji if pkg == "jax" else ti
-        train_kw = {"native_decode": False} if pkg == "jax" else {}
+        train_kw = {"native_decode": False}
         caches[pkg] = (mod.make_eval_loader_transform(32, cache_dir=d),
                        mod.make_train_loader_transform(32, seed=5, cache_dir=d, **train_kw), d)
         caches[pkg][0](src)
