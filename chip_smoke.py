@@ -216,7 +216,16 @@ Phases, each printing one JSON line:
                _decode_step_outputs; wall seconds, ms per micro-step, decode
                and save seconds, MB written, peak memory; whether yaml and
                transformers import there; the TF32 settings.
-  12. entry   - (after multiprocess, on the cli phase's tree and zoo) the
+  12. tensor_parallel - (after multiprocess, beside its one-process runs)
+               the CLI with mesh_model=2 on gloo ranks sharing the card
+               (python -m torch.distributed.run ... cli.stages): the multi
+               fit (bf16) and the beam-4 test (fp32) at mesh 2x2, SCST (fp32)
+               at 1x2, under the multiprocess phase's gates; decode_attention
+               and beam_reorder_write at 6 and 3 heads (a model rank's at
+               model 2 and 4) against their plain versions; each rank's
+               launches, ms per micro-step, model-group collectives (per
+               decode step and their ms) and peak memory.
+  13. entry   - (after tensor_parallel, on the cli phase's tree and zoo) the
                user entry points and the loaders' native routes: the scaled
                and fast decodes held bit for bit to the route fixtures
                (cxrmate_torch/tools/jpeg_fixtures, tied to libjpeg by
@@ -239,7 +248,7 @@ Phases, each printing one JSON line:
                directory's token ids; examples.train_tokenizer on the tree and
                the native BPE encoder equal to the Python encoder, both
                encoders' rates. Every run's launch counts checked.
-  13. kernels_device - the device time of each decode-attention kernel and of
+  14. kernels_device - the device time of each decode-attention kernel and of
                its library call at every main-path call shape, and of the
                beam reorder and its library calls at every main-path cache
                width (bf16), from torch.profiler; last, because a profiler
@@ -883,18 +892,18 @@ EXTRAS = {"decode_attention": extras_decode, "decode_attention_q8": extras_q8,
           "decode_attention_vpu": extras_vpu}
 
 
-def decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind):
-    """COPIES input sets of one decode-attention call shape (for the int8
-    kernel quantised, with the first set's unquantised K/V), its mask, and
-    the library call on a set (SDPA; for the int8 kernel the dequantise too,
-    which a library user would pay)."""
+def decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind, heads=HEADS):
+    """COPIES input sets of one decode-attention call shape (``heads`` heads;
+    for the int8 kernel quantised, with the first set's unquantised K/V), its
+    mask, and the library call on a set (SDPA; for the int8 kernel the
+    dequantise too, which a library user would pay)."""
     mask = key_mask(torch, kind, b, s)
     bool_mask = (mask == 0)[:, None, None, :]
     sets, floats = [], None
     for _ in range(COPIES):
-        q = torch.randn(b, HEADS, m, HEAD_DIM, generator=g, device="cuda").to(dtype)
-        k = torch.randn(b, HEADS, s, HEAD_DIM, generator=g, device="cuda")
-        v = torch.randn(b, HEADS, s, HEAD_DIM, generator=g, device="cuda")
+        q = torch.randn(b, heads, m, HEAD_DIM, generator=g, device="cuda").to(dtype)
+        k = torch.randn(b, heads, s, HEAD_DIM, generator=g, device="cuda")
+        v = torch.randn(b, heads, s, HEAD_DIM, generator=g, device="cuda")
         if kernel == "decode_attention_q8":
             sets.append((q, *da.quantize_kv_rowwise(k), *da.quantize_kv_rowwise(v)))
             floats = floats or (k, v)
@@ -911,15 +920,17 @@ def decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind):
     return sets, floats, mask, library
 
 
-def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
-    """One decode-attention call shape of a main path: the kernel against its
-    plain version, also with row 0 fully masked (the uniform softmax, finite),
-    the kernel's own extra checks, and the times of the kernel, the plain
+def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind, heads=HEADS):
+    """One decode-attention call shape of a main path (``heads`` heads: a
+    model rank's under tensor parallelism): the kernel against its plain
+    version, also with row 0 fully masked (the uniform softmax, finite), the
+    kernel's own extra checks, and the times of the kernel, the plain
     version and the library call (decode_inputs) by the host clock around
     back-to-back calls; their device times come from decode_device_phase."""
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     run, plain = getattr(da, kernel), getattr(da, kernel + "_plain")
-    sets, floats, mask, library = decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind)
+    sets, floats, mask, library = decode_inputs(torch, da, F, g, dtype, kernel, b, m, s, kind,
+                                                heads)
     args = sets[0]
     got = run(*args, mask, 0.125)
     want = plain(*args, mask, 0.125)
@@ -947,7 +958,7 @@ def check_decode_call(torch, da, F, g, dtype, kernel, b, m, s, kind):
     # kernels the cluster kernels replaced read
     e = args[0].element_size()
     per_key = 2 * HEAD_DIM + 8 if kernel == "decode_attention_q8" else 2 * HEAD_DIM * e
-    every_key = 2 * args[0].numel() * e + b * s * HEADS * per_key + mask.numel() * 4
+    every_key = 2 * args[0].numel() * e + b * s * heads * per_key + mask.numel() * 4
     out["bytes_read"] = out["bytes"]
     out["bytes_read_every_key"] = every_key
     return out
@@ -1084,24 +1095,24 @@ def reorder_work(cache, sel, index, beams) -> float:
     return 2 * per_cache + sel.numel() * 4
 
 
-def reorder_inputs(torch, dtype, t_len, g):
-    """A function making one input set (K/V caches of STUDIES studies x 4
-    beams and the new column) of a reorder at width t_len, the beam
-    selection (with repeated sources), and the library call on a set
-    (index_select + index_copy_ at column 100)."""
-    r, beams = STUDIES * 4, 4
+def reorder_inputs(torch, dtype, t_len, g, heads=HEADS, studies=STUDIES):
+    """A function making one input set (K/V caches of ``studies`` studies x 4
+    beams, ``heads`` heads, and the new column) of a reorder at width t_len,
+    the beam selection (with repeated sources), and the library call on a
+    set (index_select + index_copy_ at column ``reorder_column(t_len)``)."""
+    r, beams = studies * 4, 4
 
     def inputs():
-        ck = torch.randn(r, HEADS, t_len, HEAD_DIM, generator=g, device="cuda").to(dtype)
-        cv = torch.randn(r, HEADS, t_len, HEAD_DIM, generator=g, device="cuda").to(dtype)
-        nk = torch.randn(r, HEADS, HEAD_DIM, generator=g, device="cuda").to(dtype)
-        nv = torch.randn(r, HEADS, HEAD_DIM, generator=g, device="cuda").to(dtype)
+        ck = torch.randn(r, heads, t_len, HEAD_DIM, generator=g, device="cuda").to(dtype)
+        cv = torch.randn(r, heads, t_len, HEAD_DIM, generator=g, device="cuda").to(dtype)
+        nk = torch.randn(r, heads, HEAD_DIM, generator=g, device="cuda").to(dtype)
+        nv = torch.randn(r, heads, HEAD_DIM, generator=g, device="cuda").to(dtype)
         return ck, cv, nk, nv
 
     sel = torch.randint(0, beams, (r,), generator=g, device="cuda", dtype=torch.int32)
     sel[:beams] = torch.tensor([1, 1, 0, 1], dtype=torch.int32)  # repeated sources
     src = torch.arange(r, device="cuda") // beams * beams + sel.long()
-    col = torch.tensor([100], device="cuda")
+    col = torch.tensor([reorder_column(t_len)], device="cuda")
 
     def library(ck, cv, nk, nv):
         for cache, new in ((ck, nk), (cv, nv)):
@@ -1111,28 +1122,36 @@ def reorder_inputs(torch, dtype, t_len, g):
     return inputs, sel, library
 
 
-def check_reorder(torch, br, dtype, t_len):
-    """One in-place reorder of the [32, 12, t_len, 64] self K/V cache of
-    STUDIES studies x 4 beams with the step's column written: bit-exact
-    against the plain version at a middle, the first and the last column and
-    without a write; timed at column 100."""
+def reorder_column(t_len: int) -> int:
+    """The middle column a reorder check writes and is timed at: 100, or the
+    middle of a cache narrower than 200."""
+    return min(100, t_len // 2)
+
+
+def check_reorder(torch, br, dtype, t_len, heads=HEADS, studies=STUDIES):
+    """One in-place reorder of the [4 * studies, heads, t_len, 64] self K/V
+    cache of ``studies`` studies x 4 beams (by default STUDIES and all 12
+    heads) with the step's column written: bit-exact against the plain
+    version at a middle column (``reorder_column``), the first and the last
+    and without a write; timed at the middle column."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     beams = 4
-    inputs, sel, library = reorder_inputs(torch, dtype, t_len, g)
-    exact = True
-    for index in (100, 0, t_len - 1, -1):
+    inputs, sel, library = reorder_inputs(torch, dtype, t_len, g, heads, studies)
+    exact, mid = True, reorder_column(t_len)
+    for index in (mid, 0, t_len - 1, -1):
         ck, cv, nk, nv = inputs()
         a, b = ck.clone(), cv.clone()
         br.beam_reorder_write(ck, cv, nk, nv, sel, index, beams)
         br.beam_reorder_write_plain(a, b, nk, nv, sel, index, beams)
         exact &= torch.equal(ck, a) and torch.equal(cv, b)
     sets = [inputs() for _ in range(COPIES)]
-    return {"t": t_len, "exact": exact, "max_abs_err": 0.0 if exact else float("inf"),
-            "ms": time_ms([lambda a=a: br.beam_reorder_write(*a, sel, 100, beams) for a in sets]),
-            "plain_ms": time_ms([lambda a=a: br.beam_reorder_write_plain(*a, sel, 100, beams)
+    return {"t": t_len, "heads": heads, "rows": 4 * studies, "exact": exact,
+            "max_abs_err": 0.0 if exact else float("inf"),
+            "ms": time_ms([lambda a=a: br.beam_reorder_write(*a, sel, mid, beams) for a in sets]),
+            "plain_ms": time_ms([lambda a=a: br.beam_reorder_write_plain(*a, sel, mid, beams)
                                  for a in sets]),
             "library_ms": time_ms([lambda a=a: library(*a) for a in sets]),
-            "bytes": reorder_work(sets[0][0], sel, 100, beams), "flops": 0.0}
+            "bytes": reorder_work(sets[0][0], sel, mid, beams), "flops": 0.0}
 
 
 def time_cold_ms(fns, reps: int = 20, warmup: int = 2) -> float:
@@ -3795,6 +3814,30 @@ def implied_launches(wrappers, c, depth, layers, encoder_trains):
     return want
 
 
+def cli_tree(np, ckpts):
+    """The cli phase's JPEG tree (CLI_SPLITS) and zoo: the main phases'
+    multi and longitudinal checkpoints as aehrc/cxrmate-multi-tf and
+    aehrc/cxrmate-tf, the repository tokenizer, build_synthetic_cxrbert's
+    CXR-BERT. -> (root, zoo, dataset_dir, image paths, seconds to write)."""
+    from cxrmate_torch.data.synthetic import build_synthetic_cxrbert
+    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
+
+    root = os.path.join(SMOKE_DIR, "cli")
+    zoo = os.path.join(root, "checkpoints")
+    os.makedirs(os.path.join(zoo, "aehrc"))
+    os.symlink(ckpts["multi"], os.path.join(zoo, "aehrc", "cxrmate-multi-tf"))
+    os.symlink(ckpts["longitudinal"], os.path.join(zoo, "aehrc", "cxrmate-tf"))
+    tok_dir = os.path.join(zoo, "mimic-cxr-tokenizers", "bpe_prompt")
+    os.makedirs(tok_dir)
+    shutil.copy(os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json"),
+                tok_dir)
+    build_synthetic_cxrbert(zoo)
+    t0 = time.perf_counter()
+    dataset_dir, _, paths = write_data_tree(np, root, ByteLevelBPETokenizer.from_file(tok_dir),
+                                            CLI_SPLITS)
+    return root, zoo, dataset_dir, paths, time.perf_counter() - t0
+
+
 def cli_phase(torch, np, ckpts):
     """The train/test CLI on the card: cxrmate_torch.cli.stages.main(argv),
     in this process, on the repository's configs, at full width, with the
@@ -3823,26 +3866,12 @@ def cli_phase(torch, np, ckpts):
     from cxrmate_torch.cli import config as cli_config
     from cxrmate_torch.cli import stages
     from cxrmate_torch.data.pipeline import batch_iterator
-    from cxrmate_torch.data.synthetic import build_synthetic_cxrbert
-    from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
 
-    root = os.path.join(SMOKE_DIR, "cli")
-    zoo = os.path.join(root, "checkpoints")
-    os.makedirs(os.path.join(zoo, "aehrc"))
-    os.symlink(ckpts["multi"], os.path.join(zoo, "aehrc", "cxrmate-multi-tf"))
-    os.symlink(ckpts["longitudinal"], os.path.join(zoo, "aehrc", "cxrmate-tf"))
-    tok_dir = os.path.join(zoo, "mimic-cxr-tokenizers", "bpe_prompt")
-    os.makedirs(tok_dir)
-    shutil.copy(os.path.join(REPO, "artifacts", "tokenizer", "bpe_prompt", "tokenizer.json"),
-                tok_dir)
-    build_synthetic_cxrbert(zoo)
-    t0 = time.perf_counter()
-    dataset_dir, _, paths = write_data_tree(np, root, ByteLevelBPETokenizer.from_file(tok_dir),
-                                            CLI_SPLITS)
+    root, zoo, dataset_dir, paths, write_s = cli_tree(np, ckpts)
     exp = os.path.join(root, "experiments")
     common = [f"exp_dir={exp}", f"dataset_dir={dataset_dir}", f"ckpt_zoo_dir={zoo}"]
     res = {"phase": "cli", "tree": {"subjects": len(CLI_SPLITS), "studies": 2 * len(CLI_SPLITS),
-                                    "images": len(paths), "write_s": time.perf_counter() - t0},
+                                    "images": len(paths), "write_s": write_s},
            "yaml_importable": importlib.util.find_spec("yaml") is not None,
            "transformers_importable": importlib.util.find_spec("transformers") is not None,
            "tf32": {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -3957,14 +3986,20 @@ def cli_phase(torch, np, ckpts):
 # the multiprocess phase: the CLI's runs on 2 ranks (gloo: both on the one
 # card) against the same runs in one process, and a world-1 NCCL group.
 # The 2-rank train and test runs force static widths and image slots; the
-# one-process runs are given the same (static_tf_pad, pad_images=max).
+# one-process runs are given the same (static_tf_pad, pad_images=max). The
+# pairs of this phase and of the tensor_parallel phase decode and train at
+# MP_MAX_LEN tokens, a cut from the configs' 256 for the script's time: their
+# runs are host-bound decode loops (ranks, collectives), and the cli phase
+# runs the full length.
+MP_NEW_TOKENS = 63
+MP_MAX_LEN = f"decoder_max_len={MP_NEW_TOKENS + 1}"
 MP_FIT = ["warm_start_name=aehrc/cxrmate-multi-tf", "max_epochs=1", "mbatch_size=4",
-          "accumulated_mbatch_size=8", "static_tf_pad=true", "pad_images=max"]
+          "accumulated_mbatch_size=8", "static_tf_pad=true", "pad_images=max", MP_MAX_LEN]
 # SCST in fp32: both runs then sample the same tokens, so its loss, reward,
 # baseline and update are gated like the fit's (in bf16 a rank's rollout
 # rounds its logits otherwise and samples other reports)
 MP_SCST = ["warm_start_name=aehrc/cxrmate-tf", "fast_dev_run=true", "mbatch_size=2",
-           "accumulated_mbatch_size=2", "precision=32"]
+           "accumulated_mbatch_size=2", "precision=32", MP_MAX_LEN]
 # cuDNN's TF32 (PyTorch's default: on) in the fp32 pairs, the test's and
 # SCST's, in both runs: off. The encoder's convolutions at a rank's batch and
 # at one process's may run other cuDNN engines, whose TF32 roundings (2^-11)
@@ -4006,7 +4041,9 @@ def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
     """One rank of the multiprocess phase, started by torch.distributed.run:
     ``cli.stages.main(argv)`` with the calls of the launch gates counted,
     the training micro-steps and the gradient all-reduces timed
-    (synchronised), then a JSON file ``rank{RANK}.json`` in ``out_dir``.
+    (synchronised), and under tensor parallelism the model group's
+    collectives (counted, timed synchronised, and those inside decode steps
+    apart), then a JSON file ``rank{RANK}.json`` in ``out_dir``.
     ``cudnn_tf32``: the process's ``torch.backends.cudnn.allow_tf32``."""
     import torch
 
@@ -4014,6 +4051,7 @@ def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
 
     sys.path.insert(0, REPO)
     from cxrmate_torch.cli import stages
+    from cxrmate_torch.models import bert as bert_mod
     from cxrmate_torch.utils import dist
 
     calls, secs, undo = {}, {}, []
@@ -4022,11 +4060,11 @@ def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
     flat_sum, init = dist.all_reduce_sum, stages.initialize_if_needed
     bn_fwd, bn_bwd = dist._AllReduceSum.forward, dist._AllReduceSum.backward
 
-    def timed_sum(tensors):
+    def timed_sum(tensors, group=None):
         tensors = list(tensors)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = flat_sum(tensors)
+        out = flat_sum(tensors, group)
         torch.cuda.synchronize()
         reduces.append(((time.perf_counter() - t) * 1e3,
                         sum(x.numel() * x.element_size() for x in tensors) / 1e6))
@@ -4035,14 +4073,37 @@ def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
     def timed_bn(fn, way):
         # BatchNorm's differentiable all-reduces (the global batch's moments),
         # both ways, synchronised
-        def run(ctx, tensor):
+        def run(ctx, *args):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(ctx, tensor)
+            out = fn(ctx, *args)
             torch.cuda.synchronize()
             bn_ms[way].append((time.perf_counter() - t) * 1e3)
             return out
         return staticmethod(run)
+
+    # the model group's collectives (tensor parallelism): the row-parallel
+    # sums and the vocabulary gather forward, the copies' sums backward
+    tp_ms, in_step = {}, {"on": False, "count": 0, "ms": 0.0}
+
+    def timed_tp(fn, kind):
+        def run(ctx, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(ctx, *args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            tp_ms.setdefault(kind, []).append(ms)
+            if in_step["on"]:
+                in_step["count"] += 1
+                in_step["ms"] += ms
+            return out
+        return staticmethod(run)
+
+    for fn_owner, way, kind in ((dist._ReduceFromGroup, "forward", "reduce"),
+                                (dist._GatherFromGroup, "forward", "gather"),
+                                (dist._CopyToGroup, "backward", "copy_backward")):
+        setattr(fn_owner, way, timed_tp(getattr(fn_owner, way), kind))
 
     def joined(device):
         out = init(device)
@@ -4055,6 +4116,24 @@ def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
     dist._AllReduceSum.forward = timed_bn(bn_fwd, "forward")
     dist._AllReduceSum.backward = timed_bn(bn_bwd, "backward")
     stages.initialize_if_needed = joined
+    counted_step = bert_mod.bert_step  # patch_cli_calls's counting wrapper
+
+    def step_collectives(*a, **kw):
+        in_step["on"] = True
+        try:
+            return counted_step(*a, **kw)
+        finally:
+            in_step["on"] = False
+
+    bert_mod.bert_step = step_collectives
+    make_mesh = stages.mesh_mod.make_mesh
+
+    def made_mesh(data=None, model=1):
+        out = make_mesh(data, model)
+        info["mesh"] = [out.data, out.model]
+        return out
+
+    stages.mesh_mod.make_mesh = made_mesh
     wrappers = all_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4074,6 +4153,9 @@ def mp_rank_main(out_dir, argv, cudnn_tf32=True) -> int:
                    "other_all_reduces": len(reduces) - len(grads),
                    "batch_norm_all_reduce_ms": {k: sum(v) for k, v in bn_ms.items()},
                    "batch_norm_all_reduces": {k: len(v) for k, v in bn_ms.items()},
+                   "tp_collectives": {k: {"count": len(v), "ms": sum(v)} for k, v in tp_ms.items()},
+                   "decode_step_collectives": in_step["count"],
+                   "decode_step_collective_ms": in_step["ms"],
                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
     restore_calls(undo)
     return 0
@@ -4243,11 +4325,64 @@ def check_draws(torch):
     return out
 
 
+def check_rank_launches(phase, name, args, ranks, encoder_trains):
+    """Each rank's launches as its own encodes, decode steps and beam
+    searches imply, and no plain version run -> (the run's task, its
+    launches summed over the ranks)."""
+    from cxrmate_torch.cli import config as cli_config
+    from cxrmate_torch.cli import stages
+
+    wrappers = all_wrappers()
+    task = cli_config.parse_args(args)
+    for r in ranks:
+        want = expected_launches(stages, wrappers, r["calls"], task, encoder_trains)
+        if r["launches"] != want or r["calls"].get("plain", 0):
+            raise AssertionError(f"{phase} {name} rank {r['rank']}: launches "
+                                 f"{r['launches']}, expected {want} from {r['calls']}")
+    return task, {k: sum(r["launches"][k] for r in ranks) for k in wrappers}
+
+
+def rank_view(ranks):
+    """What each rank's JSON says, for the phase's line."""
+    out = []
+    for r in ranks:
+        steps = r["calls"].get("decode_step", 0) + r["calls"].get("beam_step", 0)
+        view = {"rank": r["rank"], "backend": r["backend"], "device": r["device"],
+                "mesh": r.get("mesh"), "wall_s": r["wall_s"],
+                "launches": {k: v for k, v in r["launches"].items() if v},
+                "encodes": {k: r["calls"].get(k, 0) for k in ("encode_eval", "encode_train")},
+                "decode_steps": r["calls"].get("decode_step", 0),
+                "beam_steps": r["calls"].get("beam_step", 0),
+                "ms_per_micro_step": r["ms_per_micro_step"],
+                "grad_all_reduce_ms": r["grad_all_reduce_ms"],
+                "grad_all_reduce_mb": r["grad_all_reduce_mb"],
+                "batch_norm_all_reduces": r["batch_norm_all_reduces"],
+                "batch_norm_all_reduce_ms": r["batch_norm_all_reduce_ms"],
+                "batch_norm_share_of_micro_steps": (
+                    sum(r["batch_norm_all_reduce_ms"].values())
+                    / max(sum(r["ms_per_micro_step"]), 1e-9)),
+                "peak_memory_gb": r["peak_memory_gb"]}
+        if r["tp_collectives"]:  # tensor parallelism: the model group's collectives
+            view.update(tp_collectives=r["tp_collectives"],
+                        collectives_per_decode_step=r["decode_step_collectives"] / max(steps, 1),
+                        collective_ms_per_decode_step=(r["decode_step_collective_ms"]
+                                                       / max(steps, 1)))
+        out.append(view)
+    return out
+
+
+def one_process_view(wall, calls, secs, launches, peak):
+    return {"wall_s": wall, "launches": {k: v for k, v in launches.items() if v},
+            "ms_per_micro_step": [x * 1e3 for x in secs.get("micro_step", [])],
+            "peak_memory_gb": peak}
+
+
 def multiprocess_phase(torch, np, tree):
     """The CLI on two ranks of one process group, both on the one card
     (gloo: NCCL takes one rank a device), launched as a user launches them
     (python -m torch.distributed.run ... cli.stages), at full width on the
-    cli phase's JPEG tree, against the same runs in this process:
+    cli phase's JPEG tree (MP_MAX_LEN tokens), against the same runs in
+    this process:
       * --train of config/train/multi_tf.yaml (a global batch of 4, 2 a rank,
         2 micro-steps, one AdamW update): the loss within MP_LOSS_RTOL, rank
         0's checkpoint by compare_checkpoints (first moments by MP_MU_RTOL);
@@ -4262,49 +4397,21 @@ def multiprocess_phase(torch, np, tree):
         one micro-step's gradient all-reduce through NCCL.
     The fp32 pairs (test, SCST) turn cuDNN's TF32 off in both runs
     (MP_FP32_CUDNN_TF32). Each rank's launches as its own encodes, decode
-    steps and beam searches imply (printed per rank and summed). -> the
-    launches of each run, summed over its ranks."""
+    steps and beam searches imply (printed per rank and summed). -> (the
+    launches of each run, summed over its ranks; the one-process runs'
+    argv by name, which the tensor_parallel phase compares against)."""
     from cxrmate_torch.ckpt import checkpoints as ck
     from cxrmate_torch.cli import config as cli_config
-    from cxrmate_torch.cli import stages
 
     root = os.path.join(SMOKE_DIR, "mp")
     common = [f"{k}={v}" for k, v in tree.items()]
-    wrappers = all_wrappers()
 
     def argv(mode, config, overrides, name):
         return ([mode, "--config", os.path.join(REPO, "config", config)] + overrides + common
                 + [f"exp_dir={os.path.join(root, name)}"])
 
     def check_ranks(name, args, ranks, encoder_trains):
-        task = cli_config.parse_args(args)
-        for r in ranks:
-            want = expected_launches(stages, wrappers, r["calls"], task, encoder_trains)
-            if r["launches"] != want or r["calls"].get("plain", 0):
-                raise AssertionError(f"multiprocess {name} rank {r['rank']}: launches "
-                                     f"{r['launches']}, expected {want} from {r['calls']}")
-        return task, {k: sum(r["launches"][k] for r in ranks) for k in wrappers}
-
-    def rank_view(ranks):
-        return [{"rank": r["rank"], "backend": r["backend"], "device": r["device"],
-                 "wall_s": r["wall_s"], "launches": {k: v for k, v in r["launches"].items() if v},
-                 "encodes": {k: r["calls"].get(k, 0) for k in ("encode_eval", "encode_train")},
-                 "decode_steps": r["calls"].get("decode_step", 0),
-                 "beam_steps": r["calls"].get("beam_step", 0),
-                 "ms_per_micro_step": r["ms_per_micro_step"],
-                 "grad_all_reduce_ms": r["grad_all_reduce_ms"],
-                 "grad_all_reduce_mb": r["grad_all_reduce_mb"],
-                 "batch_norm_all_reduces": r["batch_norm_all_reduces"],
-                 "batch_norm_all_reduce_ms": r["batch_norm_all_reduce_ms"],
-                 "batch_norm_share_of_micro_steps": (
-                     sum(r["batch_norm_all_reduce_ms"].values())
-                     / max(sum(r["ms_per_micro_step"]), 1e-9)),
-                 "peak_memory_gb": r["peak_memory_gb"]} for r in ranks]
-
-    def one(wall, calls, secs, launches, peak):
-        return {"wall_s": wall, "launches": {k: v for k, v in launches.items() if v},
-                "ms_per_micro_step": [x * 1e3 for x in secs.get("micro_step", [])],
-                "peak_memory_gb": peak}
+        return check_rank_launches("multiprocess", name, args, ranks, encoder_trains)
 
     res, counts = {"phase": "multiprocess", "draws": check_draws(torch)}, {}
     try:
@@ -4316,7 +4423,7 @@ def multiprocess_phase(torch, np, tree):
         task, counts["fit_2"] = check_ranks("fit", fit2, ranks, encoder_trains=True)
         ref_task = cli_config.parse_args(fit1)
         l1, l2 = train_losses(ref_task.exp_dir_trial), train_losses(task.exp_dir_trial)
-        res["fit"] = {"one_process": one(*ref),
+        res["fit"] = {"one_process": one_process_view(*ref),
                       "two_ranks": {"wall_s": wall, "ranks": rank_view(ranks)},
                       "losses": {"one_process": l1, "two_ranks": l2}}
         if not (len(l1) == len(l2) >= 1 and np.allclose(l2, l1, rtol=MP_LOSS_RTOL, atol=0)):
@@ -4335,11 +4442,13 @@ def multiprocess_phase(torch, np, tree):
         # --test of the one-process fit's best checkpoint
         best = ck.get_test_ckpt_path(ref_task.exp_dir_trial, ref_task.monitor_mode)
         test1 = argv("--test", "test/multi_tf.yaml",
-                     ["test_ckpt_name=null", f"test_ckpt_path={best}", "eval_decode_rows=16"],
+                     ["test_ckpt_name=null", f"test_ckpt_path={best}", "eval_decode_rows=16",
+                      MP_MAX_LEN],
                      "test_1")
         ref = run_in_process(torch, test1, cudnn_tf32=MP_FP32_CUDNN_TF32)
         test2 = argv("--test", "test/multi_tf.yaml",
-                     ["test_ckpt_name=null", f"test_ckpt_path={best}", "eval_decode_rows=32"],
+                     ["test_ckpt_name=null", f"test_ckpt_path={best}", "eval_decode_rows=32",
+                      MP_MAX_LEN],
                      "test_2")
         wall, ranks = run_ranks(2, test2, os.path.join(root, "ranks_test"),
                                 cudnn_tf32=MP_FP32_CUDNN_TF32)
@@ -4352,7 +4461,7 @@ def multiprocess_phase(torch, np, tree):
                 report_rows(task.exp_dir_trial, "generated_reports"):
             raise AssertionError(f"multiprocess test: token ids or reports differ ({len(ids2)} "
                                  f"studies on 2 ranks, {len(ids1)} in one process)")
-        res["test"] = {"cudnn_tf32": MP_FP32_CUDNN_TF32, "one_process": one(*ref),
+        res["test"] = {"cudnn_tf32": MP_FP32_CUDNN_TF32, "one_process": one_process_view(*ref),
                        "two_ranks": {"wall_s": wall, "ranks": rank_view(ranks)},
                        "studies_with_equal_token_ids": len(ids1)}
 
@@ -4367,7 +4476,7 @@ def multiprocess_phase(torch, np, tree):
         logs = {key: (train_losses(scst_ref.exp_dir_trial, (key,)),
                       train_losses(task.exp_dir_trial, (key,)))
                 for key in ("scst_loss", "reward", "baseline")}
-        res["scst"] = {"cudnn_tf32": MP_FP32_CUDNN_TF32, "one_process": one(*ref),
+        res["scst"] = {"cudnn_tf32": MP_FP32_CUDNN_TF32, "one_process": one_process_view(*ref),
                        "two_ranks": {"wall_s": wall, "ranks": rank_view(ranks)},
                        "logs": {k: {"one_process": a, "two_ranks": b} for k, (a, b) in logs.items()}}
         for key, (rtol, atol) in (("scst_loss", MP_SCST_LOSS_TOL), ("reward", MP_SCST_REWARD_TOL),
@@ -4403,7 +4512,166 @@ def multiprocess_phase(torch, np, tree):
         emit(res)  # what ran before the failure
         raise
     emit(res)
-    return counts
+    return counts, {"fit": fit1, "test": test1, "scst": scst1}
+
+
+# the tensor_parallel phase: the CLI with mesh_model=2 (the decoder's
+# vocabulary, heads and intermediate split over a model group) on gloo ranks
+# sharing the one card, against the multiprocess phase's one-process runs
+TP_MODEL = 2  # the model axis: 6 of the 12 heads a rank
+# the decode kernels at a model rank's heads (6 at model 2, 3 at model 4),
+# at the 2x2 test's per-rank shapes: beam-4 over 4 studies a data rank, the
+# self cache 1 + MP_NEW_TOKENS wide, the cross keys 5 slots of 576
+TP_HEADS = (HEADS // 2, HEADS // 4)
+TP_STUDIES = 4
+TP_DECODE = (("decode_attention", 4 * TP_STUDIES, 1, 1 + MP_NEW_TOKENS, "prefix"),
+             ("decode_attention", TP_STUDIES, 4, SLOTS * 576, f"slots:{TP_STUDIES}"))
+
+
+def tp_kernel_checks(torch, da, br, F):
+    """decode_attention and beam_reorder_write at a model rank's heads
+    (TP_HEADS) and the 2x2 test's per-rank shapes, against their plain
+    versions: fp32 (TF32 off, <= 1e-5; the dtype the CLI decodes in) and
+    bf16 (<= 1e-2), the reorder bit-exact. -> {dtype: {heads: {"decode":
+    [results], "reorder": result}}}."""
+    from cxrmate_torch.utils.precision import parity_mode
+
+    out = {}
+    for name, dtype, tol in (("fp32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 1e-2)):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        out[name] = {}
+        for heads in TP_HEADS:
+            with parity_mode():
+                dec = [check_decode_call(torch, da, F, g, dtype, *c, heads=heads)
+                       for c in TP_DECODE]
+                reo = check_reorder(torch, br, dtype, 1 + MP_NEW_TOKENS, heads=heads,
+                                    studies=TP_STUDIES)
+            for kname, r in [(c[0], x) for c, x in zip(TP_DECODE, dec)] + [
+                    ("beam_reorder_write", reo)]:
+                bound, bound_by = bound_ms(r["bytes"], r["flops"], name)
+                emit({"phase": "tensor_parallel", "check": "kernel", "dtype": name,
+                      "kernel": kname, "heads": heads, "tolerance": tol, "bound_ms": bound,
+                      "bound_by": bound_by,
+                      **{k: v for k, v in r.items() if k not in ("bytes", "flops")}})
+                if not (r["max_abs_err"] <= tol and r.get("fully_masked_row_err", 0.0) <= tol):
+                    raise AssertionError(f"tensor_parallel {kname} {name} {heads} heads: {r}")
+            out[name][heads] = {"decode": dec, "reorder": reo}
+    return out
+
+
+def tensor_parallel_phase(torch, np, da, br, F, tree, refs):
+    """The CLI under tensor parallelism (mesh_model=2: each rank holds 6 of
+    the 12 heads, half the vocabulary of 4,720 and of the 3,072-wide
+    intermediate) on gloo ranks sharing the card, launched as a user launches
+    them, on the cli phase's tree, against the multiprocess phase's runs in
+    one process (``refs``), under that phase's gates:
+      * mesh 2x2 (4 ranks: two data ranks, each a model group of two): the
+        multi fit (bf16, a global batch of 4, 2 micro-steps, one AdamW
+        update): the loss within MP_LOSS_RTOL, rank 0's checkpoint (gathered
+        whole) by compare_checkpoints;
+      * mesh 2x2: the beam-4 test of the one-process fit's best checkpoint
+        (fp32, cuDNN's TF32 off; 8 studies a batch, 4 a data rank): token
+        ids and reports equal;
+      * mesh 1x2: SCST in fp32 (TF32 off; 2 studies, both on each rank):
+        loss, reward and baseline within MP_SCST_*_TOL, the checkpoint;
+      * decode_attention and beam_reorder_write at 6 and 3 heads (a rank's
+        at model 2 and 4) and the 2x2 test's per-rank shapes against their
+        plain versions (tp_kernel_checks).
+    Each rank's launches as its encodes and steps imply; its ms per
+    micro-step, the model group's collectives (count and synchronised ms,
+    and those a decode step makes), peak memory. -> (the launches of each
+    run summed over its ranks, the kernel checks)."""
+    from cxrmate_torch.ckpt import checkpoints as ck
+    from cxrmate_torch.cli import config as cli_config
+
+    root = os.path.join(SMOKE_DIR, "tp")
+    common = [f"{k}={v}" for k, v in tree.items()]
+    res, counts = {"phase": "tensor_parallel", "model_axis": TP_MODEL}, {}
+
+    def argv(ref, overrides, name):
+        out = [a for a in ref if not a.startswith("exp_dir=")]
+        return out + overrides + [f"mesh_model={TP_MODEL}", f"exp_dir={os.path.join(root, name)}"]
+
+    def run(nproc, args, name, encoder_trains, cudnn_tf32=True):
+        wall, ranks = run_ranks(nproc, args, os.path.join(root, f"ranks_{name}"), cudnn_tf32)
+        task, counts[name] = check_rank_launches("tensor_parallel", name, args, ranks,
+                                                 encoder_trains)
+        if any(r["mesh"] != [nproc // TP_MODEL, TP_MODEL] for r in ranks):
+            raise AssertionError(f"tensor_parallel {name}: meshes {[r['mesh'] for r in ranks]}")
+        if not all(r["tp_collectives"] for r in ranks):
+            raise AssertionError(f"tensor_parallel {name}: a rank ran no model-group collective")
+        res[name] = {"nproc": nproc, "wall_s": wall, "ranks": rank_view(ranks)}
+        return task
+
+    try:
+        kernels = tp_kernel_checks(torch, da, br, F)
+        # --train, 2x2, bf16, against the one-process fit
+        ref_task = cli_config.parse_args(refs["fit"])
+        task = run(4, argv(refs["fit"], [], "fit_2x2"), "fit_2x2", encoder_trains=True)
+        l1, l2 = train_losses(ref_task.exp_dir_trial), train_losses(task.exp_dir_trial)
+        res["fit_2x2"]["losses"] = {"one_process": l1, "mesh_2x2": l2}
+        if not (len(l1) == len(l2) >= 1 and np.allclose(l2, l1, rtol=MP_LOSS_RTOL, atol=0)):
+            raise AssertionError(f"tensor_parallel fit: losses {l2} at 2x2, {l1} in one process")
+        worst, loose, flips, moments = compare_checkpoints(
+            torch, np, ck.last_checkpoint(task.exp_dir_trial),
+            ck.last_checkpoint(ref_task.exp_dir_trial), ref_task.lr, MP_MU_RTOL["bf16"])
+        info = ck.checkpoint_resume_info(ck.last_checkpoint(task.exp_dir_trial))
+        if info["world_size"] != 4 or info["global_schedule"] is not True:
+            raise AssertionError(f"tensor_parallel fit: checkpoint marker {info}")
+        res["fit_2x2"].update(loss_rel_diff=max(abs(x - y) / abs(y) for x, y in zip(l2, l1)),
+                              checkpoint={"closest_to_tolerance": worst,
+                                          "largest_loose_diff": loose,
+                                          "gradient_sign_flip_share": flips,
+                                          "first_moments": moments})
+
+        # --test, 2x2, fp32 beam-4, against the one-process test
+        ref_test = cli_config.parse_args(refs["test"]).exp_dir_trial
+        test = [a if not a.startswith("eval_decode_rows=") else "eval_decode_rows=32"
+                for a in refs["test"]]
+        task = run(4, argv(test, [], "test_2x2"), "test_2x2", encoder_trains=False,
+                   cudnn_tf32=MP_FP32_CUDNN_TF32)
+        ids1 = read_ids_csv(glob_csvs(ref_test)[-1])
+        ids2 = read_ids_csv(glob_csvs(task.exp_dir_trial)[-1])
+        if not (len(ids1) == 2 * CLI_SPLITS.count("test") and ids1 == ids2) or \
+                report_rows(ref_test, "generated_reports") != \
+                report_rows(task.exp_dir_trial, "generated_reports"):
+            raise AssertionError(f"tensor_parallel test: token ids or reports differ ({len(ids2)} "
+                                 f"studies at 2x2, {len(ids1)} in one process)")
+        res["test_2x2"]["studies_with_equal_token_ids"] = len(ids1)
+
+        # SCST, 1x2, fp32, against the one-process SCST
+        scst_ref = cli_config.parse_args(refs["scst"])
+        task = run(2, argv(refs["scst"], [], "scst_1x2"), "scst_1x2", encoder_trains=False,
+                   cudnn_tf32=MP_FP32_CUDNN_TF32)
+        logs = {key: (train_losses(scst_ref.exp_dir_trial, (key,)),
+                      train_losses(task.exp_dir_trial, (key,)))
+                for key in ("scst_loss", "reward", "baseline")}
+        res["scst_1x2"]["logs"] = {k: {"one_process": a, "mesh_1x2": b}
+                                   for k, (a, b) in logs.items()}
+        for key, (rtol, atol) in (("scst_loss", MP_SCST_LOSS_TOL),
+                                  ("reward", MP_SCST_REWARD_TOL),
+                                  ("baseline", MP_SCST_REWARD_TOL)):
+            l1, l2 = logs[key]
+            if not (len(l1) == len(l2) == 1 and np.allclose(l2, l1, rtol=rtol, atol=atol)):
+                raise AssertionError(f"tensor_parallel scst: {key} {l2} at 1x2, {l1} in one "
+                                     f"process")
+        worst, loose, flips, moments = compare_checkpoints(
+            torch, np, ck.last_checkpoint(task.exp_dir_trial),
+            ck.last_checkpoint(scst_ref.exp_dir_trial), scst_ref.lr, MP_MU_RTOL["fp32"])
+        res["scst_1x2"]["checkpoint"] = {"closest_to_tolerance": worst,
+                                         "largest_loose_diff": loose,
+                                         "gradient_sign_flip_share": flips,
+                                         "first_moments": moments}
+        for kernel in ("flash_attention", "decode_attention", "beam_reorder_write") + FLASH_GRAD:
+            if sum(run_counts[kernel] for run_counts in counts.values()) <= 0:
+                raise AssertionError(f"tensor_parallel: {kernel} not launched by any run")
+    except Exception:
+        res["failed"] = True
+        emit(res)  # what ran before the failure
+        raise
+    emit(res)
+    return counts, kernels
+
 
 
 
@@ -4939,6 +5207,29 @@ def kernels_line(da, k, counts):
         if "library_computes" in r:
             row["library_computes"] = r["library_computes"]
         out.append(row)
+    # the tensor_parallel phase's 2x2 test: a rank's heads, fp32 (the CLI's
+    # decode dtype), one decode step of its per-rank shapes
+    heads = TP_HEADS[0]
+    tp = k["tensor_parallel"]["fp32"][heads]
+    for kernel, parts, work in (
+            ("decode_attention", [(r, LAYERS) for r in tp["decode"]],
+             " + ".join(f"{LAYERS} x [B={c[1]}, H={heads}, M={c[2]}, S={c[3]}, {c[4]} mask]"
+                        for c in TP_DECODE)),
+            ("beam_reorder_write", [(tp["reorder"], LAYERS)],
+             f"{LAYERS} reorders of a [{4 * TP_STUDIES}, {heads}, {1 + MP_NEW_TOKENS}, "
+             f"{HEAD_DIM}] K/V cache")):
+        total = {key: sum(n * r[key] for r, n in parts)
+                 for key in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+        b, by = bound_ms(total["bytes"], total["flops"], "fp32")
+        launches = counts["tensor_parallel"]["test_2x2"][kernel]
+        if launches <= 0:
+            raise AssertionError(f"{kernel}: not launched by the tensor_parallel test")
+        source, replaces = KERNELS[kernel]
+        out.append({"name": f"{kernel}[tensor_parallel test 2x2, {heads} heads a rank, fp32]",
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches, "max_abs_err": max(r["max_abs_err"] for r, _ in parts),
+                    "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": b,
+                    "bound_by": by, "library_ms": total["library_ms"], "work": work})
     if {r["source"] for r in out} != {src for src, _ in KERNELS.values()} or \
             {r["name"].split("[")[0] for r in out} != set(KERNELS):
         raise AssertionError("a kernel is missing from the summary")
@@ -4949,6 +5240,9 @@ def kernels_line(da, k, counts):
         # the multiprocess phase's runs on their ranks, summed
         row["multiprocess_phase_launches_all_ranks"] = sum(
             run.get(kernel, 0) for run in counts["multiprocess"].values())
+        # the tensor_parallel phase's runs on their ranks, summed
+        row["tensor_parallel_phase_launches_all_ranks"] = sum(
+            run.get(kernel, 0) for run in counts["tensor_parallel"].values())
         # the entry phase's runs: the loaders' micro-step and beam-4, the
         # examples and the scripts, at every shape and dtype
         row["entry_phase_launches_all_shapes"] = sum(
@@ -5012,7 +5306,9 @@ def main() -> int:
         data = data_phase(torch, np, ckpts, saved["exp_dir"])
         counts["multi"]["data"], counts["data_train"] = data["multi"], data["train"]
         counts["cli"], cli_tree = cli_phase(torch, np, ckpts)
-        counts["multiprocess"] = multiprocess_phase(torch, np, cli_tree)
+        counts["multiprocess"], mp_refs = multiprocess_phase(torch, np, cli_tree)
+        counts["tensor_parallel"], kernels["tensor_parallel"] = tensor_parallel_phase(
+            torch, np, da, br, F, cli_tree, mp_refs)
         entry = entry_phase(torch, np, ckpts, cli_tree)
         counts["multi"]["entry"], counts["entry_train"] = entry["multi"], entry["train"]
         counts["entry"] = entry["runs"]

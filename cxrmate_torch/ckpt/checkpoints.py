@@ -22,7 +22,11 @@ HF checkpoint directory is read by ``ckpt.hf.load_hf_pretrained_dir``
 (the counterpart of ``orbax_io.py:315 load_torch_checkpoint``).
 
 In a process group rank 0 writes the state, the marker, the index and
-``last/``; every rank writes its own ``extra_files``.
+``last/``; every rank writes its own ``extra_files``. Under tensor
+parallelism each split tensor (and AdamW's state of it) is gathered over the
+model group first (``parallel.mesh.shard_dim``), so ``state.pt`` is the
+one a one-process run writes, and it resumes at any layout: a restore loads
+it whole and cuts this rank's shard (``ckpt.hf.shard_state_dict``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from typing import Dict, Optional
 
 import torch
 
+from cxrmate_torch.ckpt.hf import shard_state_dict
+from cxrmate_torch.parallel.mesh import model_shard, shard_dim
 from cxrmate_torch.utils import dist
 
 STATE_FILE = "state.pt"
@@ -44,11 +50,36 @@ def _ckpt_dir(exp_dir_trial: str, tag: str) -> str:
     return os.path.join(exp_dir_trial, "checkpoints", tag)
 
 
+def gather_shards(sd: Dict, model) -> Dict:
+    """``sd`` (a model state dict, or AdamW state by parameter name) whole:
+    each tensor split over the model group gathered along its dimension
+    (every rank of the group calls this, in the same key order)."""
+    tp = model_shard(model)
+    if tp is None:
+        return sd
+    out = {}
+    for k, v in sd.items():
+        dim = shard_dim(k, model.config.decoder, tp.size)
+        out[k] = v if dim is None else torch.cat(dist.all_gather_tensor(v, tp.group), dim=dim)
+    return out
+
+
 def _state_dict(state) -> Dict:
     opt = state.opt_state
-    return {"model": state.model.state_dict(), "step": int(state.step),
+    return {"model": gather_shards(state.model.state_dict(), state.model),
+            "step": int(state.step),
             "opt_state": {"count": int(opt.count), "mini_step": int(opt.mini_step),
-                          "mu": opt.mu, "nu": opt.nu, "acc": opt.acc}}
+                          **{k: gather_shards(getattr(opt, k), state.model)
+                             for k in ("mu", "nu", "acc")}}}
+
+
+def _local(sd: Dict, model) -> Dict:
+    """A whole state dict (or AdamW state) cut to ``model``'s shard; as it
+    is for a whole model."""
+    tp = model_shard(model)
+    if tp is None:
+        return sd
+    return shard_state_dict(sd, tp.rank, tp.size, model.config.decoder)
 
 
 def save_checkpoint(
@@ -88,6 +119,7 @@ def save_checkpoint(
               "mbatch_size": mbatch_size, "world_size": world_size,
               "global_schedule": global_schedule}
     rank0 = dist.rank() == 0
+    blob = _state_dict(state)  # every rank: the gathers are collectives
 
     def write(ckpt_path: str) -> None:
         if rank0:
@@ -101,7 +133,7 @@ def save_checkpoint(
         if os.path.exists(path):
             shutil.rmtree(path)
         os.makedirs(path)
-        torch.save(_state_dict(state), os.path.join(path, STATE_FILE))
+        torch.save(blob, os.path.join(path, STATE_FILE))
     dist.barrier()  # the directory exists before any rank writes into it
     write(path)
     # every rank's sidecar lands before rank 0 prunes (a save can be its own victim)
@@ -141,13 +173,14 @@ def restore_checkpoint(path: str, state):
     """Load a checkpoint's train state into ``state`` (a ``TrainState`` built
     for the same model and optimizer, e.g. a fresh ``create_train_state``), on
     that state's device, in place; -> ``state``. Every tensor must be there
-    with its shape: the model strictly, the moments and ``acc`` key for key."""
+    with its shape: the model strictly, the moments and ``acc`` key for key.
+    A model cut to a model rank's shard takes its shard of each."""
     device = next(state.model.parameters()).device
     blob = torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
-    state.model.load_state_dict(blob["model"], strict=True)
+    state.model.load_state_dict(_local(blob["model"], state.model), strict=True)
     opt, saved = state.opt_state, blob["opt_state"]
     for name in ("mu", "nu", "acc"):
-        have, got = getattr(opt, name), saved[name]
+        have, got = getattr(opt, name), _local(saved[name], state.model)
         if set(have) != set(got):
             raise KeyError(f"{path}: {name} holds {sorted(set(have) ^ set(got))[:4]} "
                            "that the train state does not, or the other way round")
@@ -162,10 +195,11 @@ def restore_checkpoint(path: str, state):
 def restore_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load only a checkpoint's model weights into ``model`` (e.g. a
     ``CXRMate.model`` to decode with), strictly, cast to the model's dtypes
-    on its device; -> ``model``."""
+    on its device (a model rank's shard of them where ``model`` is cut to
+    one); -> ``model``."""
     device = next(model.parameters()).device
     blob = torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
-    model.load_state_dict(blob["model"], strict=True)
+    model.load_state_dict(_local(blob["model"], model), strict=True)
     return model
 
 

@@ -7,7 +7,10 @@ when the ``safetensors`` package imports), unwrapping a wrapped state dict;
 port's own numpy-only copy of ``cxrmate_tpu/ckpt/hf_convert.py:178
 export_encoder_decoder``: the JAX package's parameter pytree -> the torch-layout
 state dict that the released checkpoints use. ``load_model_state`` maps such a
-state dict onto the port's HF-named modules.
+state dict onto the port's HF-named modules. ``shard_state_dict`` cuts such a
+state dict (or the model's own) to one rank's shard under tensor parallelism
+(``parallel.mesh.shard_dim``), and ``gather_state_dict`` puts the shards back
+together.
 
 A LoRA decoder is PEFT-wrapped in the released longitudinal checkpoints: every
 decoder key carries ``base_model.model.`` after ``decoder.``, and the wrapped
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -187,6 +190,45 @@ def load_model_state(model: nn.Module, sd: Dict) -> None:
     if missing or unexpected:
         raise RuntimeError(f"state dict does not fit the model: missing {missing[:8]}, "
                            f"unexpected {unexpected[:8]}")
+
+
+def shard_state_dict(sd: Dict, model_rank: int, model: int, config) -> Dict:
+    """Model rank ``model_rank``'s shard of a whole state dict (tensors or
+    numpy arrays; the port's names or a released checkpoint's) of a decoder
+    of ``config`` (``BertDecoderConfig``) split over ``model`` ranks: each
+    key that ``parallel.mesh.shard_dim`` splits cut to its
+    ``[r * n / model, (r + 1) * n / model)`` slice along that dimension (a
+    view), every other key as it is. AdamW's moments, keyed by parameter
+    name, cut the same way."""
+    from cxrmate_torch.parallel.mesh import shard_dim
+
+    out = {}
+    for k, v in sd.items():
+        dim = shard_dim(k, config, model)
+        if dim is None:
+            out[k] = v
+            continue
+        n = v.shape[dim] // model
+        out[k] = v[(slice(None),) * dim + (slice(model_rank * n, (model_rank + 1) * n),)]
+    return out
+
+
+def gather_state_dict(shards: Sequence[Dict], config) -> Dict:
+    """The inverse of :func:`shard_state_dict`: the shards of every model
+    rank, in model-rank order, -> the whole state dict (each split key
+    concatenated along its dimension, the others taken from the first)."""
+    from cxrmate_torch.parallel.mesh import shard_dim
+
+    out = {}
+    for k, v in shards[0].items():
+        dim = shard_dim(k, config, len(shards))
+        if dim is None:
+            out[k] = v
+        elif isinstance(v, np.ndarray):
+            out[k] = np.concatenate([s[k] for s in shards], axis=dim)
+        else:
+            out[k] = torch.cat([s[k] for s in shards], dim=dim)
+    return out
 
 
 def state_dict_from_jax(variables: Dict, enc_cfg, dec_cfg) -> Dict[str, np.ndarray]:

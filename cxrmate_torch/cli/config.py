@@ -10,10 +10,11 @@ not take, so every config parses to the JAX package's values.
 One field is the port's own: ``device`` ("cuda" by default; "cpu" runs the
 stages on the CPU, where every kernel wrapper takes its plain version). Two
 are read with another meaning: ``xla_cache_dir`` has no counterpart
-(``stages.main`` warns once), and ``mesh_data``/``mesh_model`` describe the
-process group the stages run in (``parallel.mesh.validate_mesh``: ``mesh_data``
-unset or the world size, ``mesh_model`` 1; tensor parallelism is not
-ported).
+(``stages.main`` warns once), and ``mesh_data``/``mesh_model`` lay out the
+process group the stages run in as the JAX package's (data x model) mesh
+(``parallel.mesh.make_mesh``: ``mesh_model`` divides the world size and
+splits the decoder over each model group; ``mesh_data`` unset or the world
+size over ``mesh_model``).
 """
 
 from __future__ import annotations
@@ -134,7 +135,8 @@ class TaskConfig:
     resume_ckpt_path: Optional[str] = None
     fast_dev_run: bool = False  # 1-batch/1-epoch dry run
 
-    # device meshes of the JAX package: only a single device (None/1, 1) runs
+    # the (data x model) layout of the process group: mesh_model ranks a
+    # model group (the decoder split over them), mesh_data unset or N / M
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     # pad every TF batch to the static decoder/prompt budgets instead of the

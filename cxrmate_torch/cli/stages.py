@@ -13,21 +13,29 @@ monitored metric, and test with beam search and the metric battery.
 The stages run on ``task.device`` ("cuda" unless a config or override says
 "cpu"; there is no fallback), in one process or in N under ``torchrun``:
 
-    torchrun --nproc_per_node N -m cxrmate_torch.cli.stages --config ... --train|--test
+    torchrun --nproc_per_node N -m cxrmate_torch.cli.stages --config ... --train|--test \
+        [mesh_model=M]
 
 ``main`` joins the process group (``parallel.multihost``: NCCL when every
-rank has a card of its own, gloo on the CPU or when ranks share a card) and
-the stages run the reference's DDP semantics, as the JAX package's global
-data-parallel mesh does: every rank iterates the same global batches and
-loads its row stripe (``parallel.mesh.local_row_range``), at static widths;
-the loss and the gradients are the global batch's (``train.tf_trainer``),
-BatchNorm's moments too (``ops.layers.batch_norm_train``), and dropout,
-drop-path and sampling draw per row what one process draws
-(``ops.layers.RowStripe``); the train state is one replica on every rank,
-saved by rank 0; evaluation decodes each rank's share of the one-process
-batches (generated prompts by lane) on its replica and gathers the rows. ``mesh_data`` is unset or the world
-size; ``mesh_model`` above 1 (tensor parallelism) raises
-``NotImplementedError``.
+rank has a card of its own, gloo on the CPU or when ranks share a card),
+and each stage lays it out as the JAX package's (data x model) mesh
+(``parallel.mesh.make_mesh``: ``mesh_model`` divides N, ``mesh_data`` unset
+or N / M, else ``ValueError``). Along ``data`` the stages run the
+reference's DDP semantics, as the JAX package's data axis does: every rank
+iterates the same global batches and loads its data rank's row stripe
+(``parallel.mesh.local_row_range``), at static widths; the loss and the
+gradients are the global batch's (``train.tf_trainer``), BatchNorm's
+moments too (``ops.layers.batch_norm_train``), and dropout, drop-path and
+sampling draw per row what one process draws (``ops.layers.RowStripe``).
+Along ``model`` (M > 1) the decoder is split as the JAX package's
+``model`` axis splits it (``parallel.mesh.shard_model``: vocabulary,
+attention heads, intermediate), each rank of a model group holding the
+same rows and its shard, with the one-process logits gathered on every
+rank (``models.bert``). The train state is one replica of its shard on
+every rank of a data group; rank 0 saves it whole (gathered over its model
+group); evaluation decodes each data rank's share of the one-process
+batches (generated prompts by lane) and gathers the rows over the data
+group.
 
 Precision as the JAX package runs it: training keeps fp32 masters and
 computes in ``precision`` (bf16 unless it says otherwise); validation and test
@@ -432,11 +440,11 @@ def _collate_max_images(task: TaskConfig):
 
 
 def _stripe(rows: int) -> Tuple[int, int]:
-    """This rank's contiguous rows ``[lo, hi)`` of a decode batch of
-    ``rows`` (uneven where the world size does not divide ``rows``); a rank
+    """This data rank's contiguous rows ``[lo, hi)`` of a decode batch of
+    ``rows`` (uneven where the data size does not divide ``rows``); a rank
     whose share is empty decodes the last row again (the same outputs; the
     metric layer keeps one row per study)."""
-    r, w = dist.rank(), dist.world_size()
+    r, w = dist.data_rank(), dist.data_size()
     lo, hi = r * rows // w, (r + 1) * rows // w
     return (lo, hi) if hi > lo else (rows - 1, rows)
 
@@ -445,17 +453,18 @@ def evaluate(task, config, tokenizer, model, dataset, split: str, metrics: Dict,
              num_beams: int, epoch: int, loggers=()):
     """Decode ``dataset`` with ``model`` (greedy or beam) and score it.
 
-    Under a process group each rank decodes its share of what one process
-    decodes, on its own replica, and the metric layer gathers the rows
+    Under a process group each data rank decodes its share of what one
+    process decodes (the ranks of its model group together, each on its
+    shard), and the metric layer gathers the rows over the data group
     (every rank gets the same scores; rank 0 writes the CSVs). Every rank
-    walks the one-process batches: generated-prompt datasets by lane (rank r
-    decodes lanes r::world in step order, so a subject's history thread
-    stays on one rank), the others by the one-process batches cut into
-    contiguous row stripes (``_stripe``). ``_decode_step_outputs`` gives a
+    walks the one-process batches: generated-prompt datasets by lane (data
+    rank r decodes lanes r::data in step order, so a subject's history
+    thread stays on one data rank), the others by the one-process batches
+    cut into contiguous row stripes (``_stripe``). ``_decode_step_outputs`` gives a
     longitudinal batch the width of its longest prompt over every rank,
     which sets its first token's column, so each row decodes what it
     decodes in one process."""
-    rank, world = dist.rank(), dist.world_size()
+    rank, world = dist.data_rank(), dist.data_size()
     if getattr(dataset, "use_generated", False):
         # generated-prompt datasets read history written back during
         # consumption: never prefetched (the reference's num_workers=0,
@@ -644,8 +653,8 @@ def _mid_epoch_schedule(task: TaskConfig, dataset_len: int):
 
 def _checkpoint_state(task: TaskConfig, state, epoch, monitor_value, **kw) -> None:
     """Save a fit checkpoint (``ckpt.checkpoints.save_checkpoint``): every
-    rank enters, rank 0 writes the replicated state (each rank its own
-    ``extra_files``)."""
+    rank enters, rank 0 writes the state, whole (gathered over its model
+    group; each rank writes its own ``extra_files``)."""
     ck.save_checkpoint(task.exp_dir_trial, state, epoch, monitor_value, **kw)
 
 
@@ -686,16 +695,18 @@ def fit(task: TaskConfig, chexbert_fn=None) -> None:
     ``val_check_interval`` of an epoch).
 
     Under a process group every rank iterates the same shuffled global
-    schedule (``mbatch_size`` is the global batch) and loads its row stripe,
-    at static widths so that every stripe of a batch has one shape; the step
-    counts global batches, and validation runs on each rank's replica."""
+    schedule (``mbatch_size`` is the global batch) and loads its data rank's
+    row stripe, at static widths so that every stripe of a batch has one
+    shape; the step counts global batches, and validation runs on each
+    rank's replica (of its shard, under ``mesh_model`` > 1)."""
     device = resolve_device(task.device)
-    mesh_mod.validate_mesh(task.mesh_data, task.mesh_model)
+    mesh_mod.make_mesh(task.mesh_data, task.mesh_model)
     multiprocess = dist.world_size() > 1
     tokenizer = load_tokenizer(task)
     config = build_model_config(task, len(tokenizer))
     model = resolve_warm_start(task, config, init_variables(task, config))
     model = mesh_mod.replicate_tree(model)  # rank 0's weights on every rank
+    model = mesh_mod.shard_model(model)  # whole, then this model rank's shard
     config = model.config  # the warm start's parameter set (LoRA, tied head)
     mask = optim.mask_for_stage(dict(model.named_parameters()), task.variant)
     tx = optim.adamw(task.lr, accumulate_steps=task.accumulate_steps, trainable_mask=mask)
@@ -786,12 +797,13 @@ def fit_scst(task: TaskConfig, reward_fn, chexbert_fn=None) -> None:
     from cxrmate_torch.train.scst import SCSTTrainer, make_scst_step
 
     device = resolve_device(task.device)
-    mesh_mod.validate_mesh(task.mesh_data, task.mesh_model)
+    mesh_mod.make_mesh(task.mesh_data, task.mesh_model)
     multiprocess = dist.world_size() > 1
     tokenizer = load_tokenizer(task)
     config = build_model_config(task, len(tokenizer))
     model = resolve_warm_start(task, config, init_variables(task, config))
     model = mesh_mod.replicate_tree(model)  # rank 0's weights on every rank
+    model = mesh_mod.shard_model(model)  # whole, then this model rank's shard
     config = model.config
     mask = optim.mask_for_stage(dict(model.named_parameters()), "scst")
     tx = optim.adamw(task.lr, accumulate_steps=task.accumulate_steps, trainable_mask=mask)
@@ -949,12 +961,13 @@ def _restore_for_test(path: str, config, device) -> ed.EncoderDecoder:
 
 def test(task: TaskConfig, chexbert_fn=None, reward_fn=None, bertscorer=None) -> Dict:
     """The test stage: restore, decode (beam ``num_test_beams``), score.
-    Under a process group every rank restores the same checkpoint and
-    decodes its share (``evaluate``); every rank returns the gathered
-    scores, and rank 0 writes the CSVs."""
+    Under a process group every rank restores the same checkpoint, whole,
+    cuts its model rank's shard and decodes its data rank's share
+    (``evaluate``); every rank returns the gathered scores, and rank 0
+    writes the CSVs."""
     from cxrmate_torch.eval.metrics import ReportLogger, ReportTokenIdentifiersLogger
 
-    mesh_mod.validate_mesh(task.mesh_data, task.mesh_model)
+    mesh_mod.make_mesh(task.mesh_data, task.mesh_model)
     tokenizer = load_tokenizer(task)
     config = build_model_config(task, len(tokenizer))
     model = init_variables(task, config)
@@ -982,6 +995,7 @@ def test(task: TaskConfig, chexbert_fn=None, reward_fn=None, bertscorer=None) ->
                 f"fast_dev_run for an untrained smoke run)"
             )
         model = _restore_for_test(path, config, next(model.parameters()).device)
+    model = mesh_mod.shard_model(model)
     test_set = make_datasets(task, "test", train=False)
     metrics = make_metrics(task, "test", reward_fn=reward_fn, chexbert_fn=chexbert_fn,
                            bertscorer=bertscorer)

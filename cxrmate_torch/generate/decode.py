@@ -95,7 +95,8 @@ def prefill(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden,
         attn_prompt = torch.ones(b, p_len, dtype=torch.int32, device=dev)
         prompt_pos = torch.arange(p_len, device=dev).expand(b, p_len)
     cache = bert_mod.init_cache(dcfg, b, t_total, encoder_hidden.shape[1],
-                                dtype=encoder_hidden.dtype, device=dev)
+                                dtype=encoder_hidden.dtype, device=dev,
+                                heads=bert_mod.local_heads(model.decoder))
     logits, cache = bert_mod.bert_prefill(model.decoder, cache, prompt_ids, attn_prompt,
                                           prompt_types, prompt_pos, encoder_hidden, encoder_mask)
     return logits, cache, attn_prompt
@@ -126,6 +127,8 @@ def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
     rows = [slice(j * n, (j + 1) * n) for j in range(len(cfgs))]
     prompt_types = torch.cat([ed.token_ids_to_token_type_ids(
         prompt_ids[r], c.special_token_ids, c.sections()) for r, c in zip(rows, cfgs)])
+    if use_fused and model.decoder.tp is not None:
+        raise NotImplementedError(bert_mod.FUSED_TP)
     fused = use_fused and model.config.lora is None
     # the fused kernels' per-layer operands, built once, never per step
     fused_prepared = (prepare_fused_params(model.decoder, model.config.decoder.num_attention_heads)
@@ -243,7 +246,8 @@ def generate(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden
         decoder-layer kernels (``ops.fused_decode``), greedy or sampled. A
         model with LoRA takes the unfused path all the same; ``decode_kernel``
         is ignored on the fused path (``bert_step`` warns) and no int8 cross
-        cache is made.
+        cache is made. A decoder cut to a model rank's shard raises
+        ``NotImplementedError`` (the fused kernels take a whole layer).
       prompt_logits_col: column of the prefill logits that gives the first
         token; the last prompt column by default. When the prompt is
         bucket-padded beyond the batch's longest row, pass the true longest

@@ -25,6 +25,25 @@ under HF's (and PEFT's) names; the functions below run them.
     dropout, all drawn from the generator. The tied LM head reads the one
     word-embedding ``Parameter``, so its gradient sums both uses.
 
+Under tensor parallelism (``parallel.mesh.shard_model``) the decoder holds
+its model rank's shard (``BertLMHeadModel.tp``, a ``parallel.mesh.Shard``)
+and runs Megatron-LM's layout with the operators of ``utils.dist``: the
+replicated hidden state goes through ``copy_to_group`` (identity forward,
+SUM backward) before q/k/v, before ``fc1``, and so does the encoder state
+before cross k/v, LoRA's rank-r product before ``lora_b`` and the head's
+transform before the vocabulary projection; the attention output and
+``fc2`` are computed on this rank's input columns and summed by
+``reduce_from_group`` (SUM forward, identity backward) in fp32 before
+their bias, rounded once; the word embedding looks up this rank's
+vocabulary rows (zero elsewhere) and sums; the LM head's logits are
+gathered along the vocabulary (``gather_from_group``), so greedy, beam and
+sampled choices see the one-process logits, the same bytes on every rank
+of the group. Attention runs on this rank's heads (the caches hold them);
+its probs dropout is drawn at the one-process shape and cut to them
+(``ops.layers.HeadSlice``), and every other draw is full width, the same
+on every rank of the group. Without a ``tp`` every operator is the
+identity and the code is the one-process path.
+
 Numerics follow HF eager order; additive masks are ``(1 - m) * finfo.min``.
 """
 
@@ -44,17 +63,23 @@ from cxrmate_torch.ops import decode_attention as da
 from cxrmate_torch.ops import fused_decode
 from cxrmate_torch.ops.layers import (
     Embedding,
+    HeadSlice,
     LayerNorm,
     Linear,
     LoraLinear,
     attention,
+    drawing,
     dropout,
     gelu,
     merge_heads,
     split_heads,
 )
+from cxrmate_torch.utils import dist
 
 NEG = float(torch.finfo(torch.float32).min)
+FUSED_TP = ("the fused decode step (use_fused=True) does not run under tensor parallelism: "
+            "ops.fused_decode.prepare_fused_params and its kernels take a whole layer, and a "
+            "model rank holds a shard of it; decode with use_fused=False")
 
 
 # ----------------------------------------------------------------- parameters
@@ -151,7 +176,10 @@ class BertLMHeadModel(nn.Module):
     """Parameter holder with HF ``BertLMHeadModel``'s key layout (``bert.*``,
     ``cls.predictions.*``). With ``tie_word_embeddings`` the LM projection is
     the word-embedding matrix and ``cls.predictions.decoder`` is not held.
-    With ``lora`` the self-attention query and key are ``LoraLinear``s."""
+    With ``lora`` the self-attention query and key are ``LoraLinear``s.
+    ``tp``: the decoder's ``parallel.mesh.Shard`` once
+    ``parallel.mesh.shard_model`` has cut it to a model rank's shard; None
+    for a whole decoder."""
 
     def __init__(self, config: BertDecoderConfig, lora: Optional[LoraConfig] = None,
                  device=None, dtype=None):
@@ -159,16 +187,53 @@ class BertLMHeadModel(nn.Module):
         kw = {"device": device, "dtype": dtype}
         self.config = config
         self.lora = lora
+        self.tp = None
         self.bert = _Bert(config, lora, **kw)
         self.cls = _Cls(config, **kw)
 
 
 # -------------------------------------------------------------------- forward
+def _group(model, kind: str):
+    """The model group where ``kind`` ("vocab", "heads", "ffn") of ``model``
+    is split over it; None (every operator the identity) otherwise."""
+    tp = getattr(model, "tp", None)
+    return tp.group if tp is not None and getattr(tp, kind) else None
+
+
+def local_heads(model) -> int:
+    """The attention heads this rank runs (and its caches hold)."""
+    tp, heads = getattr(model, "tp", None), model.config.num_attention_heads
+    return heads // tp.size if tp is not None and tp.heads else heads
+
+
+def _out_proj(dense: Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """An output projection (attention out, ``fc2``). Split along its input
+    over ``group``: this rank's partial product in fp32, summed over the
+    group, then the bias, rounded once to x's dtype (the one rounding of
+    ``ops.layers.linear``)."""
+    if group is None:
+        return dense(x)
+    y = dist.reduce_from_group(F.linear(x.float(), dense.weight.float()), group)
+    return (y + dense.bias.float()).to(x.dtype)
+
+
+def _word_embeddings(model, ids: torch.Tensor) -> torch.Tensor:
+    w = model.bert.embeddings.word_embeddings.weight
+    group = _group(model, "vocab")
+    if group is None:
+        return F.embedding(ids, w)
+    # this rank's vocabulary rows; the others are zero here and summed in
+    local = ids - model.tp.rank * w.shape[0]
+    inside = ((local >= 0) & (local < w.shape[0]))[..., None]
+    x = F.embedding(torch.where(inside[..., 0], local, 0), w)
+    return dist.reduce_from_group(torch.where(inside, x, 0.0), group)
+
+
 def bert_embed(model: BertLMHeadModel, input_ids, token_type_ids, position_ids,
                dtype: Optional[torch.dtype] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     e = model.bert.embeddings
-    x = e.word_embeddings(input_ids)
+    x = _word_embeddings(model, input_ids)
     if dtype is not None:
         x = x.to(dtype)
     if token_type_ids is None:
@@ -185,7 +250,8 @@ def bert_lm_head(model: BertLMHeadModel, hidden: torch.Tensor) -> torch.Tensor:
         w = p.decoder.weight
     else:  # tied projection: the word-embedding matrix
         w = model.bert.embeddings.word_embeddings.weight
-    return F.linear(h, w, p.bias)
+    group = _group(model, "vocab")
+    return dist.gather_from_group(F.linear(dist.copy_to_group(h, group), w, p.bias), group)
 
 
 def causal_additive_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -201,29 +267,46 @@ def padding_additive_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - attention_mask.float()) * NEG)[:, None, None, :]
 
 
-def _project(lin, x, generator):
-    """A q/k/v projection; a LoRA one draws its input dropout first."""
-    return lin(x, generator) if isinstance(lin, LoraLinear) else lin(x)
+def _project(lin, x, x_copied, generator, group):
+    """A q/k/v projection of ``x_copied`` (``x`` through ``copy_to_group``);
+    a LoRA one draws its input dropout of ``x`` first (its rank-r product
+    copied to ``group``)."""
+    if isinstance(lin, LoraLinear):
+        return lin(x, generator, base_input=x_copied, group=group)
+    return lin(x_copied)
 
 
 def _sublayer(att: _Attention, hidden, kv_hidden, mask, c: BertDecoderConfig,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, tp=None):
     """Full-sequence attention sublayer (plain attention) + residual LN. With
     a generator (training), in the JAX package's order: LoRA dropout of q
-    then k, probs dropout, output dropout."""
-    qkv, heads = att.self, c.num_attention_heads
-    q = _project(qkv.query, hidden, generator)
-    k = _project(qkv.key, kv_hidden, generator)
+    then k, probs dropout, output dropout. ``tp``: the decoder's shard
+    (heads split over its group when ``tp.heads``)."""
+    qkv, heads, group, probs_gen = att.self, c.num_attention_heads, None, generator
+    if tp is not None and tp.heads:
+        heads, group = heads // tp.size, tp.group
+        if drawing(generator):
+            probs_gen = HeadSlice(generator, tp.rank * heads, (tp.rank + 1) * heads,
+                                  c.num_attention_heads)
+    x = dist.copy_to_group(hidden, group)
+    kv = x if kv_hidden is hidden else dist.copy_to_group(kv_hidden, group)
+    q = _project(qkv.query, hidden, x, generator, group)
+    k = _project(qkv.key, kv_hidden, kv, generator, group)
     ctx = attention(split_heads(q, heads), split_heads(k, heads),
-                    split_heads(qkv.value(kv_hidden), heads), 1.0 / math.sqrt(c.head_dim), mask,
-                    c.attention_probs_dropout_prob, generator)
-    out = dropout(att.output.dense(merge_heads(ctx)), c.hidden_dropout_prob, generator)
+                    split_heads(qkv.value(kv), heads), 1.0 / math.sqrt(c.head_dim), mask,
+                    c.attention_probs_dropout_prob, probs_gen)
+    out = dropout(_out_proj(att.output.dense, merge_heads(ctx), group), c.hidden_dropout_prob,
+                  generator)
     return att.output.LayerNorm(out + hidden)
 
 
 def _mlp(layer: _Layer, hidden, rate: float = 0.0,
-         generator: Optional[torch.Generator] = None):
-    y = dropout(layer.output.dense(gelu(layer.intermediate.dense(hidden))), rate, generator)
+         generator: Optional[torch.Generator] = None, tp=None):
+    """The MLP + residual LN; ``tp``: the intermediate split over its group
+    when ``tp.ffn``."""
+    group = tp.group if tp is not None and tp.ffn else None
+    h = gelu(layer.intermediate.dense(dist.copy_to_group(hidden, group)))
+    y = dropout(_out_proj(layer.output.dense, h, group), rate, generator)
     return layer.output.LayerNorm(y + hidden)
 
 
@@ -247,12 +330,13 @@ def bert_forward(model: BertLMHeadModel, input_ids, attention_mask=None, token_t
     hidden = bert_embed(model, input_ids, token_type_ids, position_ids,
                         dtype=None if encoder_hidden_states is None else encoder_hidden_states.dtype,
                         generator=gen)
+    tp = model.tp
     for layer in model.bert.encoder.layer:
-        hidden = _sublayer(layer.attention, hidden, hidden, self_mask, c, gen)
+        hidden = _sublayer(layer.attention, hidden, hidden, self_mask, c, gen, tp)
         if encoder_hidden_states is not None:
             hidden = _sublayer(layer.crossattention, hidden, encoder_hidden_states,
-                               cross_mask, c, gen)
-        hidden = _mlp(layer, hidden, c.hidden_dropout_prob, gen)
+                               cross_mask, c, gen, tp)
+        hidden = _mlp(layer, hidden, c.hidden_dropout_prob, gen, tp)
     return bert_lm_head(model, hidden)
 
 
@@ -270,8 +354,11 @@ class DecodeCache:
 
 
 def init_cache(config: BertDecoderConfig, batch: int, max_len: int, enc_len: int,
-               dtype=torch.float32, device="cpu") -> DecodeCache:
-    l, h, dh = config.num_hidden_layers, config.num_attention_heads, config.head_dim
+               dtype=torch.float32, device="cpu", heads: Optional[int] = None) -> DecodeCache:
+    """Zero caches of ``heads`` heads (``local_heads`` of a sharded decoder;
+    all of ``config``'s by default)."""
+    l, dh = config.num_hidden_layers, config.head_dim
+    h = heads or config.num_attention_heads
 
     def zeros(t):
         return [torch.zeros(batch, h, t, dh, dtype=dtype, device=device) for _ in range(l)]
@@ -317,10 +404,14 @@ def bert_prefill(model: BertLMHeadModel, cache: DecodeCache, input_ids, attentio
                  token_type_ids, position_ids, encoder_hidden_states, encoder_attention_mask):
     """Process the prompt (positions [0, P)) and fill the cache.
 
-    Returns (logits [B, P, V], cache)."""
+    Returns (logits [B, P, V], cache). Under a model group (no gradients
+    here, so no ``copy_to_group``) on this rank's heads, the logits
+    gathered."""
     c = model.config
     p_len = input_ids.shape[1]
-    heads, scale = c.num_attention_heads, 1.0 / math.sqrt(c.head_dim)
+    heads, scale = local_heads(model), 1.0 / math.sqrt(c.head_dim)
+    tp = model.tp
+    att_group = _group(model, "heads")
     self_mask = causal_additive_mask(attention_mask)
     cross_mask = padding_additive_mask(encoder_attention_mask)
     hidden = bert_embed(model, input_ids, token_type_ids, position_ids,
@@ -333,7 +424,8 @@ def bert_prefill(model: BertLMHeadModel, cache: DecodeCache, input_ids, attentio
         cache.self_k[i][:, :, :p_len] = kh
         cache.self_v[i][:, :, :p_len] = vh
         ctx = attention(qh, kh, vh, scale, self_mask)
-        hidden = sa.output.LayerNorm(sa.output.dense(merge_heads(ctx)) + hidden)
+        hidden = sa.output.LayerNorm(_out_proj(sa.output.dense, merge_heads(ctx), att_group)
+                                     + hidden)
 
         ca = layer.crossattention
         ck = split_heads(ca.self.key(encoder_hidden_states), heads)
@@ -342,8 +434,9 @@ def bert_prefill(model: BertLMHeadModel, cache: DecodeCache, input_ids, attentio
         cache.cross_v[i].copy_(cv)
         cq = split_heads(ca.self.query(hidden), heads)
         cctx = attention(cq, ck, cv, scale, cross_mask)
-        hidden = ca.output.LayerNorm(ca.output.dense(merge_heads(cctx)) + hidden)
-        hidden = _mlp(layer, hidden)
+        hidden = ca.output.LayerNorm(_out_proj(ca.output.dense, merge_heads(cctx), att_group)
+                                     + hidden)
+        hidden = _mlp(layer, hidden, tp=tp)
     return bert_lm_head(model, hidden), cache
 
 
@@ -378,12 +471,18 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
         and only valid with, the ``cross-rowgroup-q8`` spec; the cache's own
         cross tensors are then zero-width placeholders.
     Returns (logits [B, V], cache), or (logits, (new_k, new_v)) with per-layer
-    [B, H, Dh] lists under ``deferred_write``.
+    [B, H, Dh] lists under ``deferred_write``. Under a model group (no
+    gradients here, so no ``copy_to_group``) H is this rank's heads and the
+    logits are gathered; the fused path raises there.
     """
     c = model.config
-    heads, dh = c.num_attention_heads, c.head_dim
+    heads, dh = local_heads(model), c.head_dim
+    tp = model.tp
+    att_group = _group(model, "heads")
     dtype = cache.cross_k[0].dtype
     decode_kernel = da.resolve_decode_kernel(decode_kernel)
+    if use_fused and tp is not None:
+        raise NotImplementedError(FUSED_TP)
     if use_fused and model.lora is None and not deferred_write:
         if decode_kernel:
             warnings.warn(
@@ -450,7 +549,8 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
             cache.self_v[i][:, :, index] = vh[:, :, 0]
             k_read, v_read = cache.self_k[i], cache.self_v[i]
         ctx = attn(qh, k_read, v_read, self_mask2d, False)
-        hidden = sa.output.LayerNorm(sa.output.dense(merge_heads(ctx)) + hidden)
+        hidden = sa.output.LayerNorm(_out_proj(sa.output.dense, merge_heads(ctx), att_group)
+                                     + hidden)
 
         ca = layer.crossattention
         cq = ca.self.query(hidden)  # [B, 1, D]
@@ -458,8 +558,8 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
         cqh = cq.reshape(groups, beams, heads, dh).transpose(1, 2).contiguous()
         gctx = cross_attn(cqh, i)
         cctx = gctx.transpose(1, 2).reshape(bsz, 1, heads * dh)
-        hidden = ca.output.LayerNorm(ca.output.dense(cctx) + hidden)
-        hidden = _mlp(layer, hidden)
+        hidden = ca.output.LayerNorm(_out_proj(ca.output.dense, cctx, att_group) + hidden)
+        hidden = _mlp(layer, hidden, tp=tp)
     logits = bert_lm_head(model, hidden)[:, 0]
     if deferred_write:
         return logits, (pend_k, pend_v)

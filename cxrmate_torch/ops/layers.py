@@ -16,7 +16,8 @@ Train-only randomness (:func:`dropout`, LoRA's input dropout, attention-probs
 dropout, CvT's drop-path) draws from an explicit ``torch.Generator``; without
 one (``None``) each is the identity, as ``rng=None`` is in the JAX package.
 A :class:`RowStripe` in its place draws for the global batch and keeps one
-rank's rows (data parallelism over processes).
+rank's rows (data parallelism over processes); a :class:`HeadSlice` draws for
+every attention head and keeps one model rank's (tensor parallelism).
 
 With ``over_group`` (which CvT passes where its generator is a
 :class:`RowStripe`), :func:`batch_norm_train` takes the moments of the
@@ -54,22 +55,40 @@ class RowStripe:
     rows: int
 
 
-Generator = Union[torch.Generator, RowStripe]
+@dataclasses.dataclass(frozen=True)
+class HeadSlice:
+    """A generator for heads ``[lo, hi)`` (axis 1) of ``heads`` attention
+    heads split over a model group: every draw is taken over all the heads
+    from ``generator`` (a ``torch.Generator`` or a :class:`RowStripe`) and
+    cut to this slice, so a head's draws do not depend on how the heads are
+    split over ranks (every rank of the group draws alike)."""
+
+    generator: Union[torch.Generator, RowStripe]
+    lo: int
+    hi: int
+    heads: int
+
+
+Generator = Union[torch.Generator, RowStripe, HeadSlice]
 
 
 def drawing(generator: Optional[Generator]) -> bool:
     """Whether ``generator`` draws: a ``torch.Generator``, or a
-    :class:`RowStripe` over one."""
-    if isinstance(generator, RowStripe):
-        return generator.generator is not None
+    :class:`RowStripe` or :class:`HeadSlice` over one."""
+    if isinstance(generator, (RowStripe, HeadSlice)):
+        return drawing(generator.generator)
     return generator is not None
 
 
 def draw(generator: Generator, shape: Sequence[int],
          sample: Callable[[Tuple[int, ...], torch.Generator], torch.Tensor]) -> torch.Tensor:
     """``sample(shape, generator)``; for a :class:`RowStripe`, this stripe's
-    rows of ``sample(global shape, stripe.generator)``."""
+    rows of ``sample(global shape, stripe.generator)``; for a
+    :class:`HeadSlice`, its heads of the draw over every head."""
     shape = tuple(shape)
+    if isinstance(generator, HeadSlice):
+        full = draw(generator.generator, shape[:1] + (generator.heads,) + shape[2:], sample)
+        return full[:, generator.lo:generator.hi]
     if not isinstance(generator, RowStripe):
         return sample(shape, generator)
     local = generator.hi - generator.lo
@@ -97,18 +116,27 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
 def lora_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                 lora_a: Optional[torch.Tensor], lora_b: Optional[torch.Tensor],
                 scaling: float, dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                base_input: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Linear with a LoRA delta (PEFT ``lora.Linear``): ``x W^T + b + scaling
     * (drop(x) A^T) B^T`` with ``lora_a`` [r, in] and ``lora_b`` [out, r] as
     PEFT stores them; the dropout, on the LoRA branch's input only, runs in
     training (a ``generator``). The LoRA branch accumulates in fp32 and is
     rounded to the output dtype before the add, as
-    ``cxrmate_tpu/ops/layers.py:29`` does."""
-    y = linear(x, weight, bias)
+    ``cxrmate_tpu/ops/layers.py:29`` does.
+
+    Tensor parallelism (``W``, ``b`` and ``lora_b`` split along the output
+    over the model group ``group``, ``lora_a`` replicated):
+    ``base_input`` is x through ``utils.dist.copy_to_group`` (the base
+    product's input), and the rank-r product ``drop(x) A^T`` goes through
+    ``copy_to_group`` before ``lora_b``, so that ``lora_a`` and x receive
+    the whole gradient on every rank."""
+    y = linear(x if base_input is None else base_input, weight, bias)
     if lora_a is None:
         return y
     xa = dropout(x, dropout_rate, generator)
-    delta = F.linear(F.linear(xa.float(), lora_a.float()), lora_b.float())
+    rank_r = dist.copy_to_group(F.linear(xa.float(), lora_a.float()), group)
+    delta = F.linear(rank_r, lora_b.float())
     return y + (scaling * delta).to(y.dtype)
 
 
@@ -138,20 +166,22 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     the unbiased one; the new statistics are fp32 and carry no gradient.
 
     ``over_group``: x is this rank's stripe of a batch split over the
-    process group, and the moments are the global batch's: the per-channel
-    sum and count, then the sum of squares about the global mean, each
-    summed over the ranks by an all-reduce that carries the gradient back to
-    every rank's rows (the formula of one process, in two collectives; the
-    identity without a group)."""
+    data group (``utils.dist.data_group``), and the moments are the global
+    batch's: the per-channel sum and count, then the sum of squares about
+    the global mean, each summed over the data ranks by an all-reduce that
+    carries the gradient back to every rank's rows (the formula of one
+    process, in two collectives; the identity without a group). The ranks
+    of a model group hold the same rows and the same replicated encoder."""
     xf = x.float()
     n = x.numel() // x.shape[1]
     if over_group:
+        group = dist.data_group()
         sums = dist.all_reduce_sum_grad(torch.cat([xf.sum(dim=(0, 2, 3)),
-                                                   xf.new_full((1,), float(n))]))
+                                                   xf.new_full((1,), float(n))]), group)
         n = sums[-1].detach()  # on the device: no host sync per call
         mean = sums[:-1] / n
         centred = xf - mean[None, :, None, None]
-        var = dist.all_reduce_sum_grad(centred.square().sum(dim=(0, 2, 3))) / n
+        var = dist.all_reduce_sum_grad(centred.square().sum(dim=(0, 2, 3)), group) / n
         correction = n / (n - 1).clamp(min=1.0)
     else:
         mean = xf.mean(dim=(0, 2, 3))
@@ -246,10 +276,11 @@ class LoraLinear(nn.Module):
         self.lora_A = nn.ModuleDict({"default": Linear(in_features, r, bias=False, **kw)})
         self.lora_B = nn.ModuleDict({"default": Linear(r, out_features, bias=False, **kw)})
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                base_input: Optional[torch.Tensor] = None, group=None):
         return lora_linear(x, self.base_layer.weight, self.base_layer.bias,
                            self.lora_A["default"].weight, self.lora_B["default"].weight,
-                           self.scaling, self.dropout, generator)
+                           self.scaling, self.dropout, generator, base_input, group)
 
 
 class LayerNorm(nn.Module):

@@ -7,7 +7,10 @@
 Six stages, each the real ``cli.stages`` function, run on N ranks over a
 synthetic tree (``data.synthetic``) at 32-px images, the tiny preset on the
 CPU; on the card the published widths (preset ``cxrmate``), since the tiny
-preset's 6- and 8-wide heads are not what the CUDA kernels take (64):
+preset's 6- and 8-wide heads are not what the CUDA kernels take (64). The
+ranks form the (data x model) mesh of ``__graft_entry__.dryrun_multichip``:
+a model axis of 4 where 4 divides N (tensor parallelism, ``mesh_model``
+4), else 1:
   1. multi fit: the global batch's loss and gradients, greedy validation,
      a rank-0 checkpoint (the loss asserted finite);
   2. gt_prompt fit: the LoRA-only mask, prompt concatenation at static widths;
@@ -50,6 +53,12 @@ def build_tree(root: str, world: int) -> Dict[str, str]:
     return paths
 
 
+def model_axis(world: int) -> int:
+    """The model axis of a dry run on ``world`` ranks, as the JAX dry run
+    picks it: 4 where 4 divides ``world``, else 1."""
+    return 4 if world % 4 == 0 else 1
+
+
 def run(root: str, device: str, build: bool = False) -> None:
     """The six stages, on this rank of the process group (which
     ``initialize_if_needed`` joins), over the tree ``build_tree`` wrote
@@ -64,6 +73,7 @@ def run(root: str, device: str, build: bool = False) -> None:
     joined = initialize_if_needed(device)
     try:
         world, main = dist.world_size(), dist.rank() == 0
+        model = model_axis(world)
         if build and main:
             build_tree(root, world)
         dist.barrier()
@@ -78,7 +88,8 @@ def run(root: str, device: str, build: bool = False) -> None:
                           device=device, mbatch_size=2 * world, accumulated_mbatch_size=2 * world,
                           max_epochs=1, decoder_max_len=24, max_images_per_study=1,
                           model_preset=preset, image_size=32, monitor="val_report_nlg_bleu_1",
-                          fast_dev_run=True, image_cache_dir=None, **paths)
+                          fast_dev_run=True, image_cache_dir=None, mesh_model=model,
+                          **paths)
             fields.update(kw)
             return TaskConfig(**fields)
 
@@ -116,9 +127,10 @@ def run(root: str, device: str, build: bool = False) -> None:
         if not any("bleu" in k for k in scores):
             raise AssertionError(f"gen_prompt test: {scores}")
         say(f"dryrun gen_prompt test OK ({world} ranks)", flush=True)
-        say(f"dryrun OK on {world} ranks ({torch.distributed.get_backend() if joined else 'no group'}, "
-            f"{device}, preset {preset}), loss={loss:.4f} [multi fit, gt_prompt fit, scst fit, "
-            "beam4 test, single fit, gen_prompt test]", flush=True)
+        say(f"dryrun OK on {world} ranks (mesh {world // model}x{model}, "
+            f"{torch.distributed.get_backend() if joined else 'no group'}, {device}, preset "
+            f"{preset}), loss={loss:.4f} [multi fit, gt_prompt fit, scst fit, beam4 test, "
+            "single fit, gen_prompt test]", flush=True)
     finally:
         if joined:
             torch.distributed.destroy_process_group()

@@ -23,10 +23,13 @@ The entry points are those ``cxrmate_tpu/cli/stages.py:834 fit_scst`` calls:
 ``make_scst_step`` -> ``SCSTTrainer(config, rollout, grad_step, reward_fn,
 split_fn).step(state, pixels, prompt_ids, prompt_mask, findings, impression,
 generator, prompt_logits_col)``. Under a process group each rank runs its
-stripe ``row_range`` of the global batch: its rollout samples the global
-batch's draws cut to its rows, the loss is its share of the global mean,
-the loss and the gradients are summed over the ranks before the update, and
-the logged reward and baseline are the global means.
+stripe ``row_range`` of the global batch (by data rank): its rollout
+samples the global batch's draws cut to its rows, the loss is its share of
+the global mean, the loss and the gradients are summed over the data group
+before the update, and the logged reward and baseline are the global
+means. Under tensor parallelism the ranks of a model group hold the same
+rows and roll them out alike (the gathered logits are the same bytes on
+each), and the CXR-BERT reward is replicated.
 """
 
 from __future__ import annotations
@@ -209,7 +212,7 @@ class SCSTTrainer:
             lo, hi = self.row_range
             if len(findings) != hi - lo:
                 raise ValueError(f"{len(findings)} rows for the stripe [{lo}, {hi})")
-            global_rows = (hi - lo) * dist.world_size()
+            global_rows = (hi - lo) * dist.data_size()
             generator = RowStripe(generator, lo, hi, global_rows)
         sampled, baseline, enc_hidden, enc_mask = self.rollout(
             state.model, pixels, prompt_ids, prompt_mask, generator, first_col)
@@ -221,7 +224,7 @@ class SCSTTrainer:
         advantage = (r_sample - r_base).astype(np.float32)
         state, loss = self.grad_step(state, enc_hidden, enc_mask, p_len, first_col, sampled,
                                      advantage, global_rows)
-        # the global batch's means: every rank's rows in rank (= row) order
+        # the global batch's means: every data rank's rows in rank (= row) order
         adv_all = np.concatenate(dist.all_gather_list([advantage]))
         base_all = np.concatenate(dist.all_gather_list([r_base]))
         logs = {"scst_loss": float(loss), "reward": float(np.mean(adv_all)),

@@ -57,29 +57,35 @@ def cross_entropy_ignore_pad(logits: torch.Tensor, labels: torch.Tensor,
     non-pad labels, from fp32 logits.
 
     ``over_group``: the rows are this rank's stripe of a batch split over
-    the process group, and the mean is the global batch's, as the JAX loss
+    the data group, and the mean is the global batch's, as the JAX loss
     over the global array: this rank's NLL sum over the non-pad count of
-    every rank (all-reduced). The ranks' losses, and their gradients, then
-    sum to the global ones (:func:`all_reduce_loss_and_grads`)."""
+    every data rank (all-reduced). The data ranks' losses, and their
+    gradients, then sum to the global ones
+    (:func:`all_reduce_loss_and_grads`). Under tensor parallelism the
+    logits are the whole vocabulary's on every rank of a model group
+    (``models.bert``), so each computes this loss alike."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None].long())[..., 0]
     mask = (labels != pad_id).float()
     count = mask.sum()
     if over_group:
-        dist.all_reduce_sum([count])
+        dist.all_reduce_sum([count], dist.data_group())
     return (nll * mask).sum() / count.clamp(min=1.0)
 
 
 def all_reduce_loss_and_grads(loss: torch.Tensor, grads: Dict[str, torch.Tensor]
                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The SUM over the process group of a micro-step's loss and of each
+    """The SUM over the data group of a micro-step's loss and of each
     trainable gradient, in place and in one collective, before
     the optimizer accumulates them: every rank then holds the global
-    batch's loss and gradients, and its AdamW state stays a replica. The
-    identity without a group. (``nn.parallel.DistributedDataParallel``
-    would not do it here: its reducer hooks the accumulation into ``.grad``,
-    which ``torch.autograd.grad`` through ``functional_call`` never runs.)"""
-    dist.all_reduce_sum([loss.view(1)] + list(grads.values()))
+    batch's loss and gradients (of its model shard: the data group is the
+    ranks that hold the same one), and its AdamW state stays a replica of
+    theirs. The identity without a group. AdamW updates each shard
+    elementwise and clips no global norm, so nothing is reduced over the
+    model group. (``nn.parallel.DistributedDataParallel`` would not do it
+    here: its reducer hooks the accumulation into ``.grad``, which
+    ``torch.autograd.grad`` through ``functional_call`` never runs.)"""
+    dist.all_reduce_sum([loss.view(1)] + list(grads.values()), dist.data_group())
     return loss, grads
 
 
@@ -216,7 +222,7 @@ def train_generator(trial: int, global_step: int, device="cuda",
     ``SeedSequence``); the draws are not the JAX package's.
 
     ``row_range`` (this rank's stripe ``[lo, hi)`` of a global batch split
-    evenly over the process group): an ``ops.layers.RowStripe`` over the
+    evenly over the data group): an ``ops.layers.RowStripe`` over the
     same generator, whose draws are the global batch's cut to the stripe, so
     every row draws what it draws in one process."""
     seed = int(np.random.SeedSequence([trial, global_step]).generate_state(1, np.uint64)[0])
@@ -224,7 +230,7 @@ def train_generator(trial: int, global_step: int, device="cuda",
     if row_range is None:
         return gen
     lo, hi = row_range
-    return RowStripe(gen, lo, hi, (hi - lo) * dist.world_size())
+    return RowStripe(gen, lo, hi, (hi - lo) * dist.data_size())
 
 
 # --------------------------------------------------------------- batch assembly

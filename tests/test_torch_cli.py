@@ -624,16 +624,17 @@ def test_mid_epoch_resume_is_bit_equal(tree, monkeypatch, variant):
 
 
 def test_main_refuses_what_the_port_does_not_run(tree, monkeypatch):
-    """gen_prompt training (test-only, as in JAX), tensor parallelism
-    (mesh_model > 1: not ported), a mesh_data other than the world size (one
-    rank per card), and WORLD_SIZE=2 without a reachable rendezvous: the
-    group's failure raises, and nothing trains alone."""
+    """gen_prompt training (test-only, as in JAX), a model axis that does not
+    divide the process group (mesh_model=2 in one process), a mesh_data
+    other than the world size (one rank per card), and WORLD_SIZE=2 without
+    a reachable rendezvous: the group's failure raises, and nothing trains
+    alone."""
     cfg = _write_config(tree, "refuse", variant="gen_prompt")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         with pytest.raises(ValueError, match="test-only"):
             tstages.main(["--config", cfg, "--train", "device=cpu"])
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        with pytest.raises(ValueError, match="mesh_model=2 does not divide the process group's 1"):
             tstages.main(["--config", cfg, "--test", "device=cpu", "mesh_model=2"])
         with pytest.raises(ValueError, match="mesh_data=2 but the process group has 1"):
             tstages.main(["--config", cfg, "--test", "device=cpu", "mesh_data=2"])
