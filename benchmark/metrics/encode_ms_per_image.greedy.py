@@ -1,0 +1,3 @@
+"""``encode_ms_per_image`` of the greedy cells: ``serve_metrics.encode_ms_per_image``."""
+
+from benchmark.serve_metrics import encode_ms_per_image as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""``mfu`` of the greedy cells: ``serve_metrics.mfu``."""
+
+from benchmark.serve_metrics import mfu as read  # noqa: F401
