@@ -1,0 +1,5 @@
+"""``decode_wait_ms`` of the beam cells: ``program_trace.decode_wait_ms``."""
+
+from benchmark.program_trace import decode_wait_ms, reader
+
+read = reader(decode_wait_ms)

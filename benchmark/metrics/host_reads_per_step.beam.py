@@ -1,0 +1,5 @@
+"""``host_reads_per_step`` of the beam cells: ``program_trace.host_reads_per_step``."""
+
+from benchmark.program_trace import host_reads_per_step, reader
+
+read = reader(host_reads_per_step)

@@ -85,7 +85,7 @@ from cxrmate_torch.train import optim
 from cxrmate_torch.train import tf_trainer as tt
 from cxrmate_torch.utils import dist
 from cxrmate_torch.utils.device import resolve_device
-from cxrmate_torch.utils.tracing import annotate
+from cxrmate_torch.utils.tracing import span
 
 VARIANT_TO_MODEL = {
     "single": "single",
@@ -514,7 +514,7 @@ def evaluate(task, config, tokenizer, model, dataset, split: str, metrics: Dict,
         else:
             it = Prefetcher(batch_iterator(dataset, batch_rows, sort_key=sort_key, **kw))
     for batch in it:
-        with annotate("decode"):
+        with span("decode"):
             seqs, findings, impression = _decode_step_outputs(
                 task, config, tokenizer, model, batch, num_beams, pad_rows=pad_rows,
             )
@@ -754,7 +754,7 @@ def fit(task: TaskConfig, chexbert_fn=None) -> None:
                 )
                 gen = tt.train_generator(task.trial, global_step, device=device,
                                          row_range=row_shard)
-                with annotate("train_step"):
+                with span("train_step"):
                     state, loss = step(state, tf_batch, gen)
                 n_batches += 1
                 fresh += 1

@@ -26,6 +26,7 @@ from cxrmate_torch.models import bert as bert_mod
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.ops import beam_reorder as br
 from cxrmate_torch.ops.decode_attention import resolve_decode_kernel
+from cxrmate_torch.utils import tracing
 
 NEG = -1.0e9
 
@@ -84,13 +85,15 @@ def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
     early_unsat = torch.ones(b, 1, dtype=torch.bool, device=dev)
     top_k_mask = torch.arange(keep, device=dev) < k  # only top-K candidates may finalise
     cols = torch.arange(t_total, device=dev)
+    tracing.count("host_read")  # torch.tensor of a list: a blocking copy to the device
     specials = torch.tensor(gen_cfg.special_token_ids, device=dev)
     zero_kv = None
 
-    def select_and_update(log_probs_flat, cur: int, pending=None, write_idx: int = -1):
-        """One beam step given per-beam next-token log-probs [B*K, V]; the
-        new token lands at column ``cur``. Returns all_hit (a device bool)."""
-        nonlocal seq, running_scores, fin_seq, fin_scores, is_fin, early_unsat, zero_kv
+    def select_and_update(log_probs_flat, cur: int):
+        """One beam step's selection given per-beam next-token log-probs
+        [B*K, V]; the new token lands at column ``cur``. Returns (all_hit, a
+        device bool; each new beam's source beam [B*K] for :func:`reorder`)."""
+        nonlocal seq, running_scores, fin_seq, fin_scores, is_fin, early_unsat
         log_probs = log_probs_flat.reshape(b, k, vocab) + running_scores[:, :, None]
         topk_log_probs, topk_idx = top_k(log_probs.reshape(b, k * vocab), keep)
         beam_idx = topk_idx // vocab
@@ -125,17 +128,6 @@ def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
         running_scores = _gather_beams(running_log_probs, nxt)
         sel_local = _gather_beams(beam_idx, nxt).reshape(b * k).to(torch.int32).contiguous()
 
-        # in-place reorder of the self cache by source beam + this step's column
-        for li in range(len(cache.self_k)):
-            if pending is None:
-                if zero_kv is None:
-                    zero_kv = torch.zeros_like(cache.self_k[li][:, :, 0])
-                nk = nv = zero_kv
-            else:
-                nk, nv = pending[0][li], pending[1][li]
-            br.beam_reorder_write(cache.self_k[li], cache.self_v[li], nk, nv, sel_local,
-                                  write_idx, k)
-
         # early-stop heuristic (HF _check_early_stop_heuristic): the current
         # generated length stands in for the best hypothetical length
         best_possible = running_scores[:, :1] / float((cur + 1 - p_len) ** penalty)
@@ -145,30 +137,63 @@ def beam_search(model: ed.EncoderDecoder, gen_cfg: GenerationConfig,
         all_hit = hits.all()
         if early_stopping:
             all_hit = all_hit | is_fin.all()
-        return all_hit
+        return all_hit, sel_local
+
+    def reorder(sel_local, pending=None, write_idx: int = -1):
+        """In-place reorder of the self cache by source beam, with this
+        step's column (``pending``, written at ``write_idx``)."""
+        nonlocal zero_kv
+        with tracing.span("reorder"):
+            for li in range(len(cache.self_k)):
+                if pending is None:
+                    if zero_kv is None:
+                        zero_kv = torch.zeros_like(cache.self_k[li][:, :, 0])
+                    nk = nv = zero_kv
+                else:
+                    nk, nv = pending[0][li], pending[1][li]
+                br.beam_reorder_write(cache.self_k[li], cache.self_v[li], nk, nv, sel_local,
+                                      write_idx, k)
+
+    def stop() -> bool:
+        """The loop's one host read a step, whether any study may still
+        change. It closes a step: it waits for the step's selection. The
+        first, after the prefill's token, stands outside any step."""
+        with tracing.span("stop_check"):
+            tracing.count("host_read")
+            return not bool(early_unsat.any() & ~all_hit)
 
     # first step from the prefill logits
     first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
-    lp0 = torch.log_softmax(prefill_logits[:, first_col].float(), dim=-1)
-    all_hit = select_and_update(lp0.repeat_interleave(k, dim=0), p_len)
+    with tracing.span("select"):
+        lp0 = torch.log_softmax(prefill_logits[:, first_col].float(), dim=-1)
+        all_hit, sel_local = select_and_update(lp0.repeat_interleave(k, dim=0), p_len)
+    reorder(sel_local)
     cur = p_len + 1
-    while cur < t_total and bool(early_unsat.any() & ~all_hit):
-        seq_flat = seq.reshape(b * k, t_total)
-        i = cur - 1
-        before = cols[None, :] < i
-        present = ((seq_flat[:, :, None] == specials) & before[:, :, None]).any(dim=1)
-        ttype = _type_from_present(present, gen_cfg)
-        upto = cols <= i
-        if masked_pads:
-            key_mask = ((seq_flat != gen_cfg.mask_token_id) & upto).to(torch.int32)
-            pos = torch.clamp(key_mask.sum(dim=1) - 1, min=0)
-        else:
-            key_mask = upto.to(torch.int32).expand(b * k, t_total)
-            pos = torch.full((b * k,), i, dtype=torch.long, device=dev)
-        logits, pending = bert_mod.bert_step(
-            model.decoder, cache, seq_flat[:, i], ttype, pos, i, key_mask, encoder_mask,
-            deferred_write=True, decode_kernel=decode_kernel, cross_q8=cross_q8)
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        all_hit = select_and_update(lp, cur, pending, write_idx=i)
-        cur += 1
+    stopped = cur >= t_total or stop()
+    while not stopped:
+        with tracing.span("decode_step"):
+            tracing.count("decode_steps")
+            seq_flat = seq.reshape(b * k, t_total)
+            i = cur - 1
+            before = cols[None, :] < i
+            present = ((seq_flat[:, :, None] == specials) & before[:, :, None]).any(dim=1)
+            ttype = _type_from_present(present, gen_cfg)
+            upto = cols <= i
+            if masked_pads:
+                key_mask = ((seq_flat != gen_cfg.mask_token_id) & upto).to(torch.int32)
+                pos = torch.clamp(key_mask.sum(dim=1) - 1, min=0)
+            else:
+                key_mask = upto.to(torch.int32).expand(b * k, t_total)
+                pos = torch.full((b * k,), i, dtype=torch.long, device=dev)
+            with tracing.span("bert_step"):
+                logits, pending = bert_mod.bert_step(
+                    model.decoder, cache, seq_flat[:, i], ttype, pos, i, key_mask, encoder_mask,
+                    deferred_write=True, decode_kernel=decode_kernel, cross_q8=cross_q8)
+            with tracing.span("select"):
+                lp = torch.log_softmax(logits.float(), dim=-1)
+                all_hit, sel_local = select_and_update(lp, cur)
+            reorder(sel_local, pending, write_idx=i)
+            cur += 1
+            # read first: every step ends with its one read, the last one too
+            stopped = stop() or cur >= t_total
     return fin_seq[:, 0, :], fin_scores[:, 0]

@@ -36,6 +36,7 @@ from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.ops.decode_attention import resolve_decode_kernel
 from cxrmate_torch.ops.fused_decode import prepare_fused_params
 from cxrmate_torch.ops.layers import draw
+from cxrmate_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,20 +86,22 @@ def prefill(model: ed.EncoderDecoder, gen_cfg: GenerationConfig, encoder_hidden,
     dcfg = model.config.decoder
     b, p_len = prompt_ids.shape
     dev = prompt_ids.device
-    if prompt_types is None:
-        prompt_types = ed.token_ids_to_token_type_ids(
-            prompt_ids, gen_cfg.special_token_ids, gen_cfg.sections())
-    if gen_cfg.mask_token_id is not None:
-        attn_prompt = (prompt_ids != gen_cfg.mask_token_id).to(torch.int32)
-        prompt_pos = ed.cumulative_position_ids(attn_prompt)
-    else:
-        attn_prompt = torch.ones(b, p_len, dtype=torch.int32, device=dev)
-        prompt_pos = torch.arange(p_len, device=dev).expand(b, p_len)
-    cache = bert_mod.init_cache(dcfg, b, t_total, encoder_hidden.shape[1],
-                                dtype=encoder_hidden.dtype, device=dev,
-                                heads=bert_mod.local_heads(model.decoder))
-    logits, cache = bert_mod.bert_prefill(model.decoder, cache, prompt_ids, attn_prompt,
-                                          prompt_types, prompt_pos, encoder_hidden, encoder_mask)
+    with tracing.span("prefill"):
+        if prompt_types is None:
+            prompt_types = ed.token_ids_to_token_type_ids(
+                prompt_ids, gen_cfg.special_token_ids, gen_cfg.sections())
+        if gen_cfg.mask_token_id is not None:
+            attn_prompt = (prompt_ids != gen_cfg.mask_token_id).to(torch.int32)
+            prompt_pos = ed.cumulative_position_ids(attn_prompt)
+        else:
+            attn_prompt = torch.ones(b, p_len, dtype=torch.int32, device=dev)
+            prompt_pos = torch.arange(p_len, device=dev).expand(b, p_len)
+        cache = bert_mod.init_cache(dcfg, b, t_total, encoder_hidden.shape[1],
+                                    dtype=encoder_hidden.dtype, device=dev,
+                                    heads=bert_mod.local_heads(model.decoder))
+        logits, cache = bert_mod.bert_prefill(model.decoder, cache, prompt_ids, attn_prompt,
+                                              prompt_types, prompt_pos, encoder_hidden,
+                                              encoder_mask)
     return logits, cache, attn_prompt
 
 
@@ -147,6 +150,7 @@ def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
     # specials seen in seq[:, :cur-1]: the current query token is not folded
     # in yet (HF drops the last column in token_ids_to_token_type_ids_past)
     present = [_specials_present(prompt_ids[r], c) for r, c in zip(rows, cfgs)]
+    tracing.count("host_read", len(cfgs))  # torch.tensor of a list: a blocking copy each
     specials = [torch.tensor(c.special_token_ids, device=dev) for c in cfgs]
     real_count = attn_prompt.sum(dim=1)
     scores = (torch.zeros(b, max_new, model.config.decoder.vocab_size, device=dev)
@@ -166,43 +170,55 @@ def _decode(model: ed.EncoderDecoder, cfgs: Tuple[GenerationConfig, ...],
         if return_scores:
             scores[:, cur - p_len] = step_scores
 
-    first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
-    tok, step_scores = select(prefill_logits[:, first_col])
-    tok = tok.to(seq.dtype)
-    invalid = tok < 0  # a sampled row whose probabilities were not finite (_draw)
-    finished = tok == cfg.eos_token_id
-    put(tok, step_scores, p_len)
-
-    cur = p_len + 1  # tokens so far
-    while True:
-        # one host read a step: the stop test and the draws' validity
-        done, bad = torch.stack([finished.all(), invalid.any()]).tolist()
+    def stop() -> bool:
+        """The loop's one host read a step, the stop test and the draws'
+        validity. It closes a step: it waits for the step's tokens. The
+        first, after the prefill's token, stands outside any step."""
+        with tracing.span("stop_check"):
+            tracing.count("host_read")
+            done, bad = torch.stack([finished.all(), invalid.any()]).tolist()
         if bad:
             raise FloatingPointError(
                 "sampling met probabilities that are not finite (a NaN or inf logit); "
                 "torch.multinomial refuses such a distribution")
-        if done or cur >= t_total:
-            break
-        i = cur - 1  # query index = the last appended token
-        present = [p | (seq[r, i - 1, None] == s[None, :])
-                   for p, r, s in zip(present, rows, specials)]
-        types = [_type_from_present(p, c) for p, c in zip(present, cfgs)]
-        ttype = types[0] if len(types) == 1 else torch.cat(types)
-        if masked_pads:
-            pos = torch.clamp(real_count - 1, min=0)
-        else:
-            pos = torch.full((b,), i, dtype=torch.long, device=dev)
-        logits, cache = bert_mod.bert_step(
-            model.decoder, cache, seq[:, i], ttype, pos, i, key_mask, encoder_mask,
-            use_fused=use_fused, fused_prepared=fused_prepared,
-            decode_kernel=decode_kernel, cross_q8=cross_q8)
-        tok, step_scores = select(logits)
+        return done or cur >= t_total
+
+    first_col = p_len - 1 if prompt_logits_col is None else prompt_logits_col
+    with tracing.span("select"):
+        tok, step_scores = select(prefill_logits[:, first_col])
         tok = tok.to(seq.dtype)
-        invalid = invalid | (tok < 0)
-        tok = torch.where(finished, torch.full_like(tok, cfg.pad_token_id), tok)
-        finished = finished | (tok == cfg.eos_token_id)
-        put(tok, step_scores, cur)
-        cur += 1
+        invalid = tok < 0  # a sampled row whose probabilities were not finite (_draw)
+        finished = tok == cfg.eos_token_id
+        put(tok, step_scores, p_len)
+
+    cur = p_len + 1  # tokens so far
+    stopped = stop()
+    while not stopped:
+        with tracing.span("decode_step"):
+            tracing.count("decode_steps")
+            i = cur - 1  # query index = the last appended token
+            present = [p | (seq[r, i - 1, None] == s[None, :])
+                       for p, r, s in zip(present, rows, specials)]
+            types = [_type_from_present(p, c) for p, c in zip(present, cfgs)]
+            ttype = types[0] if len(types) == 1 else torch.cat(types)
+            if masked_pads:
+                pos = torch.clamp(real_count - 1, min=0)
+            else:
+                pos = torch.full((b,), i, dtype=torch.long, device=dev)
+            with tracing.span("bert_step"):
+                logits, cache = bert_mod.bert_step(
+                    model.decoder, cache, seq[:, i], ttype, pos, i, key_mask, encoder_mask,
+                    use_fused=use_fused, fused_prepared=fused_prepared,
+                    decode_kernel=decode_kernel, cross_q8=cross_q8)
+            with tracing.span("select"):
+                tok, step_scores = select(logits)
+                tok = tok.to(seq.dtype)
+                invalid = invalid | (tok < 0)
+                tok = torch.where(finished, torch.full_like(tok, cfg.pad_token_id), tok)
+                finished = finished | (tok == cfg.eos_token_id)
+                put(tok, step_scores, cur)
+            cur += 1
+            stopped = stop()
     return seq, scores
 
 

@@ -25,6 +25,7 @@ from cxrmate_torch.generate.beam import beam_search
 from cxrmate_torch.generate.decode import GenerationConfig, generate
 from cxrmate_torch.models import encoder_decoder as ed
 from cxrmate_torch.tokenizer import ByteLevelBPETokenizer
+from cxrmate_torch.utils import tracing
 from cxrmate_torch.utils.device import resolve_device
 from cxrmate_torch.utils.precision import cast_floats
 
@@ -180,6 +181,8 @@ class CXRMate:
         studies with fewer than N images -> (hidden, mask)."""
         px = (pixel_values if torch.is_tensor(pixel_values)
               else torch.from_numpy(np.asarray(pixel_values)))
+        if px.device.type != self.device.type:
+            tracing.count("host_read")  # a blocking copy to the device
         return ed.encode_images(self.model, px.to(self.device, self.dtype))
 
     @torch.no_grad()
@@ -194,41 +197,49 @@ class CXRMate:
         variant takes the previous report's sections (``None`` for a study
         without one). ``generator`` feeds ``do_sample`` (greedy only);
         ``decode_kernel`` is the decode-attention routing spec
-        (``ops.decode_attention.resolve_decode_kernel``)."""
+        (``ops.decode_attention.resolve_decode_kernel``). Inside a
+        ``torch.profiler`` session a call is one request of
+        ``utils.tracing``, its root span ``generate_report``."""
         tok = self.tokenizer
-        enc_hidden, enc_mask = self.encode(pixel_values)
-        b = enc_hidden.shape[0]
-        if self.config.variant == "longitudinal":
-            if previous_findings is None or previous_impression is None:
-                raise ValueError("the longitudinal variant needs previous_findings and "
-                                 "previous_impression (None entries for studies without)")
-            prompt = ed.tokenize_prompt(previous_findings, previous_impression, tok,
-                                        self.config.prompt_max_len, add_bos_token_id=True)
-            true_width = prompt["input_ids"].shape[1]
-            ids_b, mask_b = ed.bucket_prompt(prompt["input_ids"], prompt["attention_mask"],
-                                             tok.pad_token_id, bucket=32,
-                                             max_len=self.config.prompt_max_len)
-            prompt_ids = torch.from_numpy(ids_b.astype(np.int32)).to(self.device)
-            prompt_mask = torch.from_numpy(mask_b.astype(np.int32)).to(self.device)
-            prompt_logits_col = true_width - 1
-            split_specials = [tok.bos_token_id, tok.sep_token_id, tok.eos_token_id]
-        else:
-            prompt_ids = torch.full((b, 1), tok.bos_token_id, dtype=torch.int32,
-                                    device=self.device)
-            prompt_mask = torch.ones(b, 1, dtype=torch.int32, device=self.device)
-            prompt_logits_col = None
-            split_specials = [tok.sep_token_id, tok.eos_token_id]
+        with tracing.span("generate_report"):  # the root of one request
+            enc_hidden, enc_mask = self.encode(pixel_values)
+            b = enc_hidden.shape[0]
+            if self.config.variant == "longitudinal":
+                if previous_findings is None or previous_impression is None:
+                    raise ValueError("the longitudinal variant needs previous_findings and "
+                                     "previous_impression (None entries for studies without)")
+                with tracing.span("prompt"):
+                    prompt = ed.tokenize_prompt(previous_findings, previous_impression, tok,
+                                                self.config.prompt_max_len, add_bos_token_id=True)
+                    true_width = prompt["input_ids"].shape[1]
+                    ids_b, mask_b = ed.bucket_prompt(prompt["input_ids"], prompt["attention_mask"],
+                                                     tok.pad_token_id, bucket=32,
+                                                     max_len=self.config.prompt_max_len)
+                    tracing.count("host_read", 2)  # two blocking copies to the device
+                    prompt_ids = torch.from_numpy(ids_b.astype(np.int32)).to(self.device)
+                    prompt_mask = torch.from_numpy(mask_b.astype(np.int32)).to(self.device)
+                prompt_logits_col = true_width - 1
+                split_specials = [tok.bos_token_id, tok.sep_token_id, tok.eos_token_id]
+            else:
+                prompt_ids = torch.full((b, 1), tok.bos_token_id, dtype=torch.int32,
+                                        device=self.device)
+                prompt_mask = torch.ones(b, 1, dtype=torch.int32, device=self.device)
+                prompt_logits_col = None
+                split_specials = [tok.sep_token_id, tok.eos_token_id]
 
-        gen_cfg = self._gen_cfg(num_beams, max_new_tokens, do_sample, top_k, top_p, temperature)
-        if num_beams > 1:
-            seqs, _ = beam_search(self.model, gen_cfg, enc_hidden, enc_mask, prompt_ids,
-                                  prompt_mask, prompt_logits_col=prompt_logits_col,
-                                  decode_kernel=decode_kernel)
-        else:
-            seqs = generate(self.model, gen_cfg, enc_hidden, enc_mask, prompt_ids, prompt_mask,
-                            generator, prompt_logits_col=prompt_logits_col,
-                            decode_kernel=decode_kernel)
-        sections = ed.split_and_decode_sections(seqs.cpu().numpy(), split_specials, tok)
+            gen_cfg = self._gen_cfg(num_beams, max_new_tokens, do_sample, top_k, top_p,
+                                    temperature)
+            if num_beams > 1:
+                seqs, _ = beam_search(self.model, gen_cfg, enc_hidden, enc_mask, prompt_ids,
+                                      prompt_mask, prompt_logits_col=prompt_logits_col,
+                                      decode_kernel=decode_kernel)
+            else:
+                seqs = generate(self.model, gen_cfg, enc_hidden, enc_mask, prompt_ids,
+                                prompt_mask, generator, prompt_logits_col=prompt_logits_col,
+                                decode_kernel=decode_kernel)
+            with tracing.span("split_and_decode"):
+                tracing.count("host_read")  # the sequences to the host
+                sections = ed.split_and_decode_sections(seqs.cpu().numpy(), split_specials, tok)
         findings, impression = sections[-2:]  # longitudinal: the prompt section comes first
         return list(findings), list(impression)
 

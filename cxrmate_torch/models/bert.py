@@ -74,7 +74,7 @@ from cxrmate_torch.ops.layers import (
     merge_heads,
     split_heads,
 )
-from cxrmate_torch.utils import dist
+from cxrmate_torch.utils import dist, tracing
 
 NEG = float(torch.finfo(torch.float32).min)
 FUSED_TP = ("the fused decode step (use_fused=True) does not run under tensor parallelism: "
@@ -492,34 +492,38 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
                 "knobs" % decode_kernel,
                 RuntimeWarning,
             )
-        hidden = bert_embed(model, input_id[:, None], token_type_id[:, None],
-                            position_id[:, None], dtype=dtype)
-        h = hidden[:, 0].contiguous()
-        key_mask32 = key_mask.to(torch.int32).contiguous()
-        cross_mask32 = encoder_attention_mask.to(torch.int32).contiguous()
+        with tracing.span("embed"):
+            hidden = bert_embed(model, input_id[:, None], token_type_id[:, None],
+                                position_id[:, None], dtype=dtype)
+            h = hidden[:, 0].contiguous()
+            key_mask32 = key_mask.to(torch.int32).contiguous()
+            cross_mask32 = encoder_attention_mask.to(torch.int32).contiguous()
         for i, layer in enumerate(model.bert.encoder.layer):
-            h = fused_decode.fused_layer_step_v2(
-                h, layer, cache.self_k[i], cache.self_v[i], cache.cross_k[i], cache.cross_v[i],
-                index, key_mask32, cross_mask32, eps=c.layer_norm_eps,
-                prepared=fused_prepared[i] if fused_prepared is not None else None)
-        return bert_lm_head(model, h[:, None, :])[:, 0], cache
+            with tracing.span("layer"):
+                h = fused_decode.fused_layer_step_v2(
+                    h, layer, cache.self_k[i], cache.self_v[i], cache.cross_k[i],
+                    cache.cross_v[i], index, key_mask32, cross_mask32, eps=c.layer_norm_eps,
+                    prepared=fused_prepared[i] if fused_prepared is not None else None)
+        with tracing.span("lm_head"):
+            return bert_lm_head(model, h[:, None, :])[:, 0], cache
     if da.is_q8(decode_kernel) != (cross_q8 is not None):
         raise ValueError(
             "cross-rowgroup-q8 requires the caller to pass quantize_cross_cache's "
             "cross_q8 tuples (and cross_q8 is only valid with that spec); got "
             f"decode_kernel={decode_kernel!r}, cross_q8={'set' if cross_q8 else 'None'}")
-    hidden = bert_embed(model, input_id[:, None], token_type_id[:, None], position_id[:, None],
-                        dtype=dtype)
-    self_mask2d = ((1.0 - key_mask.float()) * NEG).contiguous()
-    cross_mask2d = ((1.0 - encoder_attention_mask.float()) * NEG).contiguous()
-    bsz = hidden.shape[0]
-    groups = cache.cross_k[0].shape[0]
-    beams = bsz // groups
-    scale = 1.0 / math.sqrt(dh)
-    is_new = None
-    if deferred_write:
-        t_cols = torch.arange(cache.self_k[0].shape[2], device=hidden.device)
-        is_new = (t_cols == index)[None, None, :, None]
+    with tracing.span("embed"):  # the token's embedding, the masks and positions
+        hidden = bert_embed(model, input_id[:, None], token_type_id[:, None],
+                            position_id[:, None], dtype=dtype)
+        self_mask2d = ((1.0 - key_mask.float()) * NEG).contiguous()
+        cross_mask2d = ((1.0 - encoder_attention_mask.float()) * NEG).contiguous()
+        bsz = hidden.shape[0]
+        groups = cache.cross_k[0].shape[0]
+        beams = bsz // groups
+        scale = 1.0 / math.sqrt(dh)
+        is_new = None
+        if deferred_write:
+            t_cols = torch.arange(cache.self_k[0].shape[2], device=hidden.device)
+            is_new = (t_cols == index)[None, None, :, None]
     pend_k, pend_v = [], []
 
     def attn(qh, kh, vh, mask2d, is_cross: bool):
@@ -535,32 +539,34 @@ def bert_step(model: BertLMHeadModel, cache: DecodeCache, input_id, token_type_i
         return attn(cqh, cache.cross_k[i], cache.cross_v[i], cross_mask2d, True)
 
     for i, layer in enumerate(model.bert.encoder.layer):
-        sa = layer.attention
-        qh = split_heads(sa.self.query(hidden), heads).contiguous()  # [B, H, 1, Dh]
-        kh = split_heads(sa.self.key(hidden), heads).to(dtype)
-        vh = split_heads(sa.self.value(hidden), heads).to(dtype)
-        if deferred_write:
-            k_read = torch.where(is_new, kh, cache.self_k[i])
-            v_read = torch.where(is_new, vh, cache.self_v[i])
-            pend_k.append(kh[:, :, 0].contiguous())
-            pend_v.append(vh[:, :, 0].contiguous())
-        else:
-            cache.self_k[i][:, :, index] = kh[:, :, 0]
-            cache.self_v[i][:, :, index] = vh[:, :, 0]
-            k_read, v_read = cache.self_k[i], cache.self_v[i]
-        ctx = attn(qh, k_read, v_read, self_mask2d, False)
-        hidden = sa.output.LayerNorm(_out_proj(sa.output.dense, merge_heads(ctx), att_group)
-                                     + hidden)
+        with tracing.span("layer"):
+            sa = layer.attention
+            qh = split_heads(sa.self.query(hidden), heads).contiguous()  # [B, H, 1, Dh]
+            kh = split_heads(sa.self.key(hidden), heads).to(dtype)
+            vh = split_heads(sa.self.value(hidden), heads).to(dtype)
+            if deferred_write:
+                k_read = torch.where(is_new, kh, cache.self_k[i])
+                v_read = torch.where(is_new, vh, cache.self_v[i])
+                pend_k.append(kh[:, :, 0].contiguous())
+                pend_v.append(vh[:, :, 0].contiguous())
+            else:
+                cache.self_k[i][:, :, index] = kh[:, :, 0]
+                cache.self_v[i][:, :, index] = vh[:, :, 0]
+                k_read, v_read = cache.self_k[i], cache.self_v[i]
+            ctx = attn(qh, k_read, v_read, self_mask2d, False)
+            hidden = sa.output.LayerNorm(_out_proj(sa.output.dense, merge_heads(ctx), att_group)
+                                         + hidden)
 
-        ca = layer.crossattention
-        cq = ca.self.query(hidden)  # [B, 1, D]
-        # fold a study's beams into the query rows over its shared cross cache
-        cqh = cq.reshape(groups, beams, heads, dh).transpose(1, 2).contiguous()
-        gctx = cross_attn(cqh, i)
-        cctx = gctx.transpose(1, 2).reshape(bsz, 1, heads * dh)
-        hidden = ca.output.LayerNorm(_out_proj(ca.output.dense, cctx, att_group) + hidden)
-        hidden = _mlp(layer, hidden, tp=tp)
-    logits = bert_lm_head(model, hidden)[:, 0]
+            ca = layer.crossattention
+            cq = ca.self.query(hidden)  # [B, 1, D]
+            # fold a study's beams into the query rows over its shared cross cache
+            cqh = cq.reshape(groups, beams, heads, dh).transpose(1, 2).contiguous()
+            gctx = cross_attn(cqh, i)
+            cctx = gctx.transpose(1, 2).reshape(bsz, 1, heads * dh)
+            hidden = ca.output.LayerNorm(_out_proj(ca.output.dense, cctx, att_group) + hidden)
+            hidden = _mlp(layer, hidden, tp=tp)
+    with tracing.span("lm_head"):
+        logits = bert_lm_head(model, hidden)[:, 0]
     if deferred_write:
         return logits, (pend_k, pend_v)
     return logits, cache

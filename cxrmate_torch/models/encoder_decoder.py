@@ -23,6 +23,7 @@ from torch import nn
 from cxrmate_torch.configs import EncoderDecoderConfig
 from cxrmate_torch.models.bert import BertLMHeadModel, bert_forward
 from cxrmate_torch.models.cvt import CvtWithProjectionHead, batch_stats, cvt_encode
+from cxrmate_torch.utils import tracing
 
 
 class EncoderDecoder(nn.Module):
@@ -51,20 +52,24 @@ def encode_images(model: EncoderDecoder, pixel_values: torch.Tensor, train: bool
     (and in train mode enter the BatchNorm statistics), as in JAX.
     ``single``: [B, 3, H, W], or slot 0 of a 5-D batch (its other slots are
     padding), and a mask of all ones. ``train``/``generator``: CvT's train
-    mode (``models.cvt``)."""
-    if model.config.variant == "single":
-        if pixel_values.dim() == 5:
-            pixel_values = pixel_values[:, 0]
-        hidden = cvt_encode(model.encoder, pixel_values, train, generator)
-        return hidden, torch.ones(hidden.shape[:2], dtype=torch.int32, device=hidden.device)
-    b, n = pixel_values.shape[:2]
-    flat = pixel_values.reshape((b * n,) + tuple(pixel_values.shape[2:]))
-    hidden = cvt_encode(model.encoder, flat, train, generator)
-    tokens_per = hidden.shape[1]
-    hidden = hidden.reshape(b, n * tokens_per, hidden.shape[-1])
-    img_mask = (pixel_values[:, :, 0, 0, 0] != 0.0).to(torch.int32)
-    mask = img_mask.repeat_interleave(tokens_per, dim=1)
-    return hidden, mask
+    mode (``models.cvt``). Traced as the span ``encode``, timed on the
+    device's stream too, with the count ``images`` of slots encoded."""
+    with tracing.span("encode", device=pixel_values.device):
+        if model.config.variant == "single":
+            if pixel_values.dim() == 5:
+                pixel_values = pixel_values[:, 0]
+            tracing.count("images", pixel_values.shape[0])
+            hidden = cvt_encode(model.encoder, pixel_values, train, generator)
+            return hidden, torch.ones(hidden.shape[:2], dtype=torch.int32, device=hidden.device)
+        b, n = pixel_values.shape[:2]
+        tracing.count("images", b * n)
+        flat = pixel_values.reshape((b * n,) + tuple(pixel_values.shape[2:]))
+        hidden = cvt_encode(model.encoder, flat, train, generator)
+        tokens_per = hidden.shape[1]
+        hidden = hidden.reshape(b, n * tokens_per, hidden.shape[-1])
+        img_mask = (pixel_values[:, :, 0, 0, 0] != 0.0).to(torch.int32)
+        mask = img_mask.repeat_interleave(tokens_per, dim=1)
+        return hidden, mask
 
 
 def forward(model: EncoderDecoder, pixel_values: Optional[torch.Tensor],
@@ -107,6 +112,7 @@ def token_ids_to_token_type_ids(token_ids: torch.Tensor, special_token_ids: Sequ
         first = torch.argmax((token_ids == sid).to(torch.int32), dim=1)  # 0 when absent
         exists = (first != 0) & (first + 1 < l)
         after = cols[None, :] > first[:, None]
+        tracing.count("host_read")  # torch.tensor of a Python int: a blocking copy to the device
         out = torch.where(exists[:, None] & after,
                           torch.tensor(sections[i + 1], dtype=torch.int32, device=out.device), out)
     return out

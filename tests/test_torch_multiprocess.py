@@ -637,26 +637,28 @@ def test_launch_ranks_stops_every_rank(mp, case):
 
 
 def test_tracing_annotate_profile_and_step_timer(tmp_path):
-    """The stages' ``annotate`` ranges show in a ``profile`` session's
-    events and its trace file; ``StepTimer`` times each measured block."""
-    from cxrmate_torch.utils.tracing import StepTimer, annotate, profile
+    """The stages' spans ("decode", "train_step") show in a ``profile``
+    session's events and its trace file, and are recorded as one request
+    with its counts; outside a session a span records nothing."""
+    from cxrmate_torch.utils import tracing
 
-    @annotate("decorated")
-    def double(x):
-        return x * 2
-
-    timer = StepTimer()
-    with profile(str(tmp_path / "trace")) as prof:
-        with annotate("train_step"), timer.measure():
-            out = double(torch.ones(4))
-    with profile(str(tmp_path / "off"), enabled=False) as off:
-        assert off is None
+    before = tracing.requests()
+    with tracing.span("train_step"):
+        tracing.count("host_read")
+    assert tracing.requests() == before
+    with tracing.profile(str(tmp_path / "trace")) as trace:
+        with tracing.span("train_step"):
+            with tracing.span("decode"):
+                tracing.count("host_read", 2)
+            out = torch.ones(4) * 2
     assert out.tolist() == [2.0] * 4
-    names = {e.key for e in prof.key_averages()}
-    assert {"train_step", "decorated"} <= names, names
-    assert os.listdir(tmp_path / "trace") and not (tmp_path / "off").exists()
-    summary = timer.summary()
-    assert len(timer.times) == 1 and summary["min_s"] == summary["mean_s"] > 0
+    names = {e.key for e in trace.session.key_averages()}
+    assert {"cxr.train_step", "cxr.decode"} <= names, names
+    assert len(os.listdir(tmp_path / "trace")) == 2
+    step, decode = tracing.requests()[-1]
+    assert (step.name, step.parent, decode.name, decode.parent) == (
+        "train_step", None, "decode", step.id)
+    assert decode.counts == {"host_read": 2} and step.t0 <= decode.t0 <= decode.t1 <= step.t1
 
 
 if __name__ == "__main__":
